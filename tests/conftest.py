@@ -24,6 +24,12 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: runs a CUDA kernel; needs an NVIDIA GPU and skips "
+        "without one")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)
