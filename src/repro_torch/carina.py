@@ -13,8 +13,10 @@
 
 Names mirror `repro.carina` for what the port covers.  Sweeps run on the
 card by default (`device="cuda"`); pass `device="cpu"` to run the
-kernels' plain PyTorch versions.  Not ported yet: `optimize`, MPC,
-serving, grid-data ingestion and calibration, the plan cache and
+kernels' plain PyTorch versions.  `ServingSession` is the live-mode
+adapter of the decode-serving engine (`repro_torch.serving.engine`); its
+windowed mode is not ported yet.  Not ported yet either: `optimize`,
+MPC, grid-data ingestion and calibration, the plan cache and
 `delta_sweep` (see ROADMAP.md).
 """
 from repro_torch.core.carbon import (DTE_FACTOR, MIDWEST_HOURLY,  # noqa: F401
@@ -56,6 +58,7 @@ from repro_torch.core.schedule import (AllocationSchedule,  # noqa: F401
                                        dedupe_names, parametric_schedule,
                                        progress_ramp_schedule,
                                        proportional_split)
+from repro_torch.core.serve import ServingSession  # noqa: F401
 from repro_torch.core.session import Campaign, CampaignReport  # noqa: F401
 from repro_torch.core.signal import (TOU_PRICE, BandSignal,  # noqa: F401
                                      ConstantSignal, DayAheadForecast,

@@ -1,0 +1,30 @@
+"""Architecture registry of the port: the architectures it serves so far.
+
+The reference registers ten architectures; the port serves the dense
+`tinyllama-1.1b` (full and smoke) and raises `NotImplementedError` for
+the other nine until their families are ported (ROADMAP.md Queue 1).
+"""
+from __future__ import annotations
+
+from repro_torch.configs import tinyllama_1_1b
+from repro_torch.configs.base import (ModelConfig,  # noqa: F401
+                                      smoke_variant)
+
+_PORTED = {"tinyllama-1.1b": tinyllama_1_1b}
+_NOT_PORTED = ("granite-34b", "qwen2.5-14b", "llama3-405b",
+               "moonshot-v1-16b-a3b", "deepseek-v2-lite-16b",
+               "falcon-mamba-7b", "recurrentgemma-9b", "qwen2-vl-7b",
+               "whisper-small")
+
+ARCH_NAMES = tuple(_PORTED)
+
+
+def get_config(name: str, smoke: bool = False) -> ModelConfig:
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported yet; the port serves "
+            f"{ARCH_NAMES} (ROADMAP.md Queue 1)")
+    if name not in _PORTED:
+        raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
+    mod = _PORTED[name]
+    return mod.SMOKE if smoke else mod.FULL

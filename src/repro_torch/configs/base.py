@@ -1,0 +1,140 @@
+"""Model configurations of the port: the reference's `ModelConfig` with
+its sub-configs and `smoke_variant`, field for field, so that a config
+written for one package reads the same in the other.
+
+Only the dense family is served by this package so far (see
+`configs/__init__.py::get_config` and `models/model.py::build_model`).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+# Block kinds used by models/transformer.py per-layer patterns.
+ATTN = "attn"          # softmax attention (GQA/MQA; window>0 => local)
+MLA = "mla"            # DeepSeek multi-head latent attention
+MAMBA = "mamba"        # Mamba-1 selective SSM
+RGLRU = "rglru"        # Griffin RG-LRU recurrent block
+LOCAL_ATTN = "local"   # local (windowed) attention
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 0
+    num_shared_experts: int = 0
+    top_k: int = 1
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+    aux_loss_weight: float = 0.01
+    layer_mode: str = "all_but_first"
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class RGLRUConfig:
+    lru_width: int = 0
+    d_conv: int = 4
+    block_width_multiplier: float = 1.0
+    local_window: int = 2048
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                        # dense|moe|ssm|hybrid|vlm|audio
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                  # 0 => d_model // num_heads
+    # --- attention details
+    attention_kind: str = ATTN         # attn|mla|none
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    rope_kind: str = "rope"            # rope|mrope|none|sinusoid
+    mrope_sections: Tuple[int, int, int] = (16, 24, 24)
+    attn_logit_softcap: float = 0.0
+    # --- per-layer block pattern, cycled over layers
+    block_pattern: Tuple[str, ...] = (ATTN,)
+    # --- mlp
+    mlp_kind: str = "swiglu"           # swiglu|gelu
+    # --- sub-configs
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
+    # --- encoder-decoder (whisper)
+    encdec: bool = False
+    enc_layers: int = 0
+    dec_layers: int = 0
+    cross_kv_len: int = 1500
+    dec_train_len: int = 512
+    # --- vlm
+    n_vision_tokens: int = 0
+    # --- embeddings / misc
+    tie_embeddings: bool = True
+    norm_eps: float = 1e-6
+    dtype: str = "bfloat16"
+    # --- runtime knobs of the reference (not architecture)
+    remat: str = "none"
+    use_scan: bool = True
+    kernels: str = "auto"
+    blocked_xent: bool = False
+    vocab_block: int = 8192
+    pad_heads_to_tp: bool = False
+    moe_expert_fsdp: bool = True
+    decode_cache_seq_shard: bool = False
+    decode_2d_tp: bool = False
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Temporal-mixing kind for each layer (pattern cycled)."""
+        p = self.block_pattern
+        return tuple(p[i % len(p)] for i in range(self.num_layers))
+
+    def layer_is_moe(self, i: int) -> bool:
+        if self.moe is None:
+            return False
+        if self.moe.layer_mode == "all":
+            return True
+        return i > 0  # all_but_first
+
+
+def smoke_variant(cfg: ModelConfig, **overrides) -> ModelConfig:
+    """Shrink a config to CPU-test scale, preserving family structure
+    (the reference's rule, for the families this package serves)."""
+    kw = dict(
+        num_layers=min(cfg.num_layers, len(cfg.block_pattern) + 1),
+        d_model=64,
+        num_heads=4,
+        num_kv_heads=min(cfg.num_kv_heads, 2) if cfg.num_kv_heads > 1 else 1,
+        head_dim=16,
+        d_ff=128,
+        vocab_size=256,
+        use_scan=True,
+    )
+    kw["name"] = cfg.name + "-smoke"
+    kw.update(overrides)
+    return dataclasses.replace(cfg, **kw)

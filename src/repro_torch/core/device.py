@@ -25,6 +25,14 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def exact_fp32() -> None:
+    """Keep fp32 matrix products and convolutions in full fp32 on the card
+    (no TF32), as the reference computes them; called where the port runs
+    fp32 products."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def reject_unported(*, devices: Optional[int] = None,
                     backend: Optional[str] = None,
                     cache_dir: Optional[str] = None) -> None:

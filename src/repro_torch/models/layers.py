@@ -1,0 +1,270 @@
+"""Model layers of the port, as plain functions on tensors in the
+reference's layout (`src/repro/models/layers.py`): RMSNorm, rotary
+embeddings, GQA attention (prefill and per-slot decode) and the SwiGLU
+MLP.
+
+Dispatch follows the reference: `attention` sends a call to the flash
+kernel (K5, `kernels/ops.py::flash_attention`) exactly where the
+reference's gate admits it (no window, no softcap, no validity mask, no
+query offset, equal q/v head dims, more than one query); every other call
+runs `_attend_dense` in plain tensor ops, as the reference computes it
+outside any Pallas kernel.  `rms_norm` runs K8, which computes the same
+function as the reference's `rms_norm`.  The tensors' device picks the
+kernel (CUDA) or its plain version (CPU).
+
+Not ported (raise `NotImplementedError`): windowed and soft-capped
+attention, head padding, grouped-KV decode, MLA, M-RoPE and query
+chunking above `chunk_q`.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.device import exact_fp32
+from repro_torch.kernels import ops
+from repro_torch.kernels import rmsnorm as RN
+from repro_torch.models.param import ParamSpec
+
+F32 = torch.float32
+NEG_INF = -1e30
+
+
+def _unported(what: str):
+    raise NotImplementedError(f"{what} is not ported yet (the port serves "
+                              "the dense family; ROADMAP.md Queue 1)")
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis through K8 (rows flattened)."""
+    y = RN.rmsnorm(x.reshape(-1, x.shape[-1]), scale, eps)
+    return y.reshape(x.shape)
+
+
+def norm_spec(d: int) -> ParamSpec:
+    return ParamSpec((d,), init="zeros")
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings
+# ---------------------------------------------------------------------------
+def rope_cos_sin(positions: torch.Tensor, dim: int,
+                 theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions: (...,) int -> cos/sin (..., dim/2) in fp32."""
+    exps = torch.arange(0, dim, 2, dtype=F32, device=positions.device) / dim
+    inv_freq = 1.0 / (theta ** exps)
+    ang = positions.to(F32)[..., None] * inv_freq
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, D); cos/sin: (B, S, D/2) or (S, D/2)."""
+    dt = x.dtype
+    x = x.to(F32)
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    if cos.dim() == 2:
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+def _mask_bias(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
+               window: int) -> torch.Tensor:
+    """(Sq, Sk) additive mask bias in fp32."""
+    if window > 0:
+        _unported("windowed attention")
+    ok = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                    device=qpos.device)
+    if causal:
+        ok &= kpos[None, :] <= qpos[:, None]
+    return torch.where(ok, 0.0, NEG_INF).to(F32)
+
+
+def _attend_dense(q, k, v, qpos, kpos, causal, window, scale, softcap,
+                  kv_valid=None):
+    """q: (B,Sq,H,D) k,v: (B,Sk,H,D) (kv pre-repeated to H) -> (B,Sq,H,D).
+    Scores and softmax in fp32, P cast to v's dtype for the PV product."""
+    if softcap > 0:
+        _unported("soft-capped attention")
+    exact_fp32()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(F32), k.to(F32)) * scale
+    s = s + _mask_bias(qpos, kpos, causal, window)[None, None]
+    if kv_valid is not None:  # (B, Sk) bool — decode cache validity
+        s = s + torch.where(kv_valid, 0.0, NEG_INF).to(F32)[:, None, None, :]
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
+
+
+def attention(q, k, v, *, causal: bool, window: int = 0,
+              scale: Optional[float] = None, softcap: float = 0.0,
+              q_offset: int = 0, chunk_q: int = 1024,
+              kv_valid: Optional[torch.Tensor] = None,
+              pad_heads: bool = False, group_kv: bool = False):
+    """GQA attention.  q: (B,Sq,Hq,D), k/v: (B,Sk,Hkv,D) -> (B,Sq,Hq,D)."""
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    dv = v.shape[-1]
+    assert hq % hkv == 0, (hq, hkv)
+    g = hq // hkv
+    if window > 0:
+        _unported("windowed attention")
+    if softcap > 0:
+        _unported("soft-capped attention")
+    if pad_heads:
+        _unported("head-padded TP attention (pad_heads)")
+    if group_kv:
+        _unported("grouped-KV attention (group_kv)")
+
+    # the reference's flash gate (layers.py:296), to the letter
+    if (window == 0 and softcap == 0.0 and kv_valid is None
+            and q_offset == 0 and d == dv and sq > 1):
+        return ops.flash_attention(q, k, v, causal, scale)
+
+    if sq > chunk_q:
+        _unported(f"query chunking (Sq {sq} > chunk_q {chunk_q})")
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if g > 1:  # broadcast KV heads, as the reference does
+        k = k.repeat_interleave(g, dim=2)
+        v = v.repeat_interleave(g, dim=2)
+    kpos = torch.arange(sk, dtype=torch.int32, device=q.device)
+    qpos = q_offset + torch.arange(sq, dtype=torch.int32, device=q.device)
+    return _attend_dense(q, k, v, qpos, kpos, causal, window, scale, softcap,
+                         kv_valid)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention block (params + apply)
+# ---------------------------------------------------------------------------
+def attn_spec(cfg: ModelConfig) -> dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    s = {
+        "wq": ParamSpec((d, nq, hd), init="scaled"),
+        "wk": ParamSpec((d, nkv, hd), init="scaled"),
+        "wv": ParamSpec((d, nkv, hd), init="scaled"),
+        "wo": ParamSpec((nq, hd, d), init="scaled"),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = ParamSpec((nq, hd), init="zeros")
+        s["bk"] = ParamSpec((nkv, hd), init="zeros")
+        s["bv"] = ParamSpec((nkv, hd), init="zeros")
+    return s
+
+
+def _qkv(x, p, cfg: ModelConfig):
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"][None, None]
+        k = k + p["bk"][None, None]
+        v = v + p["bv"][None, None]
+    return q, k, v
+
+
+def _rope_for(cfg: ModelConfig, positions, hd: int, seq: int, device):
+    """cos/sin for this arch's rope kind; positions: (S,) or None."""
+    if cfg.rope_kind in ("none", "sinusoid"):
+        return None
+    if cfg.rope_kind == "mrope":
+        _unported("M-RoPE")
+    if positions is None:
+        positions = torch.arange(seq, dtype=torch.int32, device=device)
+    return rope_cos_sin(positions, hd, cfg.rope_theta)
+
+
+def attn_block(x, p, cfg: ModelConfig, *, causal: bool = False,
+               window: int = 0, positions=None, cross_kv=None):
+    """Full-sequence attention block (prefill). Returns (out, (k, v))."""
+    if cross_kv is not None:
+        _unported("cross attention (encoder-decoder)")
+    _, s, _ = x.shape
+    q, k, v = _qkv(x, p, cfg)
+    cs = _rope_for(cfg, positions, cfg.resolved_head_dim, s, x.device)
+    if cs is not None:
+        q = apply_rope(q, *cs)
+        k = apply_rope(k, *cs)
+    o = attention(q, k, v, causal=causal, window=window,
+                  softcap=cfg.attn_logit_softcap,
+                  pad_heads=cfg.pad_heads_to_tp)
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"]), (k, v)
+
+
+def _norm_index(index, b: int, device) -> torch.Tensor:
+    """Normalize the decode position index to (B,) int64 (a scalar
+    broadcasts)."""
+    idx = torch.as_tensor(index, device=device).to(torch.int64)
+    return idx.expand(b) if idx.dim() == 0 else idx
+
+
+def attn_decode(x, p, cfg: ModelConfig, k_cache, v_cache, index, *,
+                window: int = 0, positions=None, cross: bool = False):
+    """Single-token decode. x: (B,1,d). k/v_cache: (B,S,hkv,hd) (rope
+    applied at write time). index: scalar or (B,) per-slot position.
+
+    Writes the new key and value into `k_cache`/`v_cache` in place (the
+    reference returns updated copies; in place keeps one cache on the
+    card) and returns (out, k_cache, v_cache)."""
+    if cross:
+        _unported("cross attention (encoder-decoder)")
+    if window > 0:
+        _unported("ring-buffer (windowed) decode")
+    if cfg.decode_cache_seq_shard or cfg.decode_2d_tp:
+        _unported("sharded decode caches")
+    b = x.shape[0]
+    s_max = k_cache.shape[1]
+    idx = _norm_index(index, b, x.device)                        # (B,)
+    q, k, v = _qkv(x, p, cfg)
+    if cfg.rope_kind == "mrope":
+        _unported("M-RoPE")
+    if cfg.rope_kind == "rope":
+        cs = rope_cos_sin(idx[:, None], cfg.resolved_head_dim,
+                          cfg.rope_theta)                        # (B,1,hd/2)
+        q = apply_rope(q, *cs)
+        k = apply_rope(k, *cs)
+    rows = torch.arange(b, device=x.device)
+    k_cache[rows, idx] = k[:, 0].to(k_cache.dtype)
+    v_cache[rows, idx] = v[:, 0].to(v_cache.dtype)
+    kpos = torch.arange(s_max, device=x.device)[None, :]        # (1,S)
+    valid = kpos <= idx[:, None]
+    o = attention(q, k_cache, v_cache, causal=False, kv_valid=valid,
+                  softcap=cfg.attn_logit_softcap)
+    # o has the cache's dtype (bf16); promote as JAX does for fp32 weights
+    o = o.to(torch.promote_types(o.dtype, p["wo"].dtype))
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"]), k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+def mlp_spec(cfg: ModelConfig, d_ff: Optional[int] = None) -> dict:
+    if cfg.mlp_kind != "swiglu":
+        _unported(f"mlp_kind {cfg.mlp_kind!r}")
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    return {
+        "wi_gate": ParamSpec((d, f), init="scaled"),
+        "wi_up": ParamSpec((d, f), init="scaled"),
+        "wo": ParamSpec((f, d), init="scaled"),
+    }
+
+
+def mlp_block(x, p, cfg: ModelConfig):
+    if cfg.mlp_kind != "swiglu":
+        _unported(f"mlp_kind {cfg.mlp_kind!r}")
+    g = torch.einsum("bsd,df->bsf", x, p["wi_gate"])
+    u = torch.einsum("bsd,df->bsf", x, p["wi_up"])
+    h = torch.nn.functional.silu(g.to(F32)).to(x.dtype) * u
+    return torch.einsum("bsf,fd->bsd", h, p["wo"])

@@ -1,0 +1,73 @@
+"""Parameter declaration: a model is described once as a nested dict (and
+list) of `ParamSpec`s, in the reference's tree layout, and materialized
+from it by `init_params`.
+
+Weights are drawn from an explicit `torch.Generator` on the device they
+live on, so on the card the parameters never pass through the host.  The
+draws differ from `jax.random`'s for the same seed; the tests carry the
+reference's weights across instead (`models/model.py::params_from_numpy`).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    init: str = "normal"                     # normal|zeros|ones|scaled
+    scale: float = 0.02
+    dtype: torch.dtype = torch.bfloat16
+
+
+SpecTree = Dict[str, Any]  # nested dict / list of ParamSpec
+
+
+def _init_one(spec: ParamSpec, generator: torch.Generator,
+              device: torch.device) -> torch.Tensor:
+    shape, dtype = spec.shape, spec.dtype
+    if spec.init == "zeros":
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(shape, dtype=dtype, device=device)
+    if spec.init in ("normal", "scaled"):
+        if spec.init == "normal":
+            s = spec.scale
+        else:                                  # fan-in scaled
+            s = 1.0 / math.sqrt(shape[0] if len(shape) >= 2
+                                else max(shape[0], 1))
+        x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return (x * s).to(dtype)
+    raise NotImplementedError(f"init {spec.init!r} is not ported (the port "
+                              "serves the dense family)")
+
+
+def tree_map(fn: Callable, tree):
+    """`fn` over the leaves of a nested dict / list tree, keeping its keys,
+    order and nesting."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def init_params(spec: SpecTree, generator: torch.Generator, device):
+    """Materialize `spec` leaf by leaf, in tree order, from `generator`
+    (which must live on `device`)."""
+    device = torch.device(device)
+    return tree_map(lambda s: _init_one(s, generator, device), spec)
+
+
+def param_count(spec: SpecTree) -> int:
+    n = [0]
+
+    def count(s: ParamSpec):
+        n[0] += math.prod(s.shape)
+    tree_map(count, spec)
+    return n[0]

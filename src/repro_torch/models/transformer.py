@@ -1,0 +1,176 @@
+"""Decoder-only LM assembly, in the reference's segment layout
+(`src/repro/models/transformer.py`): layers are grouped into segments of
+a repeating block pattern, each segment's parameters stacked with a
+leading `repeats` axis.  The reference applies a segment with
+`jax.lax.scan`; the port runs a Python loop over the stacked layers.
+
+Only the full-attention block kind (`ATTN`) with a dense SwiGLU MLP is
+ported; the other kinds and MoE layers raise `NotImplementedError`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, List, Tuple
+
+import torch
+
+from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.param import ParamSpec, SpecTree, tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    repeats: int
+    pattern: Tuple[Tuple[str, bool], ...]   # ((kind, is_moe), ...)
+
+
+def layer_plan(cfg: ModelConfig) -> List[Segment]:
+    per_layer = [(k, cfg.layer_is_moe(i))
+                 for i, k in enumerate(cfg.layer_kinds())]
+    plen = len(cfg.block_pattern)
+    segs: List[Segment] = []
+    i = 0
+    n = len(per_layer)
+    while i < n:
+        pat = tuple(per_layer[i:i + plen])
+        reps = 1
+        j = i + len(pat)
+        while j + len(pat) <= n and tuple(per_layer[j:j + len(pat)]) == pat:
+            reps += 1
+            j += len(pat)
+        if len(pat) < plen:  # tail shorter than pattern
+            segs.append(Segment(1, pat))
+            i += len(pat)
+            continue
+        segs.append(Segment(reps, pat))
+        i = j
+    return segs
+
+
+def _check_kind(kind: str, is_moe: bool) -> None:
+    if kind != ATTN or is_moe:
+        raise NotImplementedError(
+            f"block kind {kind!r}{' with MoE' if is_moe else ''} is not "
+            "ported yet (the port serves full-attention dense blocks; "
+            "ROADMAP.md Queue 1)")
+
+
+# ---------------------------------------------------------------------------
+# Param specs
+# ---------------------------------------------------------------------------
+def _stack_spec(spec: SpecTree, n: int) -> SpecTree:
+    return tree_map(lambda s: dataclasses.replace(s, shape=(n,) + s.shape),
+                    spec)
+
+
+def block_spec(cfg: ModelConfig, kind: str, is_moe: bool) -> SpecTree:
+    _check_kind(kind, is_moe)
+    d = cfg.d_model
+    return {"norm1": L.norm_spec(d), "mixer": L.attn_spec(cfg),
+            "norm2": L.norm_spec(d), "ffn": L.mlp_spec(cfg)}
+
+
+def segment_spec(cfg: ModelConfig, seg: Segment) -> SpecTree:
+    return {"blocks": [_stack_spec(block_spec(cfg, k, m), seg.repeats)
+                       for (k, m) in seg.pattern]}
+
+
+def lm_spec(cfg: ModelConfig) -> SpecTree:
+    d, v = cfg.d_model, cfg.vocab_size
+    s: SpecTree = {
+        "embed": ParamSpec((v, d), init="normal"),
+        "segments": [segment_spec(cfg, seg) for seg in layer_plan(cfg)],
+        "final_norm": L.norm_spec(d),
+    }
+    if not cfg.tie_embeddings:
+        s["lm_head"] = ParamSpec((d, v), init="scaled")
+    return s
+
+
+def _layer(tree, r: int):
+    """Layer `r` of a stacked (repeats, ...) tree, as views."""
+    return tree_map(lambda t: t[r], tree)
+
+
+# ---------------------------------------------------------------------------
+# Block application (full sequence: prefill)
+# ---------------------------------------------------------------------------
+def apply_block(x, p, cfg: ModelConfig, kind: str, is_moe: bool, *,
+                causal: bool = True, positions=None,
+                collect_cache: bool = False):
+    """Returns (x, cache entry or None)."""
+    _check_kind(kind, is_moe)
+    h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+    o, kv = L.attn_block(h, p["mixer"], cfg, causal=causal,
+                         positions=positions)
+    cache = {"k": kv[0], "v": kv[1]} if collect_cache else None
+    x = x + o
+    h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+    x = x + L.mlp_block(h2, p["ffn"], cfg)
+    return x, cache
+
+
+def apply_segments(x, params_segments, cfg: ModelConfig, *, causal=True,
+                   positions=None, collect_cache=False):
+    """Run all segments. Returns (x, caches or None); each cache entry is
+    stacked (repeats, ...) as the reference's scan stacks it."""
+    caches: List[Any] = []
+    for seg, seg_p in zip(layer_plan(cfg), params_segments):
+        entries = [[] for _ in seg.pattern]
+        for r in range(seg.repeats):
+            for pos_i, (kind, m) in enumerate(seg.pattern):
+                x, ce = apply_block(x, _layer(seg_p["blocks"][pos_i], r), cfg,
+                                    kind, m, causal=causal,
+                                    positions=positions,
+                                    collect_cache=collect_cache)
+                entries[pos_i].append(ce)
+        if collect_cache:
+            caches.append([{key: torch.stack([e[key] for e in es])
+                            for key in ("k", "v")} for es in entries])
+    return x, (caches if collect_cache else None)
+
+
+# ---------------------------------------------------------------------------
+# Decode-step application (single token, cache threading)
+# ---------------------------------------------------------------------------
+def apply_block_decode(x, p, cfg: ModelConfig, kind: str, is_moe: bool,
+                       cache: dict, index):
+    _check_kind(kind, is_moe)
+    h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+    o, kc, vc = L.attn_decode(h, p["mixer"], cfg, cache["k"], cache["v"],
+                              index)
+    x = x + o
+    h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+    x = x + L.mlp_block(h2, p["ffn"], cfg)
+    return x, {"k": kc, "v": vc}
+
+
+def apply_segments_decode(x, params_segments, caches, cfg: ModelConfig,
+                          index):
+    """One token through every layer.  Each layer writes its new key and
+    value into its slice of the stacked caches in place, so `caches` is
+    returned updated (the reference returns new stacked arrays)."""
+    for seg, seg_p, seg_c in zip(layer_plan(cfg), params_segments, caches):
+        for r in range(seg.repeats):
+            for pos_i, (kind, m) in enumerate(seg.pattern):
+                x, _ = apply_block_decode(
+                    x, _layer(seg_p["blocks"][pos_i], r), cfg, kind, m,
+                    _layer(seg_c[pos_i], r), index)
+    return x, caches
+
+
+# ---------------------------------------------------------------------------
+# Cache specs
+# ---------------------------------------------------------------------------
+def block_cache_spec(cfg: ModelConfig, kind: str, batch: int,
+                     s_max: int) -> SpecTree:
+    _check_kind(kind, False)
+    shp = (batch, s_max, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": ParamSpec(shp, init="zeros"),
+            "v": ParamSpec(shp, init="zeros")}
+
+
+def cache_spec(cfg: ModelConfig, batch: int, s_max: int) -> List[Any]:
+    return [[_stack_spec(block_cache_spec(cfg, k, batch, s_max), seg.repeats)
+             for (k, _) in seg.pattern] for seg in layer_plan(cfg)]

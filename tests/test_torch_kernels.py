@@ -1,6 +1,7 @@
-"""The port's chunk kernels K1 (`coupled_chunk`) and K2 (`scan_chunk`):
-their wrappers' dispatch and input checks, and — on a machine with an
-NVIDIA GPU — each CUDA kernel against its plain PyTorch version.
+"""The port's kernels K1 (`coupled_chunk`), K2 (`scan_chunk`), K5
+(`flash_attention`) and K8 (`rmsnorm`): their wrappers' dispatch and
+input checks, and — on a machine with an NVIDIA GPU — each CUDA kernel
+against its plain PyTorch version.
 
 This file imports neither `jax` nor `repro`, so the card tests run on a
 machine with PyTorch alone:
@@ -9,7 +10,8 @@ machine with PyTorch alone:
 
 Here on the CPU the card tests skip.  The input builders are shared with
 tests/test_torch_engine.py and tests/test_torch_fleet.py, which hold the
-plain versions against the JAX package.
+plain versions against the JAX package (tests/test_torch_serving.py does
+so for K5 and K8).
 """
 import numpy as np
 import pytest
@@ -20,6 +22,9 @@ torch.set_num_threads(1)
 import repro_torch.carina as P  # noqa: E402
 from repro_torch.core import model  # noqa: E402
 from repro_torch.kernels import coupled_chunk as k1  # noqa: E402
+from repro_torch.kernels import flash_attention as k5  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import rmsnorm as k8  # noqa: E402
 from repro_torch.kernels import scan_chunk as k2  # noqa: E402
 
 RTOL = 1e-9
@@ -178,3 +183,152 @@ def test_coupled_chunk_kernel_matches_plain_on_card(B, Lp, dtype, rtol):
     close(got[0].cpu(), ref[0].cpu(), rtol, scale=scalars[0])
     for g, r in zip(got[1:], ref[1:]):
         close(g.cpu(), r.cpu(), rtol)
+
+
+# ---------------------------------------------------------------------------
+# K5 flash attention, K8 RMSNorm
+# ---------------------------------------------------------------------------
+MODEL_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+LSE_TOL = dict(rtol=1e-3, atol=1e-3)
+
+
+def attn_inputs(b, h, hkv, sq, sk, d, dtype, device="cpu", seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(rng.normal(size=(b, n, s, d)),
+                                 dtype=torch.float32).to(dtype).to(device)
+                 for n, s in ((h, sq), (hkv, sk), (hkv, sk)))
+
+
+def naive_attention(q, k, v, causal):
+    """Per head, in float64, the mask `kpos <= qpos` without an offset."""
+    b, h, sq, d = q.shape
+    g = h // k.shape[1]
+    o = torch.empty(q.shape, dtype=torch.float64)
+    lse = torch.empty((b, h, sq), dtype=torch.float64)
+    for bi in range(b):
+        for hi in range(h):
+            s = q[bi, hi].double() @ k[bi, hi // g].double().T / d ** 0.5
+            if causal:
+                qpos = torch.arange(sq)[:, None]
+                s = s.masked_fill(torch.arange(s.shape[1])[None] > qpos,
+                                  -1e30)
+            lse[bi, hi] = torch.logsumexp(s, -1)
+            o[bi, hi] = torch.softmax(s, -1) @ v[bi, hi // g].double()
+    return o, lse
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h,hkv,sq,sk", [(4, 4, 9, 9), (4, 2, 7, 13),
+                                         (8, 1, 12, 5)])
+def test_flash_attention_plain_matches_naive(h, hkv, sq, sk, causal):
+    q, k, v = attn_inputs(2, h, hkv, sq, sk, 16, torch.float32)
+    o, lse = k5.flash_attention_fwd_plain(q, k, v, causal=causal)
+    o_ref, lse_ref = naive_attention(q, k, v, causal)
+    close(o, o_ref, 1e-5, scale=1.0)
+    close(lse, lse_ref, 1e-5)
+
+
+def test_flash_attention_wrapper_dispatch_and_checks():
+    q, k, v = attn_inputs(1, 4, 2, 10, 10, 16, torch.float32)
+    before = k5.launches
+    a = k5.flash_attention_fwd(q, k, v, causal=True)
+    b = k5.flash_attention_fwd_plain(q, k, v, causal=True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert a[0].shape == q.shape and a[1].shape == (1, 4, 10)
+    assert a[1].dtype == torch.float32
+    assert k5.launches == before                       # CPU: no launch
+    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+        k5.flash_attention_fwd(*(x.to("meta") for x in (q, k, v)))
+    with pytest.raises(TypeError):
+        k5.flash_attention_fwd(q, k.double(), v)
+    with pytest.raises(TypeError):
+        k5.flash_attention_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="head dims"):
+        k5.flash_attention_fwd(*attn_inputs(1, 4, 2, 6, 6, 24,
+                                            torch.float32))
+    with pytest.raises(ValueError, match="does not fit"):
+        k5.flash_attention_fwd(*attn_inputs(1, 4, 3, 6, 6, 16,
+                                            torch.float32))
+    with pytest.raises(ValueError):
+        k5.flash_attention_fwd(q[0], k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        k5.flash_attention_fwd(q.transpose(2, 3).contiguous().transpose(2, 3),
+                               k, v)
+    with pytest.raises(RuntimeError, match="forward only"):
+        k5.flash_attention_fwd(q.clone().requires_grad_(), k, v)
+    # ops keeps the model's (B, S, H, D) layout around the kernel's
+    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), True)
+    assert torch.equal(o, a[0].transpose(1, 2))
+
+
+def test_rmsnorm_wrapper_dispatch_and_checks():
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.normal(size=(5, 64)), dtype=torch.float32)
+    s = torch.as_tensor(rng.normal(size=64), dtype=torch.float32)
+    before = k8.launches
+    y = k8.rmsnorm(x, s, 1e-6)
+    assert torch.equal(y, k8.rmsnorm_plain(x, s, 1e-6))
+    ref = x.double() / torch.sqrt((x.double() ** 2).mean(-1, keepdim=True)
+                                  + 1e-6) * (1 + s.double())
+    close(y, ref, 1e-5, scale=1.0)
+    assert k8.launches == before                       # CPU: no launch
+    assert k8.rmsnorm(x.bfloat16(), s.bfloat16()).dtype == torch.bfloat16
+    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+        k8.rmsnorm(x.to("meta"), s.to("meta"))
+    with pytest.raises(TypeError):
+        k8.rmsnorm(x, s.bfloat16())                    # fp32 x, bf16 scale
+    with pytest.raises(TypeError):
+        k8.rmsnorm(x.bfloat16(), s)                    # bf16 x, fp32 scale
+    with pytest.raises(TypeError):
+        k8.rmsnorm(x.double(), s.double())
+    with pytest.raises(ValueError):
+        k8.rmsnorm(x[None], s)
+    with pytest.raises(ValueError):
+        k8.rmsnorm(x, s[:32])
+    with pytest.raises(ValueError, match="contiguous"):
+        k8.rmsnorm(x.T.contiguous().T[:, :5], s[:5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 16, 128])
+@pytest.mark.parametrize("h,hkv", [(8, 8), (8, 1)])
+@pytest.mark.parametrize("sq,sk", [(128, 128), (777, 777), (70, 200),
+                                   (200, 70)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_matches_plain_on_card(causal, sq, sk, h, hkv,
+                                                      d, dtype):
+    dev = _card()
+    q, k, v = attn_inputs(2, h, hkv, sq, sk, d, dtype, dev)
+    before = k5.launches
+    o, lse = k5.flash_attention_fwd(q, k, v, causal=causal)
+    o_ref, lse_ref = k5.flash_attention_fwd_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert k5.launches == before + 1
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    np.testing.assert_allclose(o.float().cpu().numpy(),
+                               o_ref.float().cpu().numpy(), **MODEL_TOL[dtype])
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_ref.cpu().numpy(),
+                               **LSE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt,sdt", [(torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.float32)])
+@pytest.mark.parametrize("t,d", [(1024, 2048), (4, 2048), (7, 100),
+                                 (33, 64)])
+def test_rmsnorm_kernel_matches_plain_on_card(t, d, xdt, sdt):
+    dev = _card()
+    rng = np.random.default_rng(t)
+    x = torch.as_tensor(rng.normal(0, 3, (t, d)), dtype=torch.float32)
+    s = torch.as_tensor(rng.normal(0, 0.3, d), dtype=torch.float32)
+    x, s = x.to(xdt).to(dev), s.to(sdt).to(dev)
+    before = k8.launches
+    y = k8.rmsnorm(x, s, 1e-6)
+    ref = k8.rmsnorm_plain(x, s, 1e-6)
+    torch.cuda.synchronize()
+    assert k8.launches == before + 1 and y.dtype == xdt
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), **MODEL_TOL[xdt])

@@ -122,7 +122,10 @@ def test_frontier_matches_reference():
 
 def test_package_imports_neither_jax_nor_repro():
     code = ("import sys, repro_torch.carina, repro_torch.core.engine_torch, "
-            "repro_torch.kernels.scan_chunk, repro_torch.kernels.coupled_chunk;"
+            "repro_torch.kernels.scan_chunk, repro_torch.kernels.coupled_chunk, "
+            "repro_torch.serving.engine, repro_torch.models.model, "
+            "repro_torch.core.serve, repro_torch.kernels.flash_attention, "
+            "repro_torch.kernels.rmsnorm;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')];"
             "print(bad); sys.exit(1 if bad else 0)")
