@@ -39,8 +39,19 @@ oracles:
      under the profiler (idle share);
   6. K5 and K8 against their plain versions at the main path's shapes,
      first and deepest layer, and the stated ones, with times, bounds
-     and the PyTorch yardstick;
-  7. one JSON line of per-kernel numbers, then the result line.
+     and the PyTorch yardstick; then TinyLlama's tensors are freed;
+  7. serving DeepSeek-V2-Lite-16B at its published widths and depth (27
+     layers, MLA, 26 MoE layers of 64 routed + 2 shared experts, top-6;
+     bf16 weights drawn on the card from seed 0) through the same engine,
+     session and traffic.  K9 (`grouped_gemm`) must launch 78 times and
+     K8 82 times per forward, K5 never (the flash gate refuses MLA's head
+     dims); K9's calls at the first MoE layer and the last layer of the
+     first prefill and of a 4-slot tick against the plain version; K9
+     timed at the 916-token prefill's and the tick's shapes; the
+     untouched and traced runs; then parity on weights drawn
+     well-conditioned in fp32 and cast to bf16, every router decision
+     recorded (see `routing_flips`, `forced_routing`);
+  8. one JSON line of per-kernel numbers, then the result line.
 
 Exits non-zero, before printing any result, without a CUDA device or
 without the repo's sources beside it; any failed check raises.  Long
@@ -48,6 +59,7 @@ logs (the build, the serving profile) go to `chiprun_out/chip_smoke/`.
 """
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -459,20 +471,27 @@ def smi(query):
 
 
 def serve(torch, model, params, prompts, dev, chip, force=None,
-          record=True):
+          record=True, routes=None, k9=None, route_force=None):
     """Serve `prompts` through a fresh engine and session.  Returns the
     engine, the session, the wall seconds of `run_until_drained` and the
-    steps: each prefill and decode tick with the request ids it served
-    and its ms.  With `record` each step also keeps its logits (host
-    fp32) and is timed on the host between two synchronizations; without
-    it a step is only timed on the device, by two CUDA events, and the
-    run is otherwise the engine's own.  With `force` (the steps of an
-    earlier run) every step's token is taken from that run instead of the
-    argmax (teacher forcing), so that every step sees the same inputs."""
+    steps: each prefill and decode tick with the request ids it served,
+    their slots and its ms.  With `record` each step also keeps its
+    logits (host fp32) and is timed on the host between two
+    synchronizations; without it a step is only timed on the device, by
+    two CUDA events, and the run is otherwise the engine's own.  With
+    `force` (the steps of an earlier run) every step's token is taken from
+    that run instead of the argmax (teacher forcing), so that every step
+    sees the same inputs.  With `routes` (the list `routing_log` fills)
+    each step keeps its MoE routing decisions; with `route_force` (the
+    queue `forced_routing` reads) each step's MoE layers take the experts
+    that `force`'s step recorded; with `k9` (a dict whose
+    "calls" list `record_calls` fills) the grouped-GEMM calls of the first
+    MoE layer and of the last layer are kept for the first prefill, the
+    longest prefill and the first tick with every slot active."""
     from repro_torch.carina import (RunTracker, ServingSession, SimClock,
                                     StepCost)
     from repro_torch.serving.engine import ServingEngine
-    n = model.param_count()
+    n = model.cfg.active_param_count()     # 2 FLOP, 2 bytes per token each
     session = ServingSession(
         tracker=RunTracker("chip-smoke-serve"),
         clock=SimClock(start_hour=10.0), chip=chip,
@@ -484,6 +503,10 @@ def serve(torch, model, params, prompts, dev, chip, force=None,
     next_rid = [0]
 
     def timed(kind, fn, *args):
+        if routes is not None:
+            routes.clear()
+        if route_force is not None:
+            route_force[:] = [r[3] for r in force[len(steps)]["routing"]]
         if record:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -497,15 +520,27 @@ def serve(torch, model, params, prompts, dev, chip, force=None,
             ev[1].record()
             ms = ev
         if kind == "prefill":
-            rids, rows = [next_rid[0]], logits
+            rids, rows, slots = [next_rid[0]], logits, [0]
             next_rid[0] += 1
         else:
             slots = [s for s, r in enumerate(engine.active) if r is not None]
             rids = [engine.active[s].rid for s in slots]
             rows = logits[slots, 0]
-        steps.append(dict(kind=kind, rids=rids, ms=ms))
+        steps.append(dict(kind=kind, rids=rids, slots=slots, ms=ms))
         if record:
             steps[-1]["logits"] = rows.float().cpu()
+        if routes is not None:
+            steps[-1]["routing"] = list(routes)
+        if k9 is not None:
+            n_tok = args[1]["tokens"].shape[1] if kind == "prefill" else 0
+            labels = [lab for lab, want in (
+                ("first prefill", kind == "prefill"),
+                ("longest prefill", n_tok == max(len(p) for p in prompts)),
+                ("tick", len(slots) == SERVE["slots"] and kind == "decode"))
+                if want and lab not in k9]
+            for lab in labels:
+                k9[lab] = [k9["calls"][i] for i in (0, 1, 2, -3, -2, -1)]
+            k9["calls"].clear()
         if force is not None:
             forced = logits.clone()
             want = force[len(steps) - 1]
@@ -599,26 +634,34 @@ def hold_bf16(kern, plain, truth, label):
     return kp, pt, excess, over
 
 
-def conditioned_params(torch, model, dev):
-    """TinyLlama's tree drawn well-conditioned, for the bf16 parity serve:
-    every matrix with std 1/sqrt(its own fan-in), the norm scales
-    N(0, 0.1), the embedding as `Model.init` draws it.  (`Model.init`
-    follows the reference's init, whose fan-in of a layer-stacked matrix
-    is the layer count, so its bf16 activations grow to ~2e4.)"""
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")    # (E, d, f) / (E, f, d)
+
+
+def conditioned_params(torch, model, dev, dtype=None):
+    """A model's tree drawn well-conditioned, for the parity serves:
+    every matrix with std 1/sqrt(its own fan-in) (an expert leaf's is d
+    or f, not the expert count), the norm scales N(0, 0.1), the embedding
+    as `Model.init` draws it; each leaf in `dtype` if given, else its
+    spec's.  (`Model.init` follows the reference's init, whose fan-in of
+    a layer-stacked matrix is the layer count, so its bf16 activations
+    grow to ~2e4.)"""
     gen = torch.Generator(device=dev).manual_seed(3)
 
     def draw(spec, key, stacked):
+        dt = dtype or spec.dtype
         layer = spec.shape[1:] if stacked else spec.shape
         if spec.init == "scaled":   # the output axis is last for "wo" only
-            std = (math.prod(layer[:-1]) if key == "wo" else layer[0]) ** -0.5
+            fan = (layer[1] if key in EXPERT_LEAVES else
+                   math.prod(layer[:-1]) if key == "wo" else layer[0])
+            std = fan ** -0.5
         elif "norm" in key:
             std = 0.1
         elif spec.init == "normal":
             std = spec.scale
         else:
-            return torch.zeros(spec.shape, dtype=spec.dtype, device=dev)
-        return (torch.randn(spec.shape, generator=gen, device=dev)
-                * std).to(spec.dtype)
+            return torch.zeros(spec.shape, dtype=dt, device=dev)
+        t = torch.randn(spec.shape, generator=gen, device=dev).mul_(std)
+        return t if dt == torch.float32 else t.to(dt)
 
     def walk(tree, key, stacked):
         if isinstance(tree, dict):
@@ -647,6 +690,7 @@ def trace(torch, fn):
 
 
 KERNEL_GROUPS = (("K5", ("flash_fwd",)), ("K8", ("rmsnorm_kernel",)),
+                 ("K9", ("grouped_gemm_kernel",)),
                  ("cuBLAS", ("nvjet", "gemv", "gemm", "splitK", "cutlass")),
                  ("copies and casts", ("copy", "Copy")), ("softmax", ("softmax",)))
 
@@ -979,6 +1023,472 @@ def phase_rmsnorm(torch, k8, dev, calls8, n8):
     return row
 
 
+# --------------------------------------------------------------------------
+# serving: DeepSeek-V2-Lite-16B (MLA + 64-expert MoE), K9 on its path
+# --------------------------------------------------------------------------
+NEAR_TIE = 1e-4           # router probability gap of a near-tie
+K9_TOL = {"bfloat16": 2e-2, "float32": 1e-5}   # of max |out|
+
+
+@contextlib.contextmanager
+def record_calls(mod, name, calls):
+    """Append the arguments of every call of `mod.name` to `calls`."""
+    fn = getattr(mod, name)
+
+    def rec(*args, **kwargs):
+        calls.append((args, kwargs))
+        return fn(*args, **kwargs)
+
+    setattr(mod, name, rec)
+    try:
+        yield
+    finally:
+        setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def routing_log(torch, moe, log):
+    """Append each `moe.route` call's decisions to `log`, on the host:
+    the experts of each token and the capacity mask of each of its
+    copies, both in expert order (the order of a token's top k does not
+    move its copies' positions: each lands in another expert), and the
+    gap between each token's k-th and (k+1)-th router probability; and
+    the experts in the order the router ranked them, for `forced_routing`."""
+    fn = moe.route
+
+    def rec(x, router, cfg, capacity):
+        r = fn(x, router, cfg, capacity)
+        k = cfg.moe.top_k
+        top = torch.topk(r.probs, k + 1, dim=-1).values
+        experts, order = torch.sort(r.expert_idx, dim=-1)
+        keep = torch.gather(r.keep.reshape(r.expert_idx.shape), -1, order)
+        log.append((experts.cpu(), keep.cpu(),
+                    (top[..., k - 1] - top[..., k]).cpu(),
+                    r.expert_idx.cpu()))
+        return r
+
+    moe.route = rec
+    try:
+        yield
+    finally:
+        moe.route = fn
+
+
+@contextlib.contextmanager
+def forced_routing(torch, moe, queue):
+    """Teacher-force the routing: each `moe.route` call takes its experts
+    from the front of `queue` (another run's, as `routing_log` kept
+    them), with this run's own router probabilities as the gates
+    (renormalised) and the capacity decisions recomputed from them.
+    Every MoE layer then runs the same experts in both runs, so what
+    the runs' logits still differ by is the arithmetic alone."""
+    fn = moe.route
+
+    def forced(x, router, cfg, capacity):
+        r = fn(x, router, cfg, capacity)
+        idx = queue.pop(0).to(x.device)
+        gate = torch.gather(r.probs, -1, idx)
+        gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+        keep = moe.capacity_keep(idx, cfg.moe.num_experts, capacity)
+        return moe.Routing(r.probs, gate, idx, keep)
+
+    moe.route = forced
+    try:
+        yield
+    finally:
+        moe.route = fn
+
+
+def routing_flips(kern, plain, label, near=None):
+    """Compare two teacher-forced runs' routing request by request.  A
+    request whose experts or capacity decisions differ anywhere is
+    flipped.  At its first divergence (in the order the runs computed) a
+    capacity decision may move only with a token whose experts differ,
+    and with `near` every such token must be a near-tie of the plain run
+    (k-th minus (k+1)-th router probability < `near`).  What follows a
+    flip in that request is its consequence: counted, not checked.
+    Returns the flipped request ids, the token-layers that differ, and
+    the largest plain-run gap at a first divergence."""
+    check(len(kern) == len(plain) and all(
+        a["kind"] == b["kind"] and a["rids"] == b["rids"]
+        for a, b in zip(kern, plain)), f"{label}: a forced run took other "
+        "steps")
+    per_req, flips, worst_gap = {}, 0, 0.0
+    for a, b in zip(kern, plain):
+        for j, rid in enumerate(a["rids"]):
+            row = a["slots"][j]
+            for (ea, ka, _, _), (eb, kb, gb, _) in zip(a["routing"],
+                                                       b["routing"]):
+                experts = (ea[row] != eb[row]).any(-1)           # (S,)
+                keep = (ka[row] != kb[row]).any(-1)
+                if experts.any() or keep.any():
+                    flips += int((experts | keep).sum())
+                    per_req.setdefault(rid, (experts, gb[row]))
+    for rid, (experts, gap) in per_req.items():
+        check(bool(experts.any()), f"{label}: request {rid}'s capacity "
+              "decisions moved with the same experts")
+        g = float(gap[experts].max())
+        worst_gap = max(worst_gap, g)
+        check(near is None or g < near, f"{label}: request {rid} first "
+              f"routes differently where the plain run's k-th/(k+1)-th gap "
+              f"is {g:.3e} (a near-tie is < {near})")
+    return set(per_req), flips, worst_gap
+
+
+def request_rows(steps):
+    """Each step's logits row of each request: {(step, rid): row}."""
+    return {(i, rid): st["logits"][j] for i, st in enumerate(steps)
+            for j, rid in enumerate(st["rids"])}
+
+
+def hold_requests(kern, plain, flipped, label):
+    """Kernel vs plain logits of every request whose routing did not
+    flip, at every step: within LOGIT_TOL of that row's max |plain
+    logit|, and the same token wherever the plain top-2 gap exceeds the
+    bar.  Returns the worst share of max |logit| over the held requests
+    and over the flipped ones (reported, not held)."""
+    held = other = 0.0
+    a_rows, b_rows = request_rows(kern), request_rows(plain)
+    for key, ref in b_rows.items():
+        got = a_rows[key]
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max()) / scale
+        if key[1] in flipped:
+            other = max(other, err)
+            continue
+        held = max(held, err)
+        check(err <= LOGIT_TOL, f"{label} step {key[0]} request {key[1]}: "
+              f"logits kernel vs plain {err:.4g} of max |logit| > "
+              f"{LOGIT_TOL}")
+        top2 = ref.topk(2).values
+        if float(top2[0] - top2[1]) > LOGIT_TOL * scale:
+            check(int(got.argmax()) == int(ref.argmax()), f"{label} step "
+                  f"{key[0]} request {key[1]}: the token differs where the "
+                  "plain run's top-2 gap exceeds the bar")
+    return held, other
+
+
+def hold_bf16_requests(kern, plain, truth, flipped, label):
+    """`hold_bf16` per request: for each request whose routing did not
+    flip between the bf16 kernel and plain runs, at every step the kernel
+    run at most LOGIT_TOL of max |truth logit| further from the plain
+    fp32 run (the truth) than the plain bf16 run is, and the token rule
+    against the plain bf16 run.  Returns the worst shares of kernel vs
+    plain, plain vs truth, the held requests' excess and the flipped
+    ones' excess (reported, not held)."""
+    kp = pt = excess = other = 0.0
+    a_rows, b_rows, c_rows = (request_rows(r) for r in (kern, plain, truth))
+    for key, ref in b_rows.items():
+        got, tru = a_rows[key], c_rows[key]
+        scale = float(tru.abs().max())
+        d_kt = float((got - tru).abs().max()) / scale
+        d_pt = float((ref - tru).abs().max()) / scale
+        if key[1] in flipped:
+            other = max(other, d_kt - d_pt)
+            continue
+        kp = max(kp, float((got - ref).abs().max()) / scale)
+        pt, excess = max(pt, d_pt), max(excess, d_kt - d_pt)
+        check(d_kt - d_pt <= LOGIT_TOL, f"{label} step {key[0]} request "
+              f"{key[1]}: the kernel run is {d_kt:.4g} of max |logit| from "
+              f"the fp32 truth, the plain bf16 run {d_pt:.4g}")
+        top2 = ref.topk(2).values
+        if float(top2[0] - top2[1]) > LOGIT_TOL * scale:
+            check(int(got.argmax()) == int(ref.argmax()), f"{label} step "
+                  f"{key[0]} request {key[1]}: the token differs where the "
+                  "plain run's top-2 gap exceeds the bar")
+    return kp, pt, excess, other
+
+
+def cast_tree_(tree, spec):
+    """Cast a parameter tree to its spec's dtypes leaf by leaf, in place,
+    so that at most one leaf exists in both dtypes at a time."""
+    for key in list(tree.keys() if isinstance(tree, dict)
+                    else range(len(tree))):
+        if isinstance(tree[key], (dict, list)):
+            cast_tree_(tree[key], spec[key])
+        else:
+            tree[key] = tree[key].to(spec[key].dtype)
+
+
+def k9_check(torch, k9, calls, label):
+    """Hold captured K9 calls against the plain version on the same
+    inputs: bf16 within 2e-2, fp32 within 1e-5 of max |out|.  Returns the
+    worst absolute error and the text."""
+    worst, parts = 0.0, []
+    for where, idx in (("first MoE layer", (0, 1, 2)),
+                       ("last layer", (3, 4, 5))):
+        for name, i in zip(("gate", "up", "down"), idx):
+            args, kw = calls[i]
+            got = k9.grouped_gemm(*args, **kw)
+            ref = k9.grouped_gemm_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = float((got.float() - ref.float()).abs().max())
+            scale = float(ref.float().abs().max())
+            tol = K9_TOL[str(got.dtype).split(".")[1]]
+            check(err <= tol * scale, f"K9 {label} {where} {name}: max err "
+                  f"{err:.3e} > {tol} x {scale:.4g}")
+            worst = max(worst, err)
+            parts.append(f"{where} {name} {err:.2e}/{scale:.3g}")
+    return worst, f"{label}: " + ", ".join(parts)
+
+
+def gg_bound(torch, x, w, ids, bm):
+    """Least time for one K9 call on these inputs: the slabs of the
+    experts its blocks name, the rows of those blocks, the whole output;
+    2 d f operations per row of a named block."""
+    ids = ids.cpu()
+    named = ids[ids >= 0]
+    rows = int(named.numel()) * bm
+    _, d, f = w.shape
+    t = x.element_size()
+    bytes_ = (int(torch.unique(named).numel()) * d * f + rows * d
+              + x.shape[0] * f) * t
+    return bound_ms(bytes_, 2.0 * rows * d * f, 0,
+                    str(x.dtype).split(".")[1], peak=PEAK_TC_S)
+
+
+def gg_library(torch, x, w, ids, bm):
+    """One PyTorch call computing the same products, as a yardstick:
+    `torch._grouped_mm` on the packed rows (bf16, an expert's blocks
+    are contiguous), else `torch.bmm` on the reference's capacity layout
+    (E, C, d) with C the most rows any expert holds here."""
+    ids_h = ids.cpu().long()
+    counts = torch.bincount(ids_h[ids_h >= 0], minlength=w.shape[0]) * bm
+    if x.dtype == torch.bfloat16 and hasattr(torch, "_grouped_mm"):
+        offs = torch.cumsum(counts, 0).to(torch.int32).to(x.device)
+        try:
+            torch._grouped_mm(x, w, offs=offs)
+            torch.cuda.synchronize()
+            return (lambda: torch._grouped_mm(x, w, offs=offs),
+                    "torch._grouped_mm")
+        except RuntimeError as exc:
+            print(f"torch._grouped_mm refused the packed input ({exc}); "
+                  "timing torch.bmm instead", flush=True)
+    cap = torch.zeros((w.shape[0], int(counts.max()), w.shape[1]),
+                      dtype=x.dtype, device=x.device)
+    return (lambda: torch.bmm(cap, w)), "torch.bmm on (E, C, d)"
+
+
+def phase_grouped_gemm(torch, k9, kept, n9, main_err):
+    """K9 at the 916-token prefill's and the decode tick's shapes (the
+    first MoE layer's gate and down products of the main path): ms on
+    the device, the plain version's, the library yardstick's, the bound."""
+    parts, row = [], None
+    for label, i in (("longest prefill gate", 0), ("longest prefill down", 2),
+                     ("tick gate", 0), ("tick down", 2)):
+        (x, w, ids, bm), _ = kept[label.rsplit(" ", 1)[0]][i]
+        lib, lib_name = gg_library(torch, x, w, ids, bm)
+        fns = (lambda: k9.grouped_gemm(x, w, ids, bm),
+               lambda: k9.grouped_gemm_plain(x, w, ids, bm), lib)
+        ms, plain, lib_ms = (device_ms(torch, f, 20) for f in fns)
+        ev = cuda_ms(torch, fns[0], 20)
+        b_ms, b_by = gg_bound(torch, x, w, ids, bm)
+        named = int((ids >= 0).sum())
+        parts.append(f"{label} x {tuple(x.shape)} w {tuple(w.shape)} "
+                     f"block_m {bm}, {named} of {ids.numel()} blocks named: "
+                     f"{ms:.4f} ms on the device ({ev:.4f} per call by "
+                     f"events; plain {plain:.3f}, {lib_name} {lib_ms:.4f}, "
+                     f"bound {b_ms:.4f} {b_by})")
+        if row is None:
+            row = {"name": "grouped_gemm", "route": "cuda",
+                   "source": "src/repro_torch/csrc/moe_gemm.cu",
+                   "replaces": "src/repro/kernels/moe_gemm.py:46",
+                   "launches": n9, "max_abs_err": main_err, "ms": ms,
+                   "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": lib_ms}
+    print("K9 grouped_gemm timings: " + "; ".join(parts), flush=True)
+    return row
+
+
+def phase_moe_serving(torch, k5, k8, k9, moe, dev):
+    """DeepSeek-V2-Lite-16B at full depth and width through the serving
+    main path, K9 on every routed-expert product; per-call checks, the
+    untouched and traced runs, then whole-model parity on weights drawn
+    well-conditioned, fp32 and bf16."""
+    from repro_torch.carina import ChipProfile
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    cfg = get_config("deepseek-v2-lite-16b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size,
+                            int(rng.integers(SERVE["lo"], SERVE["hi"] + 1))
+                            ).astype(np.int32)
+               for _ in range(SERVE["requests"])]
+    idle_w, limit_w = smi("power.draw,power.limit")
+    chip = ChipProfile(name=torch.cuda.get_device_name(0), peak_flops=989e12,
+                       hbm_bw=3.35e12, ici_bw=450e9, idle_w=idle_w,
+                       tdp_w=limit_w, pj_per_flop=limit_w / 989e12 * 1e12)
+    serve(torch, model, params, prompts[:1], dev, chip)      # warm-up
+
+    # the main path: counts zeroed just before, read just after
+    kept = {"calls": []}
+    with record_calls(k9, "grouped_gemm", kept["calls"]):
+        k5.launches = k8.launches = k9.launches = 0
+        engine, session, _, steps = serve(torch, model, params, prompts, dev,
+                                          chip, k9=kept)
+        n5, n8, n9 = k5.launches, k8.launches, k9.launches
+    prefills = sum(s["kind"] == "prefill" for s in steps)
+    ticks = session.live_units
+    n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.num_layers))
+    check(prefills == SERVE["requests"] and len(engine.completed) == prefills,
+          f"{prefills} prefills, {len(engine.completed)} completed")
+    check(all(len(r.generated) == SERVE["max_new"] for r in engine.completed),
+          "a request ended early")
+    check(n9 == 3 * n_moe * (prefills + ticks),
+          f"K9 launched {n9} times, expected {3 * n_moe} x ({prefills} + "
+          f"{ticks})")
+    check(n8 == (3 * cfg.num_layers + 1) * (prefills + ticks),
+          f"K8 launched {n8} times, expected {3 * cfg.num_layers + 1} x "
+          f"({prefills} + {ticks})")
+    check(n5 == 0, f"K5 launched {n5} times on the MLA path (its gate "
+          "refuses q/v head dims 192/128)")
+    check(all(bool(torch.isfinite(s["logits"]).all()) for s in steps),
+          "non-finite logits")
+    del engine
+    main_err, texts = 0.0, []
+    for lab in ("first prefill", "tick"):
+        e, txt = k9_check(torch, k9, kept[lab], f"bf16 {lab}")
+        main_err = max(main_err, e)
+        texts.append(txt)
+    row = phase_grouped_gemm(torch, k9, kept, n9, main_err)
+    del kept
+
+    # the main path again, untouched, then once under the profiler
+    engine, session, wall, steps_t = serve(torch, model, params, prompts,
+                                           dev, chip, record=False)
+    pre_ms = [s["ms"] for s in steps_t if s["kind"] == "prefill"]
+    dec_ms = [s["ms"] for s in steps_t if s["kind"] == "decode"]
+    tokens = sum(len(r.generated) for r in engine.completed)
+    kwh, co2 = session.live_energy_kwh, session.live_co2_kg
+    del engine
+    busy = profile_window(torch, lambda: serve(torch, model, params, prompts,
+                                               dev, chip, record=False))
+    idle = "not measured (no device time in the trace)"
+    if busy is not None:
+        twall, dev_s, n_kern, groups, table = busy
+        idle = (f"{1.0 - dev_s / twall:.3f} (device kernels {dev_s:.3f} s, "
+                f"{n_kern} launches, over {twall:.3f} s wall, one traced "
+                f"run; device ms / launches by group: {groups_text(groups)})")
+        with open(os.path.join(OUT, "moe_serving_profile.txt"), "w") as fh:
+            fh.write(f"serve, profiled: wall {twall:.3f} s, device "
+                     f"kernels {dev_s:.3f} s, {n_kern} launches\n{table}\n")
+    cache = model.cache_zeros(SERVE["slots"], SERVE["s_max"], dev)
+    toks = torch.randint(0, cfg.vocab_size, (SERVE["slots"], 1),
+                         generator=torch.Generator(device=dev).manual_seed(4),
+                         device=dev)
+    idx = torch.full((SERVE["slots"],), SERVE["s_max"] // 2,
+                     dtype=torch.int64, device=dev)
+
+    def ticks10():
+        for _ in range(10):
+            logits, _ = model.decode_step(params, cache, toks, idx)
+            torch.argmax(logits[:, 0], dim=-1).cpu()
+    ticks10()
+    tick = profile_window(torch, ticks10)
+    tick_txt = "not measured"
+    if tick is not None:
+        twall, tdev, tn, tgroups, ttable = tick
+        tick_txt = (f"{tdev * 100:.3f} ms on the device "
+                    f"({groups_text(tgroups, 10)}), {tn / 10:.0f} kernel "
+                    f"launches ({twall * 100:.3f} ms wall under the trace)")
+        with open(os.path.join(OUT, "moe_decode_tick_profile.txt"),
+                  "w") as fh:
+            fh.write(f"10 decode ticks: {tick_txt}\n{ttable}\n")
+    print(f"serving DeepSeek-V2-Lite-16B ({model.param_count():,} params, "
+          f"{cfg.active_param_count():,} active per token, bf16, init on the "
+          f"card {t_init:.2f} s): {prefills} requests, prompts "
+          f"{min(len(p) for p in prompts)}-{max(len(p) for p in prompts)} "
+          f"tokens, {SERVE['slots']} slots, s_max {SERVE['s_max']}; "
+          f"untouched run: wall {wall:.3f} s, prefill {np.mean(pre_ms):.2f} "
+          f"ms per request, decode {np.mean(dec_ms):.2f} ms per tick "
+          f"({ticks} ticks; device ms between CUDA events), "
+          f"{tokens / wall:.1f} generated tokens/s; session {kwh:.4e} kWh, "
+          f"{co2:.4e} kg CO2 (roofline estimate on active parameters, H100 "
+          f"profile, idle {idle_w:.1f} W read by nvidia-smi); device idle "
+          f"share of serving {idle}; one decode tick: {tick_txt}; launches "
+          f"K9 {n9} = {3 * n_moe} x ({prefills} + {ticks}), K8 {n8} = "
+          f"{3 * cfg.num_layers + 1} x ({prefills} + {ticks}), K5 {n5}; K9 "
+          f"per-call vs plain (max abs err / max |out|): "
+          + "; ".join(texts), flush=True)
+    del params, cache, model.params          # the tree `Model.init` bound
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Parity on weights drawn well-conditioned, every run teacher-forced
+    # to the tokens of the fp32 kernel run (k32).  Routing is recorded:
+    # an ulp can swap the k-th and (k+1)-th expert or move a copy across
+    # the capacity line, and then every later logit of that request moves.
+    # fp32: the plain run routes freely; its flips are counted and must
+    # first appear at near-ties, the other requests are held to the logit
+    # bar.  bf16 (the same tree cast leaf by leaf): kernel and plain runs
+    # with their routing also forced to k32's, against a plain fp32 truth
+    # forced the same way, for `hold_bf16`'s excess rule at every step; then
+    # once more with free routing, to count the bf16 flips.
+    def plain():
+        return plain_versions((k8, "rmsnorm"), (k9, "grouped_gemm"))
+    t0 = time.perf_counter()
+    cparams = conditioned_params(torch, model, dev, torch.float32)
+    routes, queue = [], []
+    kept32 = {"calls": []}
+    with routing_log(torch, moe, routes):
+        with record_calls(k9, "grouped_gemm", kept32["calls"]):
+            _, _, _, k32 = serve(torch, model, cparams, prompts, dev, chip,
+                                 routes=routes, k9=kept32)
+        err32, txt32 = k9_check(torch, k9, kept32["first prefill"],
+                                "fp32 first prefill")
+        del kept32
+        with plain():
+            _, _, _, p32 = serve(torch, model, cparams, prompts, dev, chip,
+                                 force=k32, routes=routes)
+            with forced_routing(torch, moe, queue):
+                _, _, _, t32 = serve(torch, model, cparams, prompts, dev,
+                                     chip, force=k32, route_force=queue)
+        cast_tree_(cparams, model.spec())
+        torch.cuda.empty_cache()
+        with forced_routing(torch, moe, queue):
+            _, _, _, c16 = serve(torch, model, cparams, prompts, dev, chip,
+                                 force=k32, route_force=queue)
+            with plain():
+                _, _, _, cp16 = serve(torch, model, cparams, prompts, dev,
+                                      chip, force=k32, route_force=queue)
+        _, _, _, f16 = serve(torch, model, cparams, prompts, dev, chip,
+                             force=k32, routes=routes)
+        with plain():
+            _, _, _, fp16 = serve(torch, model, cparams, prompts, dev, chip,
+                                  force=k32, routes=routes)
+    del cparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32, n32, gap32 = routing_flips(k32, p32, "fp32", NEAR_TIE)
+    held32, other32 = hold_requests(k32, p32, f32, "fp32")
+    print(f"DeepSeek-V2-Lite-16B whole-model parity, teacher-forced, "
+          f"well-conditioned weights ({time.perf_counter() - t0:.1f} s for "
+          f"the seven runs): fp32 kernel vs plain: {len(f32)} of "
+          f"{SERVE['requests']} requests routed differently ({n32} "
+          f"token-layers, first divergences at plain gaps <= {gap32:.2e}, "
+          f"bar {NEAR_TIE}), the rest worst {held32:.3e} of max |logit| (bar "
+          f"{LOGIT_TOL}; flipped requests {other32:.3e}, not held); K9 "
+          f"{txt32}", flush=True)
+    kp, pt, excess, _ = hold_bf16_requests(c16, cp16, t32, set(),
+                                           "bf16, routing forced")
+    f16s, n16, gap16 = routing_flips(f16, fp16, "bf16")
+    print(f"bf16, routing forced to the fp32 kernel run's: kernel vs plain "
+          f"worst {kp:.4f} of max |logit|, plain bf16 vs the plain fp32 "
+          f"truth worst {pt:.4f}, the kernel run's excess over it worst "
+          f"{excess:.4f} (bar {LOGIT_TOL}), tokens equal outside near-ties; "
+          f"free routing: {len(f16s)} of {SERVE['requests']} requests routed "
+          f"differently by the bf16 kernel and plain runs ({n16} "
+          f"token-layers, first divergences at plain gaps <= {gap16:.2e})",
+          flush=True)
+    row["max_abs_err"] = max(row["max_abs_err"], err32)
+    return row
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: run from the root of a checkout (src/repro_torch "
@@ -995,8 +1505,10 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import coupled_chunk as k1
     from repro_torch.kernels import flash_attention as k5
+    from repro_torch.kernels import moe_gemm as k9
     from repro_torch.kernels import rmsnorm as k8
     from repro_torch.kernels import scan_chunk as k2
+    from repro_torch.models import moe
 
     t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1028,6 +1540,10 @@ def main() -> int:
                                       served["n5"]),
                 phase_rmsnorm(torch, k8, dev, served["calls8"],
                               served["n8"])]
+    del served                      # TinyLlama's tensors, before DeepSeek's
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.append(phase_moe_serving(torch, k5, k8, k9, moe, dev))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

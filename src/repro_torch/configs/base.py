@@ -2,8 +2,9 @@
 its sub-configs and `smoke_variant`, field for field, so that a config
 written for one package reads the same in the other.
 
-Only the dense family is served by this package so far (see
-`configs/__init__.py::get_config` and `models/model.py::build_model`).
+The package serves the dense family and the MoE family with full
+attention or MLA (see `configs/__init__.py::get_config` and
+`models/model.py::build_model`).
 """
 from __future__ import annotations
 
@@ -121,10 +122,71 @@ class ModelConfig:
             return True
         return i > 0  # all_but_first
 
+    # ------------------------------------------------------------------
+    def param_count(self) -> int:
+        """Analytic parameter count of the families the port serves (the
+        reference's `ModelConfig.param_count`; equals `Model.param_count`
+        of the built model)."""
+        d, hd = self.d_model, self.resolved_head_dim
+        nq, nkv = self.num_heads, self.num_kv_heads
+        if self.encdec or any(k not in (ATTN, LOCAL_ATTN, MLA)
+                              for k in self.layer_kinds()):
+            raise NotImplementedError(
+                f"{self.name}: param_count covers the attention and MLA "
+                "families the port serves")
+
+        def attn_params() -> int:
+            n = d * nq * hd + 2 * d * nkv * hd + nq * hd * d
+            if self.qkv_bias:
+                n += (nq + 2 * nkv) * hd
+            return n
+
+        def mla_params() -> int:
+            m = self.mla
+            qdim = nq * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+            n = (d * qdim if m.q_lora_rank == 0 else
+                 d * m.q_lora_rank + m.q_lora_rank * qdim + m.q_lora_rank)
+            n += d * (m.kv_lora_rank + m.qk_rope_head_dim)  # down-proj, rope k
+            n += m.kv_lora_rank                             # kv norm
+            n += m.kv_lora_rank * nq * (m.qk_nope_head_dim + m.v_head_dim)
+            n += nq * m.v_head_dim * d                      # o proj
+            return n
+
+        def dense_mlp(dff: int) -> int:
+            if self.mlp_kind == "swiglu":
+                return 3 * d * dff
+            return 2 * d * dff + dff + d
+
+        def moe_mlp() -> int:
+            m = self.moe
+            n = d * m.num_experts                           # router
+            n += m.num_experts * 3 * d * m.d_ff_expert
+            n += m.num_shared_experts * 3 * d * m.d_ff_expert
+            return n
+
+        total = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        total += d                                          # final norm
+        for i, k in enumerate(self.layer_kinds()):
+            total += 2 * d                                  # the two norms
+            total += mla_params() if k == MLA else attn_params()
+            total += moe_mlp() if self.layer_is_moe(i) else dense_mlp(self.d_ff)
+        return total
+
+    def active_param_count(self) -> int:
+        """Parameters a token runs through (MoE: the top-k routed and the
+        shared experts count, the other routed experts do not)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        idle = (m.num_experts - m.top_k) * 3 * self.d_model * m.d_ff_expert
+        n_moe = sum(self.layer_is_moe(i) for i in range(self.num_layers))
+        return self.param_count() - n_moe * idle
+
 
 def smoke_variant(cfg: ModelConfig, **overrides) -> ModelConfig:
     """Shrink a config to CPU-test scale, preserving family structure
-    (the reference's rule, for the families this package serves)."""
+    (the reference's rule, for the families this package serves: dense,
+    MoE and MLA)."""
     kw = dict(
         num_layers=min(cfg.num_layers, len(cfg.block_pattern) + 1),
         d_model=64,
@@ -135,6 +197,13 @@ def smoke_variant(cfg: ModelConfig, **overrides) -> ModelConfig:
         vocab_size=256,
         use_scan=True,
     )
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(cfg.moe, num_experts=4, top_k=2,
+                                        d_ff_expert=32)
+    if cfg.mla is not None:
+        kw["mla"] = MLAConfig(kv_lora_rank=32, q_lora_rank=0,
+                              qk_nope_head_dim=16, qk_rope_head_dim=8,
+                              v_head_dim=16)
     kw["name"] = cfg.name + "-smoke"
     kw.update(overrides)
     return dataclasses.replace(cfg, **kw)

@@ -59,9 +59,16 @@ class ServingSession:
                  step_cost: Optional[StepCost] = None, tracker=None,
                  gate: Optional[float] = None, max_queue: int = 32,
                  cache_dir: Optional[str] = None):
-        # the windowed mode's arguments (workload, machine, price, window,
+        # the windowed mode's other arguments (machine, price, window,
         # tiers, policy, site, ...) are accepted and not used: that mode
-        # raises below
+        # raises below.  The workload template is built and checked as
+        # the reference builds it.
+        self.workload = workload or OEMWorkload(
+            "serving", 0, rate_at_full=float(service_rate),
+            batch_overhead_s=float(batch_overhead_s))
+        if self.workload.rate_at_full <= 0.0:
+            raise ValueError("the serving workload template needs a "
+                             "positive rate_at_full (the service rate)")
         self.bands = bands or TimeBands()
         self.carbon_sig = carbon_signal(carbon if carbon is not None
                                         else GridCarbonModel())

@@ -1,10 +1,12 @@
-"""The kernels at the model's layout: attention in (B, S, H, D), as the
-reference's `kernels/ops.py` exposes it to `models/layers.py`."""
+"""The kernels at the model's layout, as the reference's `kernels/ops.py`
+exposes them to `models/`: attention in (B, S, H, D), and the grouped
+expert GEMM over block-sorted rows."""
 from __future__ import annotations
 
 from typing import Optional
 
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import moe_gemm as MG
 
 
 def flash_attention(q, k, v, causal: bool = True,
@@ -16,3 +18,9 @@ def flash_attention(q, k, v, causal: bool = True,
                                   v.transpose(1, 2).contiguous(),
                                   causal=causal, scale=scale)
     return o.transpose(1, 2)
+
+
+def grouped_gemm(x, w, block_ids, block_m: int):
+    """x (T, d) block-sorted rows, w (E, d, f), block_ids (T // block_m,)
+    -> (T, f), through K9; a block of id -1 comes out as zeros."""
+    return MG.grouped_gemm(x, w, block_ids, block_m)

@@ -1,6 +1,7 @@
 """Model layers of the port, as plain functions on tensors in the
 reference's layout (`src/repro/models/layers.py`): RMSNorm, rotary
-embeddings, GQA attention (prefill and per-slot decode) and the SwiGLU
+embeddings, GQA attention (prefill and per-slot decode), DeepSeek MLA
+(the expanded prefill and the absorbed per-slot decode) and the SwiGLU
 MLP.
 
 Dispatch follows the reference: `attention` sends a call to the flash
@@ -10,11 +11,13 @@ query offset, equal q/v head dims, more than one query); every other call
 runs `_attend_dense` in plain tensor ops, as the reference computes it
 outside any Pallas kernel.  `rms_norm` runs K8, which computes the same
 function as the reference's `rms_norm`.  The tensors' device picks the
-kernel (CUDA) or its plain version (CPU).
+kernel (CUDA) or its plain version (CPU).  MLA's prefill has q/k head
+dim 192 and v head dim 128, so the flash gate sends it to the dense
+path, as in the reference.
 
 Not ported (raise `NotImplementedError`): windowed and soft-capped
-attention, head padding, grouped-KV decode, MLA, M-RoPE and query
-chunking above `chunk_q`.
+attention, head padding, grouped-KV decode, q-LoRA MLA, M-RoPE and
+query chunking above `chunk_q`.
 """
 from __future__ import annotations
 
@@ -245,6 +248,105 @@ def attn_decode(x, p, cfg: ModelConfig, k_cache, v_cache, index, *,
     # o has the cache's dtype (bf16); promote as JAX does for fp32 weights
     o = o.to(torch.promote_types(o.dtype, p["wo"].dtype))
     return torch.einsum("bshk,hkd->bsd", o, p["wo"]), k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention)
+# ---------------------------------------------------------------------------
+def mla_spec(cfg: ModelConfig) -> dict:
+    m = cfg.mla
+    if m.q_lora_rank:
+        _unported("MLA with a q-LoRA projection")
+    d, h = cfg.d_model, cfg.num_heads
+    return {
+        "wq": ParamSpec((d, h, m.qk_nope_head_dim + m.qk_rope_head_dim),
+                        init="scaled"),
+        "w_dkv": ParamSpec((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                           init="scaled"),
+        "kv_norm": norm_spec(m.kv_lora_rank),
+        "w_uk": ParamSpec((m.kv_lora_rank, h, m.qk_nope_head_dim),
+                          init="scaled"),
+        "w_uv": ParamSpec((m.kv_lora_rank, h, m.v_head_dim), init="scaled"),
+        "wo": ParamSpec((h, m.v_head_dim, d), init="scaled"),
+    }
+
+
+def mla_block(x, p, cfg: ModelConfig, *, causal: bool = True,
+              positions=None):
+    """Prefill MLA: the latent expanded to per-head K/V.  Returns (out,
+    (c_kv, k_rope)), the latent and the roped key for the decode cache."""
+    m = cfg.mla
+    _, s, _ = x.shape
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim, m.qk_rope_head_dim],
+                                 dim=-1)
+    dkv = torch.einsum("bsd,dr->bsr", x, p["w_dkv"])
+    c_kv, k_rope = torch.split(dkv, [m.kv_lora_rank, m.qk_rope_head_dim],
+                               dim=-1)
+    c_kv = rms_norm(c_kv.contiguous(), p["kv_norm"], cfg.norm_eps)
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    cs = rope_cos_sin(positions, m.qk_rope_head_dim, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, *cs)
+    k_rope = apply_rope(k_rope[:, :, None, :], *cs)           # (B,S,1,rope)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uk"])
+    v = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uv"])
+    k = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:3],
+                                         m.qk_rope_head_dim)], dim=-1)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    o = attention(qf, k, v, causal=causal, scale=scale)
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return out, (c_kv, k_rope[:, :, 0, :])
+
+
+def mla_decode(x, p, cfg: ModelConfig, c_cache, kr_cache, index):
+    """Absorbed-projection MLA decode: attention runs in the latent space
+    (per-head K/V are never formed over the cache).  x: (B,1,d);
+    c_cache: (B,S,lora), kr_cache: (B,S,rope); index: scalar or (B,)
+    per-slot position.  Scores in fp32, probabilities cast to x's dtype
+    before the context product, as the reference's dtypes go.
+
+    Writes the new latent and roped key into the caches in place and
+    returns (out, c_cache, kr_cache)."""
+    m = cfg.mla
+    b = x.shape[0]
+    s_max = c_cache.shape[1]
+    idx = _norm_index(index, b, x.device)                        # (B,)
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])                # (B,1,H,.)
+    q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim, m.qk_rope_head_dim],
+                                 dim=-1)
+    dkv = torch.einsum("bsd,dr->bsr", x, p["w_dkv"])
+    c_new, kr_new = torch.split(dkv, [m.kv_lora_rank, m.qk_rope_head_dim],
+                                dim=-1)
+    c_new = rms_norm(c_new.contiguous(), p["kv_norm"], cfg.norm_eps)
+    cs = rope_cos_sin(idx[:, None], m.qk_rope_head_dim, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, *cs)
+    kr_new = apply_rope(kr_new[:, :, None, :], *cs)[:, :, 0, :]
+    rows = torch.arange(b, device=x.device)
+    c_cache[rows, idx] = c_new[:, 0].to(c_cache.dtype)
+    kr_cache[rows, idx] = kr_new[:, 0].to(kr_cache.dtype)
+    # absorb W_uk into q: q_lat (B,1,H,lora)
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    exact_fp32()
+    s_lat = torch.einsum("bshr,btr->bhst", q_lat.to(F32), c_cache.to(F32))
+    s_rope = torch.einsum("bshk,btk->bhst", q_rope.to(F32),
+                          kr_cache.to(F32))
+    scores = (s_lat + s_rope) * scale
+    valid = torch.arange(s_max, device=x.device)[None, :] <= idx[:, None]
+    scores = scores + torch.where(valid, 0.0, NEG_INF).to(F32)[:, None, None]
+    prob = torch.softmax(scores, dim=-1).to(x.dtype)
+    ctx_lat = _promoted("bhst,btr->bshr", prob, c_cache)        # (B,1,H,lora)
+    o = _promoted("bshr,rhk->bshk", ctx_lat, p["w_uv"])          # (B,1,H,v)
+    return _promoted("bshk,hkd->bsd", o, p["wo"]), c_cache, kr_cache
+
+
+def _promoted(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`einsum` of two operands of mixed dtypes in their promoted dtype,
+    as JAX promotes (a bf16 cache against fp32 activations)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
 
 
 # ---------------------------------------------------------------------------

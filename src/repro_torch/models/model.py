@@ -1,5 +1,5 @@
-"""The model API of the port, over the dense family
-(`src/repro/models/model.py`):
+"""The model API of the port, over the dense family and the MoE family
+with full attention or MLA (`src/repro/models/model.py`):
 
     model = build_model(cfg)
     params = model.init(generator, device)      # drawn on `device`
@@ -112,8 +112,9 @@ class Model(nn.Module):
         """Full-prompt pass. Returns (last-position logits (B,V), cache)."""
         cfg = self.cfg
         x, positions = self._embed(params, batch)
-        x, caches = T.apply_segments(x, params["segments"], cfg, causal=True,
-                                     positions=positions, collect_cache=True)
+        x, _, caches = T.apply_segments(x, params["segments"], cfg,
+                                        causal=True, positions=positions,
+                                        collect_cache=True)
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = self._head(params, x[:, -1:])[:, 0]
         return logits, caches
@@ -142,11 +143,12 @@ def build_model(cfg: ModelConfig) -> Model:
     """The model of a config; raises `NotImplementedError` for what the
     port does not serve yet."""
     unported = []
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         unported.append(f"family {cfg.family!r}")
     if cfg.encdec:
         unported.append("encoder-decoder")
-    if cfg.attention_kind != "attn" or cfg.mla is not None:
+    if cfg.attention_kind not in ("attn", "mla") or (
+            (cfg.attention_kind == "mla") != (cfg.mla is not None)):
         unported.append(f"attention kind {cfg.attention_kind!r}")
     if cfg.kernels != "auto":
         unported.append(f"kernels={cfg.kernels!r} (the tensors' device picks "
@@ -157,5 +159,5 @@ def build_model(cfg: ModelConfig) -> Model:
     if unported:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(unported)} not ported yet (the port "
-            "serves the dense family; ROADMAP.md Queue 1)")
+            "serves the dense and MoE families; ROADMAP.md Queue 1)")
     return Model(cfg)

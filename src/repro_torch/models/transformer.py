@@ -4,8 +4,9 @@ a repeating block pattern, each segment's parameters stacked with a
 leading `repeats` axis.  The reference applies a segment with
 `jax.lax.scan`; the port runs a Python loop over the stacked layers.
 
-Only the full-attention block kind (`ATTN`) with a dense SwiGLU MLP is
-ported; the other kinds and MoE layers raise `NotImplementedError`.
+Ported block kinds: full attention (`ATTN`) and MLA, each with a dense
+SwiGLU MLP or an MoE FFN.  Mamba, RG-LRU and local attention raise
+`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -14,8 +15,9 @@ from typing import Any, List, Tuple
 
 import torch
 
-from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.configs.base import ATTN, MLA, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.param import ParamSpec, SpecTree, tree_map
 
 
@@ -48,12 +50,11 @@ def layer_plan(cfg: ModelConfig) -> List[Segment]:
     return segs
 
 
-def _check_kind(kind: str, is_moe: bool) -> None:
-    if kind != ATTN or is_moe:
+def _check_kind(kind: str) -> None:
+    if kind not in (ATTN, MLA):
         raise NotImplementedError(
-            f"block kind {kind!r}{' with MoE' if is_moe else ''} is not "
-            "ported yet (the port serves full-attention dense blocks; "
-            "ROADMAP.md Queue 1)")
+            f"block kind {kind!r} is not ported yet (the port serves "
+            "full-attention and MLA blocks; ROADMAP.md Queue 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -65,10 +66,12 @@ def _stack_spec(spec: SpecTree, n: int) -> SpecTree:
 
 
 def block_spec(cfg: ModelConfig, kind: str, is_moe: bool) -> SpecTree:
-    _check_kind(kind, is_moe)
+    _check_kind(kind)
     d = cfg.d_model
-    return {"norm1": L.norm_spec(d), "mixer": L.attn_spec(cfg),
-            "norm2": L.norm_spec(d), "ffn": L.mlp_spec(cfg)}
+    return {"norm1": L.norm_spec(d),
+            "mixer": L.mla_spec(cfg) if kind == MLA else L.attn_spec(cfg),
+            "norm2": L.norm_spec(d),
+            "ffn": MOE.moe_spec(cfg) if is_moe else L.mlp_spec(cfg)}
 
 
 def segment_spec(cfg: ModelConfig, seg: Segment) -> SpecTree:
@@ -96,39 +99,55 @@ def _layer(tree, r: int):
 # ---------------------------------------------------------------------------
 # Block application (full sequence: prefill)
 # ---------------------------------------------------------------------------
+def _ffn(x, p, cfg: ModelConfig, is_moe: bool):
+    """The block's FFN: (out, aux loss)."""
+    if is_moe:
+        return MOE.moe_block(x, p, cfg)
+    return L.mlp_block(x, p, cfg), torch.zeros((), dtype=torch.float32,
+                                               device=x.device)
+
+
 def apply_block(x, p, cfg: ModelConfig, kind: str, is_moe: bool, *,
                 causal: bool = True, positions=None,
                 collect_cache: bool = False):
-    """Returns (x, cache entry or None)."""
-    _check_kind(kind, is_moe)
+    """Returns (x, aux loss, cache entry or None)."""
+    _check_kind(kind)
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
-    o, kv = L.attn_block(h, p["mixer"], cfg, causal=causal,
-                         positions=positions)
-    cache = {"k": kv[0], "v": kv[1]} if collect_cache else None
+    if kind == MLA:
+        o, ckv = L.mla_block(h, p["mixer"], cfg, causal=causal,
+                             positions=positions)
+        cache = {"c_kv": ckv[0], "k_rope": ckv[1]}
+    else:
+        o, kv = L.attn_block(h, p["mixer"], cfg, causal=causal,
+                             positions=positions)
+        cache = {"k": kv[0], "v": kv[1]}
     x = x + o
     h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-    x = x + L.mlp_block(h2, p["ffn"], cfg)
-    return x, cache
+    f, aux = _ffn(h2, p["ffn"], cfg, is_moe)
+    return x + f, aux, (cache if collect_cache else None)
 
 
 def apply_segments(x, params_segments, cfg: ModelConfig, *, causal=True,
                    positions=None, collect_cache=False):
-    """Run all segments. Returns (x, caches or None); each cache entry is
-    stacked (repeats, ...) as the reference's scan stacks it."""
+    """Run all segments. Returns (x, total aux loss, caches or None); each
+    cache entry is stacked (repeats, ...) as the reference's scan stacks
+    it."""
+    total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches: List[Any] = []
     for seg, seg_p in zip(layer_plan(cfg), params_segments):
         entries = [[] for _ in seg.pattern]
         for r in range(seg.repeats):
             for pos_i, (kind, m) in enumerate(seg.pattern):
-                x, ce = apply_block(x, _layer(seg_p["blocks"][pos_i], r), cfg,
-                                    kind, m, causal=causal,
-                                    positions=positions,
-                                    collect_cache=collect_cache)
+                x, aux, ce = apply_block(
+                    x, _layer(seg_p["blocks"][pos_i], r), cfg, kind, m,
+                    causal=causal, positions=positions,
+                    collect_cache=collect_cache)
+                total_aux = total_aux + aux
                 entries[pos_i].append(ce)
         if collect_cache:
             caches.append([{key: torch.stack([e[key] for e in es])
-                            for key in ("k", "v")} for es in entries])
-    return x, (caches if collect_cache else None)
+                            for key in es[0]} for es in entries])
+    return x, total_aux, (caches if collect_cache else None)
 
 
 # ---------------------------------------------------------------------------
@@ -136,21 +155,28 @@ def apply_segments(x, params_segments, cfg: ModelConfig, *, causal=True,
 # ---------------------------------------------------------------------------
 def apply_block_decode(x, p, cfg: ModelConfig, kind: str, is_moe: bool,
                        cache: dict, index):
-    _check_kind(kind, is_moe)
+    _check_kind(kind)
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
-    o, kc, vc = L.attn_decode(h, p["mixer"], cfg, cache["k"], cache["v"],
-                              index)
+    if kind == MLA:
+        o, cc, krc = L.mla_decode(h, p["mixer"], cfg, cache["c_kv"],
+                                  cache["k_rope"], index)
+        cache = {"c_kv": cc, "k_rope": krc}
+    else:
+        o, kc, vc = L.attn_decode(h, p["mixer"], cfg, cache["k"], cache["v"],
+                                  index)
+        cache = {"k": kc, "v": vc}
     x = x + o
     h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-    x = x + L.mlp_block(h2, p["ffn"], cfg)
-    return x, {"k": kc, "v": vc}
+    f, _ = _ffn(h2, p["ffn"], cfg, is_moe)
+    return x + f, cache
 
 
 def apply_segments_decode(x, params_segments, caches, cfg: ModelConfig,
                           index):
-    """One token through every layer.  Each layer writes its new key and
-    value into its slice of the stacked caches in place, so `caches` is
-    returned updated (the reference returns new stacked arrays)."""
+    """One token through every layer.  Each layer writes its new cache
+    entries (key and value, or MLA's latent and roped key) into its slice
+    of the stacked caches in place, so `caches` is returned updated (the
+    reference returns new stacked arrays)."""
     for seg, seg_p, seg_c in zip(layer_plan(cfg), params_segments, caches):
         for r in range(seg.repeats):
             for pos_i, (kind, m) in enumerate(seg.pattern):
@@ -165,7 +191,13 @@ def apply_segments_decode(x, params_segments, caches, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 def block_cache_spec(cfg: ModelConfig, kind: str, batch: int,
                      s_max: int) -> SpecTree:
-    _check_kind(kind, False)
+    _check_kind(kind)
+    if kind == MLA:
+        m = cfg.mla
+        return {"c_kv": ParamSpec((batch, s_max, m.kv_lora_rank),
+                                  init="zeros"),
+                "k_rope": ParamSpec((batch, s_max, m.qk_rope_head_dim),
+                                    init="zeros")}
     shp = (batch, s_max, cfg.num_kv_heads, cfg.resolved_head_dim)
     return {"k": ParamSpec(shp, init="zeros"),
             "v": ParamSpec(shp, init="zeros")}

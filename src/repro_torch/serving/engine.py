@@ -3,8 +3,9 @@ decode slots with per-tick CARINA accounting, as the reference's
 `src/repro/serving/engine.py` runs it:
 
   * `slots` concurrent sequences share one (L, B, S_max, ...) cache;
-  * admission runs a single-sequence prefill (its attention through the
-    flash kernel K5) and writes its keys and values into the slot;
+  * admission runs a single-sequence prefill and writes its cache
+    entries (keys and values, or MLA's latent and roped key) into the
+    slot;
   * every engine tick decodes all active slots in one batched
     `decode_step` with per-slot positions, and picks tokens greedily
     (`argmax`);
@@ -12,9 +13,9 @@ decode slots with per-tick CARINA accounting, as the reference's
   * a `ServingSession` in live mode gates admissions on grid carbon and
     accounts each tick's runtime, energy and CO2.
 
-The engine runs on the card unless `device=` says otherwise.  Only
-full-attention caches are ported: the ring-buffer (windowed), MLA,
-mamba and RG-LRU cache branches raise `NotImplementedError`.
+The engine runs on the card unless `device=` says otherwise.  Full-
+attention and MLA caches are ported: the ring-buffer (windowed), mamba
+and RG-LRU cache branches raise `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -49,18 +50,18 @@ def _write_slot(cache, prefill_cache, slot: int, cfg: ModelConfig,
     (in place; returns the batch cache)."""
     for seg, seg_c, seg_p in zip(T.layer_plan(cfg), cache, prefill_cache):
         for (kind, _), c, pc in zip(seg.pattern, seg_c, seg_p):
-            if set(c) != {"k", "v"}:
+            if set(c) not in ({"k", "v"}, {"c_kv", "k_rope"}):
                 raise NotImplementedError(
-                    f"cache entries {sorted(c)} (MLA, mamba or RG-LRU) are "
-                    "not ported yet (ROADMAP.md Queue 1)")
-            s_cache = c["k"].shape[2]          # (L, B, S, kv, hd)
-            if kind == LOCAL_ATTN or pc["k"].shape[2] > s_cache:
-                raise NotImplementedError(
-                    "ring-buffer (windowed) caches are not ported yet: a "
-                    f"prompt of {pc['k'].shape[2]} tokens is longer than "
-                    f"s_max = {s_cache}")
-            for key in ("k", "v"):
-                src = pc[key]                  # (L, 1, S_p, kv, hd)
+                    f"cache entries {sorted(c)} (mamba or RG-LRU) are not "
+                    "ported yet (ROADMAP.md Queue 1)")
+            for key in c:                      # (L, B, S, ...)
+                src = pc[key]                  # (L, 1, S_p, ...)
+                s_cache = c[key].shape[2]
+                if kind == LOCAL_ATTN or src.shape[2] > s_cache:
+                    raise NotImplementedError(
+                        "ring-buffer (windowed) caches are not ported yet: "
+                        f"a prompt of {src.shape[2]} tokens is longer than "
+                        f"s_max = {s_cache}")
                 c[key][:, slot, :src.shape[2]] = src[:, 0]
     return cache
 

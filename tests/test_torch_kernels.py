@@ -1,5 +1,6 @@
 """The port's kernels K1 (`coupled_chunk`), K2 (`scan_chunk`), K5
-(`flash_attention`) and K8 (`rmsnorm`): their wrappers' dispatch and
+(`flash_attention`), K8 (`rmsnorm`) and K9 (`moe_gemm`): their wrappers'
+dispatch and
 input checks, and — on a machine with an NVIDIA GPU — each CUDA kernel
 against its plain PyTorch version.
 
@@ -11,7 +12,7 @@ machine with PyTorch alone:
 Here on the CPU the card tests skip.  The input builders are shared with
 tests/test_torch_engine.py and tests/test_torch_fleet.py, which hold the
 plain versions against the JAX package (tests/test_torch_serving.py does
-so for K5 and K8).
+so for K5 and K8, tests/test_torch_moe.py for K9).
 """
 import numpy as np
 import pytest
@@ -23,6 +24,7 @@ import repro_torch.carina as P  # noqa: E402
 from repro_torch.core import model  # noqa: E402
 from repro_torch.kernels import coupled_chunk as k1  # noqa: E402
 from repro_torch.kernels import flash_attention as k5  # noqa: E402
+from repro_torch.kernels import moe_gemm as k9  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import rmsnorm as k8  # noqa: E402
 from repro_torch.kernels import scan_chunk as k2  # noqa: E402
@@ -332,3 +334,82 @@ def test_rmsnorm_kernel_matches_plain_on_card(t, d, xdt, sdt):
     assert k8.launches == before + 1 and y.dtype == xdt
     np.testing.assert_allclose(y.float().cpu().numpy(),
                                ref.float().cpu().numpy(), **MODEL_TOL[xdt])
+
+
+# ---------------------------------------------------------------------------
+# K9 grouped expert GEMM
+# ---------------------------------------------------------------------------
+def gg_inputs(ids, bm, d, f, e, dtype, device="cpu", seed=0, shift=0):
+    """Block-sorted rows, expert weights of std 1/sqrt(d) and int32 ids;
+    with `shift` x starts that many elements into its buffer (contiguous,
+    off the 16-byte alignment of the vector loads)."""
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.normal(size=(len(ids) * bm, d)),
+                        dtype=torch.float32).to(dtype).to(device)
+    if shift:
+        pad = torch.zeros(shift, dtype=dtype, device=device)
+        x = torch.cat([pad, x.reshape(-1)])[shift:].view(x.shape)
+    w = torch.as_tensor(rng.normal(0, d ** -0.5, (e, d, f)),
+                        dtype=torch.float32)
+    return (x, w.to(dtype).to(device),
+            torch.as_tensor(np.asarray(ids, np.int32)).to(device))
+
+
+def test_grouped_gemm_wrapper_dispatch_and_checks():
+    x, w, ids = gg_inputs([1, -1, 0], 8, 24, 40, 3, torch.float32)
+    before = k9.launches
+    y = k9.grouped_gemm(x, w, ids, 8)
+    assert torch.equal(y, k9.grouped_gemm_plain(x, w, ids, 8))
+    assert y.shape == (24, 40) and not y[8:16].any()
+    close(y[:8], x[:8].double() @ w[1].double(), 1e-5, scale=1.0)
+    assert k9.launches == before                       # CPU: no launch
+    assert k9.grouped_gemm(x.bfloat16(), w.bfloat16(), ids, 8).dtype == \
+        torch.bfloat16
+    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+        k9.grouped_gemm(x.to("meta"), w.to("meta"), ids.to("meta"), 8)
+    with pytest.raises(TypeError):
+        k9.grouped_gemm(x, w.bfloat16(), ids, 8)       # mixed dtypes
+    with pytest.raises(TypeError):
+        k9.grouped_gemm(x.double(), w.double(), ids, 8)
+    with pytest.raises(TypeError, match="int32"):
+        k9.grouped_gemm(x, w, ids.long(), 8)
+    with pytest.raises(ValueError, match="multiple"):
+        k9.grouped_gemm(x, w, ids, 7)                  # 24 rows, blocks of 7
+    with pytest.raises(ValueError, match="multiple"):
+        k9.grouped_gemm(x, w, ids[:2], 8)              # one id per block
+    with pytest.raises(ValueError, match="does not fit"):
+        k9.grouped_gemm(x, w[:, :20], ids, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        k9.grouped_gemm(x.T.contiguous().T, w, ids, 8)
+    with pytest.raises(ValueError, match="block ids"):
+        k9.grouped_gemm(x, w, torch.tensor([1, 3, 0], dtype=torch.int32), 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ids,bm,d,f,e,shift", [
+    ([5, 2, 2, -1, 0, -1, -1], 8, 2048, 1408, 8, 0),    # a decode tick
+    ([5, 2, 2, -1, 0, -1, -1], 8, 2048, 1408, 8, 1),    # x misaligned
+    ([0, 1, 2, 3, -1], 64, 2048, 1408, 4, 0),            # prefill widths
+    ([3, 0, -1, 1], 64, 1408, 2048, 4, 0),               # the down product
+    ([1, -1, 0, 1], 16, 100, 77, 2, 0),                  # ragged d and f
+    ([0, -1, 1], 128, 33, 130, 2, 0),                    # ragged, bm 128
+    ([-1, -1], 8, 64, 64, 1, 0)])                        # every block empty
+def test_grouped_gemm_kernel_matches_plain_on_card(ids, bm, d, f, e, shift,
+                                                   dtype):
+    dev = _card()
+    x, w, bid = gg_inputs(ids, bm, d, f, e, dtype, dev, seed=d + f,
+                          shift=shift)
+    assert x.is_contiguous() and (x.data_ptr() % 16 != 0) == bool(shift)
+    before = k9.launches
+    got = k9.grouped_gemm(x, w, bid, bm)
+    ref = k9.grouped_gemm_plain(x, w, bid, bm)
+    torch.cuda.synchronize()
+    assert k9.launches == before + 1 and got.dtype == dtype
+    got, ref = got.float().cpu(), ref.float().cpu()
+    rows = np.repeat(np.asarray(ids) < 0, bm)
+    assert not got[rows].any()                         # -1 blocks: zeros
+    if dtype == torch.float32:
+        close(got, ref, 1e-5, scale=float(ref.abs().max()))
+    else:
+        close(got, ref, 2e-2, scale=float(ref.abs().max()))

@@ -19,8 +19,9 @@
   the same tick runtimes;
 * (e) the live gate with its queue-pressure override and the tick
   accounting, mirroring tests/test_serving.py;
-* (f) every family, kind and knob the slice does not cover raises
-  `NotImplementedError`.
+* (f) every family, kind and knob the port does not cover raises
+  `NotImplementedError` (MoE and MLA are held in tests/test_torch_moe.py),
+  and a session refuses a non-positive service rate, as the reference's.
 
 The reference's module-global kernel mode is restored after every test
 (`kernel_mode`, `pallas_mode` fixtures): xdist workers run files back to
@@ -47,7 +48,7 @@ from repro.serving.engine import _write_slot as ref_write_slot  # noqa: E402
 
 import repro_torch.carina as P  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.base import MAMBA  # noqa: E402
+from repro_torch.configs.base import LOCAL_ATTN, MAMBA  # noqa: E402
 from repro_torch.core.serve import ServingSession  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import param as PA  # noqa: E402
@@ -411,8 +412,20 @@ def _smoke():
     return get_config(ARCH, smoke=True)
 
 
-def _bad_cache():
-    return [[{"c_kv": torch.zeros(2, 2, 8, 4), "k_rope": torch.zeros(2, 2, 8, 2)}]]
+def _deepseek():
+    return get_config("deepseek-v2-lite-16b", smoke=True)
+
+
+def _long_mla_prompt():
+    """An MLA prefill cache longer than s_max (a ring buffer's case)."""
+    cache = build_model(_deepseek()).cache_zeros(2, 16, "cpu")
+    pc = [[{"c_kv": torch.zeros(1, 1, 20, 32),
+            "k_rope": torch.zeros(1, 1, 20, 8)}] for _ in range(2)]
+    _write_slot(cache, pc, 0, _deepseek(), 20)
+
+
+def _mamba_cache():
+    return [[{"conv": torch.zeros(2, 2, 3, 8), "ssm": torch.zeros(2, 2, 8, 4)}]]
 
 
 def _long_prompt():
@@ -424,10 +437,15 @@ def _long_prompt():
 
 UNPORTED = {
     "arch": lambda: get_config("llama3-405b"),
-    "family": lambda: build_model(dataclasses.replace(_smoke(), family="moe")),
+    "family": lambda: build_model(dataclasses.replace(_smoke(), family="ssm")),
     "encdec": lambda: build_model(dataclasses.replace(_smoke(), encdec=True)),
-    "mla": lambda: build_model(dataclasses.replace(_smoke(),
-                                                   attention_kind="mla")),
+    "mla": lambda: T.lm_spec(dataclasses.replace(   # q-LoRA MLA
+        _deepseek(), mla=dataclasses.replace(_deepseek().mla,
+                                             q_lora_rank=16))),
+    "mla-knob": lambda: build_model(dataclasses.replace(_smoke(),
+                                                        attention_kind="mla")),
+    "local-kind": lambda: T.lm_spec(dataclasses.replace(
+        _smoke(), block_pattern=(LOCAL_ATTN,))),
     "kernels-knob": lambda: build_model(dataclasses.replace(_smoke(),
                                                             kernels="xla")),
     "pad-heads-knob": lambda: build_model(
@@ -455,8 +473,9 @@ UNPORTED = {
     "init-kind": lambda: PA.init_params(
         {"a": PA.ParamSpec((4,), init="a_log")}, None, "cpu"),
     "loss": lambda: build_model(_smoke()).loss({}, {}),
-    "mla-cache": lambda: _write_slot(_bad_cache(), _bad_cache(), 0,
-                                     _smoke(), 8),
+    "mla-cache": _long_mla_prompt,
+    "mamba-cache": lambda: _write_slot(_mamba_cache(), _mamba_cache(), 0,
+                                       _smoke(), 8),
     "ring-cache": _long_prompt,
     "session-submit": lambda: ServingSession().submit(n=10),
     "session-tick": lambda: ServingSession().tick(),
@@ -468,3 +487,17 @@ UNPORTED = {
 def test_unported_raises(name):
     with pytest.raises(NotImplementedError):
         UNPORTED[name]()
+
+
+@pytest.mark.parametrize("kw", [dict(service_rate=0.0),
+                                dict(service_rate=-3.0)])
+def test_session_refuses_a_non_positive_service_rate(kw):
+    """The workload template is built and checked as the reference's
+    constructor does (src/repro/core/serve.py:790-795)."""
+    for cls in (R.ServingSession, ServingSession):
+        with pytest.raises(ValueError, match="positive rate_at_full"):
+            cls(**kw)
+    sess = ServingSession(service_rate=50.0, batch_overhead_s=1.5)
+    ref = R.ServingSession(service_rate=50.0, batch_overhead_s=1.5)
+    assert sess.workload.rate_at_full == ref.workload.rate_at_full == 50.0
+    assert sess.workload.batch_overhead_s == ref.workload.batch_overhead_s
