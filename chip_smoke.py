@@ -4,8 +4,8 @@
     python3 chip_smoke.py            # from the root of a checkout
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc,
-drives the trace-sweep engine and the serving engine through their entry
-points at benchmark sizes, holds every kernel against its plain PyTorch
+drives the trace-sweep engine, the serving engine and the training loss
+through their entry points at benchmark sizes, holds every kernel against its plain PyTorch
 version on the card, and checks the answers against the repo's own
 oracles:
 
@@ -40,7 +40,22 @@ oracles:
   6. K5 and K8 against their plain versions at the main path's shapes,
      first and deepest layer, and the stated ones, with times, bounds
      and the PyTorch yardstick; then TinyLlama's tensors are freed;
-  7. serving DeepSeek-V2-Lite-16B at its published widths and depth (27
+  7. the training loss of TinyLlama-1.1B at full width and depth
+     (weights from seed 0 on the card, `blocked_xent=True`) through
+     `Model.loss` on three `SyntheticLM` batches of 4 x 2048 tokens
+     (seed 0, steps 0-2) under `torch.no_grad()`.  K10 (`blocked_xent`)
+     must launch once, K5 22 times and K8 45 times per loss call; K10's
+     main-path inputs (bf16, and cast to fp32), DeepSeek-V2-Lite's
+     (2048, 102400) head and a tied (50257, 2048) table against the plain
+     version (nll within 1e-4 + 1e-4 |nll|, the argmax equal outside
+     near-ties), with times, bound and a two-call PyTorch yardstick; peak
+     memory of one loss call through K10 and with full logits; the
+     untouched and traced runs; whole-loss parity on weights drawn
+     well-conditioned: fp32 loss within 1e-4 relative, per-token nll
+     within 2e-2 of max |logit| and the argmax equal outside top-2 gaps
+     below 1e-4 of max |logit|, bf16 at most 1e-2 further from the plain
+     fp32 loss than the plain bf16 run;
+  8. serving DeepSeek-V2-Lite-16B at its published widths and depth (27
      layers, MLA, 26 MoE layers of 64 routed + 2 shared experts, top-6;
      bf16 weights drawn on the card from seed 0) through the same engine,
      session and traffic.  K9 (`grouped_gemm`) must launch 78 times and
@@ -51,7 +66,12 @@ oracles:
      untouched and traced runs; then parity on weights drawn
      well-conditioned in fp32 and cast to bf16, every router decision
      recorded (see `routing_flips`, `forced_routing`);
-  8. one JSON line of per-kernel numbers, then the result line.
+  9. one JSON line of per-kernel numbers, then the result line.
+
+Every kernel time is by CUDA events (`cuda_ms`).  The profiler serves
+only the traced windows, and a window is used only when its trace shows
+all but at most 1 % of the launches the kernel wrappers counted in it
+(`profile_window`).
 
 Exits non-zero, before printing any result, without a CUDA device or
 without the repo's sources beside it; any failed check raises.  Long
@@ -120,13 +140,19 @@ def plain_versions(*kernels):
 
 
 @contextlib.contextmanager
-def first_and_last(mod, name, store, key=lambda args: 0):
-    """Keep in `store`, per `key(args)`, the arguments of the first and
-    of the last call of `mod.name` with that key: `[first, last]`."""
+def recording(mod, name, store, key=None):
+    """Record the `(args, kwargs)` of the calls of `mod.name`: of every
+    call, appended to the list `store`; with `key`, of the first and of
+    the last call with each `key(args)`, as `store[key(args)] = [first,
+    last]` in the dict `store`."""
     fn = getattr(mod, name)
 
     def rec(*args, **kwargs):
-        store.setdefault(key(args), [(args, kwargs)] * 2)[1] = (args, kwargs)
+        if key is None:
+            store.append((args, kwargs))
+        else:
+            store.setdefault(key(args), [(args, kwargs)] * 2)[1] = (args,
+                                                                     kwargs)
         return fn(*args, **kwargs)
 
     setattr(mod, name, rec)
@@ -137,16 +163,28 @@ def first_and_last(mod, name, store, key=lambda args: 0):
 
 
 def cuda_ms(torch, fn, reps):
-    """Mean ms per call of `fn` on the current stream (CUDA events)."""
+    """Mean ms per call of `fn` on the current stream, by CUDA events
+    around `reps` calls queued behind a sleep kernel: while the card
+    sleeps the host queues every call, so the host's launch time between
+    calls does not count.  The sleep is lengthened (twice at most) until
+    the start event is still pending once the last call is queued; a
+    `fn` that waits for the card itself is timed as it runs."""
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
+    cycles = 1 << 24
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = not start.query()
+        end.synchronize()
+        if queued:
+            break
+        cycles *= 8
     return start.elapsed_time(end) / reps
 
 
@@ -250,8 +288,8 @@ def phase_scan_chunk(torch, carina, et, k2, k1, dev, S=100_000):
     check(st.kernel_dispatches["coupled_chunk"] == 0,
           "an uncoupled plan launched the coupled kernel")
 
-    captured = {}
-    with first_and_last(k2, "scan_chunk", captured):
+    captured = []
+    with recording(k2, "scan_chunk", captured):
         got_mixed = et.execute_plan(mixed, device=dev)
     with plain_versions((k2, "scan_chunk"), (k1, "coupled_chunk")):
         ref = et.execute_plan(plan, device=dev)
@@ -278,10 +316,10 @@ def phase_scan_chunk(torch, carina, et, k2, k1, dev, S=100_000):
 
     # per-launch times on the first chunk of the main path (fp64 plan)
     et.reset_scan_stats()
-    captured64 = {}
-    with first_and_last(k2, "scan_chunk", captured64):
+    captured64 = []
+    with recording(k2, "scan_chunk", captured64):
         et.execute_plan(plan, device=dev)
-    args, kw = captured64[0][0]
+    args, kw = captured64[0]
     out_k = k2.scan_chunk(*args, **kw)
     out_p = k2.scan_chunk_plain(*args, **kw)
     torch.cuda.synchronize()
@@ -289,7 +327,7 @@ def phase_scan_chunk(torch, carina, et, k2, k1, dev, S=100_000):
     ms = cuda_ms(torch, lambda: k2.scan_chunk(*args, **kw), 20)
     plain_ms = cuda_ms(torch, lambda: k2.scan_chunk_plain(*args, **kw), 3)
     b_ms, b_by = k2_bound(torch, args, out_k, kw["B"])
-    margs, mkw = captured[0][0]
+    margs, mkw = captured[0]
     ms_mixed = cuda_ms(torch, lambda: k2.scan_chunk(*margs, **mkw), 20)
     idle = max(0.0, 1.0 - launches * ms / (wall * 1e3))
     print(f"K2 scan_chunk: S={S} lanes, tables {tuple(plan.tab_u.shape)}, "
@@ -346,8 +384,8 @@ def phase_coupled_chunk(torch, carina, et, k2, k1, dev, M=8, S=500):
     t0 = time.perf_counter()
     et._chunk_inputs(plan, np.arange(plan.n_lanes), 0, 96 * plan.sph)
     t_inputs = time.perf_counter() - t0
-    captured = {}
-    with first_and_last(k1, "coupled_chunk", captured):
+    captured = []
+    with recording(k1, "coupled_chunk", captured):
         got = et.execute_plan(plan, device=dev)
     got_mixed = et.execute_plan(mixed, device=dev)
     with plain_versions((k2, "scan_chunk"), (k1, "coupled_chunk")):
@@ -367,7 +405,7 @@ def phase_coupled_chunk(torch, carina, et, k2, k1, dev, M=8, S=500):
     check(bool((got.remaining <= 1e-6 * plan.n_scen).all()),
           "K1 lanes did not finish")
 
-    args, akw = captured[0][0]
+    args, akw = captured[0]
     out_k = k1.coupled_chunk(*args, **akw)
     out_p = k1.coupled_chunk_plain(*args, **akw)
     torch.cuda.synchronize()
@@ -485,7 +523,7 @@ def serve(torch, model, params, prompts, dev, chip, force=None,
     each step keeps its MoE routing decisions; with `route_force` (the
     queue `forced_routing` reads) each step's MoE layers take the experts
     that `force`'s step recorded; with `k9` (a dict whose
-    "calls" list `record_calls` fills) the grouped-GEMM calls of the first
+    "calls" list `recording` fills) the grouped-GEMM calls of the first
     MoE layer and of the last layer are kept for the first prefill, the
     longest prefill and the first tick with every slot active."""
     from repro_torch.carina import (RunTracker, ServingSession, SimClock,
@@ -690,25 +728,38 @@ def trace(torch, fn):
 
 
 KERNEL_GROUPS = (("K5", ("flash_fwd",)), ("K8", ("rmsnorm_kernel",)),
-                 ("K9", ("grouped_gemm_kernel",)),
+                 ("K9", ("grouped_gemm_kernel",)), ("K10", ("xent_kernel",)),
                  ("cuBLAS", ("nvjet", "gemv", "gemm", "splitK", "cutlass")),
-                 ("copies and casts", ("copy", "Copy")), ("softmax", ("softmax",)))
+                 ("copies and casts", ("copy", "Copy")), ("softmax", ("softmax",)),
+                 ("elementwise", ("elementwise", "reduce_kernel")))
 
 
-def profile_window(torch, fn):
+def profile_window(torch, fn, counted):
     """(wall s, device kernel s, kernel launches, device ms by kernel
-    group, per-kernel table) of `fn`, or None when the trace shows no
-    device time."""
+    group, per-kernel table) of one trace of `fn`; or, as a string, why
+    the trace is not used: it shows no device time, or for a group of
+    `counted` ({group: kernel module}) more than 1 % fewer launches than
+    the module counted.  A shortfall within that is printed."""
+    before = {g: mod.launches for g, mod in counted.items()}
     wall, rows = trace(torch, fn)
     busy_us = sum(e.self_device_time_total for e in rows)
     if busy_us <= 0:
-        return None
+        return "no device time in the trace"
     groups = {g: [0.0, 0] for g in [g for g, _ in KERNEL_GROUPS] + ["other"]}
     for e in rows:
         g = next((g for g, keys in KERNEL_GROUPS
                   if any(k in e.key for k in keys)), "other")
         groups[g][0] += e.self_device_time_total / 1e3
         groups[g][1] += e.count
+    short = {g: (groups[g][1], mod.launches - before[g])
+             for g, mod in counted.items()
+             if groups[g][1] != mod.launches - before[g]}
+    text = ", ".join(f"{g} {n} of {want}" for g, (n, want) in short.items())
+    if any(want - n > want // 100 for n, want in short.values()):
+        return f"the trace shows launches {text}"
+    if short:
+        print(f"a traced window shows launches {text} (within 1 %)",
+              flush=True)
     table = "\n".join(f"{e.self_device_time_total / 1e3:10.3f} ms "
                       f"{e.count:7d}x  {e.key[:110]}" for e in rows)
     return wall, busy_us / 1e6, sum(e.count for e in rows), groups, table
@@ -718,16 +769,6 @@ def groups_text(groups, per=1):
     """Device ms and launches of each kernel group, per `per` calls."""
     return ", ".join(f"{g} {ms / per:.3f} ms / {n / per:.0f}"
                      for g, (ms, n) in groups.items())
-
-
-def device_ms(torch, fn, reps):
-    """Device time per call of `fn` (all the kernels it launches), from
-    a profiler trace of `reps` calls after a warm-up; the CUDA-event time
-    per call when the trace shows no device time."""
-    fn()
-    _, rows = trace(torch, lambda: [fn() for _ in range(reps)])
-    us = sum(e.self_device_time_total for e in rows)
-    return us / 1e3 / reps if us > 0 else cuda_ms(torch, fn, reps)
 
 
 def phase_serving(torch, k5, k8, dev):
@@ -757,9 +798,9 @@ def phase_serving(torch, k5, k8, dev):
     # step's logits recorded, the first and last kernel call of each shape
     # kept for the per-call checks (layer 0 and the deepest layer)
     calls5, calls8 = {}, {}
-    with first_and_last(k5, "flash_attention_fwd", calls5,
-                        lambda a: tuple(a[0].shape)), \
-            first_and_last(k8, "rmsnorm", calls8, lambda a: a[0].shape[0]):
+    with recording(k5, "flash_attention_fwd", calls5,
+                   lambda a: tuple(a[0].shape)), \
+            recording(k8, "rmsnorm", calls8, lambda a: a[0].shape[0]):
         k5.launches = k8.launches = 0
         engine, session, _, steps = serve(torch, model, params, prompts, dev,
                                           chip)
@@ -840,10 +881,11 @@ def phase_serving(torch, k5, k8, dev):
     # ... and once more under the profiler: the idle share is 1 - device
     # kernel time / wall time, both of this one traced run
     busy = profile_window(torch, lambda: serve(torch, model, params, prompts,
-                                               dev, chip, record=False))
+                                               dev, chip, record=False),
+                          {"K5": k5, "K8": k8})
     os.makedirs(OUT, exist_ok=True)
-    idle = "not measured (no device time in the trace)"
-    if busy is not None:
+    idle = f"not measured ({busy})"
+    if not isinstance(busy, str):
         twall, dev_s, n_kern, groups, table = busy
         idle = (f"{1.0 - dev_s / twall:.3f} (device kernels {dev_s:.3f} s, "
                 f"{n_kern} launches, over {twall:.3f} s wall, one traced "
@@ -862,9 +904,9 @@ def phase_serving(torch, k5, k8, dev):
             logits, _ = model.decode_step(params, cache, toks, idx)
             torch.argmax(logits[:, 0], dim=-1).cpu()
     ticks10()
-    tick = profile_window(torch, ticks10)
-    tick_txt = "not measured"
-    if tick is not None:
+    tick = profile_window(torch, ticks10, {"K5": k5, "K8": k8})
+    tick_txt = f"not measured ({tick})"
+    if not isinstance(tick, str):
         twall, tdev, tn, tgroups, ttable = tick
         per_tick = groups_text(tgroups, 10)
         tick_txt = (f"{tdev * 100:.3f} ms on the device ({per_tick}), "
@@ -952,13 +994,12 @@ def phase_flash_attention(torch, k5, dev, calls5, n5):
                lambda: k5.flash_attention_fwd_plain(q, k, v, causal=causal),
                lambda: F.scaled_dot_product_attention(
                    q, k, v, is_causal=causal, enable_gqa=True))
-        ms, plain, lib = (device_ms(torch, f, 20) for f in fns)
-        ev = cuda_ms(torch, fns[0], 20)
+        ms, plain, lib = (cuda_ms(torch, f, 20) for f in fns)
         b_ms, b_by = attn_bound(q, k, causal)
         parts.append(f"{name} {tuple(q.shape)}x{tuple(k.shape)} (max |q| "
-                     f"{float(q.abs().max()):.4g}): err {err:.3e}, {ms:.4f} ms on the device ({ev:.4f} per "
-                     f"call by events; plain {plain:.3f}, SDPA {lib:.4f}, "
-                     f"bound {b_ms:.4f} {b_by})")
+                     f"{float(q.abs().max()):.4g}): err {err:.3e}, {ms:.4f} "
+                     f"ms (plain {plain:.3f}, SDPA {lib:.4f}, bound "
+                     f"{b_ms:.4f} {b_by})")
         if row is None:
             row = {"name": "flash_attention", "route": "cuda",
                    "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -967,7 +1008,8 @@ def phase_flash_attention(torch, k5, dev, calls5, n5):
                    "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
                    "library_ms": lib}
     row["max_abs_err"] = main_err
-    print("K5 flash_attention vs plain (bf16 o 2e-2, fp32 2e-5, lse 1e-3): "
+    print("K5 flash_attention vs plain (bf16 o 2e-2, fp32 2e-5, lse 1e-3; "
+          "ms per call by CUDA events): "
           + "; ".join(parts), flush=True)
     return row
 
@@ -1001,16 +1043,14 @@ def phase_rmsnorm(torch, k8, dev, calls8, n8):
         fns = (lambda: k8.rmsnorm(x, s, 1e-6),
                lambda: k8.rmsnorm_plain(x, s, 1e-6),
                lambda: F.rms_norm(x, (x.shape[1],), w, 1e-6))
-        ms, plain, lib = (device_ms(torch, f, 50) for f in fns)
-        ev = cuda_ms(torch, fns[0], 50)
+        ms, plain, lib = (cuda_ms(torch, f, 50) for f in fns)
         t = x.element_size()
         b_ms, b_by = bound_ms(2 * x.numel() * t + s.numel() * s.element_size(),
                               4.0 * x.numel(), 0, "float32")
         parts.append(f"{name} {tuple(x.shape)} (max |x| "
                      f"{float(x.abs().max()):.4g}): err {err:.3e}, {ms:.4f} ms "
-                     f"on the device ({ev:.4f} per call by events; plain "
-                     f"{plain:.4f}, F.rms_norm {lib:.4f}, bound {b_ms:.5f} "
-                     f"{b_by})")
+                     f"(plain {plain:.4f}, F.rms_norm {lib:.4f}, bound "
+                     f"{b_ms:.5f} {b_by})")
         if row is None:
             row = {"name": "rmsnorm", "route": "cuda",
                    "source": "src/repro_torch/csrc/rmsnorm.cu",
@@ -1019,8 +1059,279 @@ def phase_rmsnorm(torch, k8, dev, calls8, n8):
                    "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
                    "library_ms": lib}
     row["max_abs_err"] = main_err
-    print("K8 rmsnorm vs plain (bf16 2e-2): " + "; ".join(parts), flush=True)
+    print("K8 rmsnorm vs plain (bf16 2e-2; ms per call by CUDA events): "
+          + "; ".join(parts), flush=True)
     return row
+
+
+# --------------------------------------------------------------------------
+# the training loss: TinyLlama-1.1B's Model.loss with blocked_xent, K10
+# --------------------------------------------------------------------------
+LOSS = dict(batch=4, seq=2048, steps=(0, 1, 2))
+XENT_NEAR = 1e-4          # of max |logit|: an argmax near-tie of K10
+
+
+def xent_logits(torch, x, emb, dv):
+    """The fp32 logits of one K10 call, for its bars and near-ties."""
+    return x.float() @ (emb.float() if dv else emb.float().t())
+
+
+def xent_bound(torch, x, emb, labels):
+    """Least time for one K10 call: x, emb and labels read once, nll and
+    argmax written once; 2 T V d operations at the inputs' peak."""
+    t, d = x.shape
+    v = emb.numel() // d
+    bytes_ = ((t + v) * d * x.element_size() + t * labels.element_size()
+              + 8 * t)
+    return bound_ms(bytes_, 2.0 * t * v * d, 0, str(x.dtype).split(".")[1],
+                    peak=PEAK_TC_S)
+
+
+def xent_check(torch, k10, x, emb, labels, dv, label):
+    """Hold one K10 call against its plain version on the same inputs:
+    nll within 1e-4 + 1e-4 |nll|, the argmax equal except where the plain
+    top-2 gap is below XENT_NEAR of max |logit|.  Returns the max abs nll
+    error, the near-ties and how many of them differ."""
+    nll, amax = k10.blocked_xent(x, emb, labels, transpose_emb=dv)
+    pnll, pamax = k10.blocked_xent_plain(x, emb, labels, transpose_emb=dv)
+    torch.cuda.synchronize()
+    err = (nll - pnll).abs()
+    check(bool(torch.isfinite(nll).all()), f"K10 {label}: non-finite nll")
+    check(bool((err <= 1e-4 + 1e-4 * pnll.abs()).all()),
+          f"K10 {label}: nll max err {float(err.max()):.3e}")
+    logits = xent_logits(torch, x, emb, dv)
+    top2 = logits.topk(2, dim=1).values
+    near = top2[:, 0] - top2[:, 1] < XENT_NEAR * float(logits.abs().max())
+    del logits, top2
+    differ = amax != pamax
+    check(not bool((differ & ~near).any()), f"K10 {label}: argmax differs "
+          "from the plain version outside near-ties")
+    return float(err.max()), int(near.sum()), int((differ & near).sum())
+
+
+def phase_xent(torch, k10, dev, main_args, n10):
+    """K10 at the main path's call (bf16, and its inputs cast to fp32), at
+    DeepSeek-V2-Lite's head and at a tied (V, d) table with a vocab tail:
+    checks, device ms, the bound, the plain version's ms and the two-call
+    PyTorch yardstick."""
+    import torch.nn.functional as F
+    x, w, lab = main_args
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rand(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std
+                ).to(torch.bfloat16)
+    cases = [("main path bf16", x, w, lab, True),
+             ("main path fp32", x.float(), w.float(), lab, True),
+             ("DeepSeek-V2-Lite head", rand(2048, 2048), rand(
+                 2048, 102400, std=2048 ** -0.5), torch.randint(
+                 0, 102400, (2048,), generator=gen, device=dev), True),
+             ("tied (V, d) with a vocab tail", rand(2048, 2048), rand(
+                 50257, 2048, std=2048 ** -0.5), torch.randint(
+                 0, 50257, (2048,), generator=gen, device=dev), False)]
+    parts, row = [], None
+    for name, xx, ee, ll, dv in cases:
+        err, near, flips = xent_check(torch, k10, xx, ee, ll, dv, name)
+
+        def lib():
+            logits = xx @ (ee if dv else ee.t())
+            return F.cross_entropy(logits, ll, reduction="none")
+        fns = (lambda: k10.blocked_xent(xx, ee, ll, transpose_emb=dv),
+               lambda: k10.blocked_xent_plain(xx, ee, ll, transpose_emb=dv),
+               lib)
+        ms, plain, two = (cuda_ms(torch, f, 5) for f in fns)
+        b_ms, b_by = xent_bound(torch, xx, ee, ll)
+        parts.append(f"{name} x {tuple(xx.shape)} emb {tuple(ee.shape)} "
+                     f"{str(xx.dtype)[6:]}: nll max err {err:.3e}, argmax "
+                     f"near-ties {near} ({flips} differ); {ms:.4f} ms per "
+                     f"call by CUDA events; plain {plain:.3f}, two calls "
+                     f"x @ W + F.cross_entropy "
+                     f"{two:.4f}, bound {b_ms:.4f} {b_by}")
+        if row is None:
+            row = {"name": "blocked_xent", "route": "cuda",
+                   "source": "src/repro_torch/csrc/xent.cu",
+                   "replaces": "src/repro/kernels/xent.py:70",
+                   "launches": n10, "max_abs_err": err, "ms": ms,
+                   "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": None}
+    print("K10 blocked_xent vs plain (nll 1e-4 + 1e-4 |nll|, argmax equal "
+          f"outside gaps < {XENT_NEAR} of max |logit|; no single PyTorch "
+          "call computes it): " + "; ".join(parts), flush=True)
+    return row
+
+
+def phase_loss(torch, k5, k8, k10, dev):
+    """TinyLlama-1.1B's training loss at full width and depth through
+    `Model.loss` with `blocked_xent` (K10, K5, K8 on its path): launch
+    proof, per-call K10 checks, whole-loss parity on weights drawn
+    well-conditioned, peak memory of both loss branches, an untouched and
+    a traced run."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.model import build_model
+    from repro_torch.models.param import tree_map
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), blocked_xent=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    data = SyntheticLM(cfg, batch=LOSS["batch"], seq=LOSS["seq"], seed=0)
+    batches = [data.batch_at(s) for s in LOSS["steps"]]
+    n_tok = LOSS["batch"] * LOSS["seq"]
+
+    def run(mdl, tree, outs=None):
+        with torch.no_grad():
+            for b in batches:
+                loss, met = mdl.loss(tree, b)
+                if outs is not None:
+                    outs.append((float(loss), {k: float(v)
+                                               for k, v in met.items()}))
+        torch.cuda.synchronize()
+    run(model, params)                                        # warm-up
+
+    # the main path: counts zeroed just before, read just after
+    calls, results = [], []
+    with recording(k10, "blocked_xent", calls):
+        k5.launches = k8.launches = k10.launches = 0
+        run(model, params, results)
+        n5, n8, n10 = k5.launches, k8.launches, k10.launches
+    steps, layers = len(batches), cfg.num_layers
+    check(n10 == steps, f"K10 launched {n10} times, expected {steps}")
+    check(n5 == layers * steps, f"K5 launched {n5} times, expected "
+          f"{layers} x {steps}")
+    check(n8 == (2 * layers + 1) * steps, f"K8 launched {n8} times, "
+          f"expected {2 * layers + 1} x {steps}")
+    for loss, met in results:
+        check(all(math.isfinite(v) for v in (loss, *met.values())),
+              f"non-finite loss {loss} {met}")
+        check(met["aux"] == 0.0 and 0.0 <= met["acc"] <= 1.0
+              and met["nll"] > 0 and loss == met["nll"],
+              f"loss terms out of range: {loss} {met}")
+    (x, w, lab), _ = calls[0]
+    check(tuple(x.shape) == (n_tok, cfg.d_model) and x.dtype
+          == torch.bfloat16 and tuple(w.shape) == (cfg.d_model,
+                                                   cfg.vocab_size),
+          f"K10's main-path call took x {tuple(x.shape)} {x.dtype}, emb "
+          f"{tuple(w.shape)}")
+    main_args = (x.clone(), w, lab.clone())
+    del calls
+
+    # peak memory of one loss call, K10 and full logits
+    peaks = {}
+    for blocked in (True, False):
+        mdl = build_model(dataclasses.replace(cfg, blocked_xent=blocked))
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            mdl.loss(params, batches[0])
+        torch.cuda.synchronize()
+        peaks[blocked] = (torch.cuda.max_memory_allocated(), base,
+                          (time.perf_counter() - t0) * 1e3)
+
+    # untouched run, then a traced one (wall and device time both of it)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(model, params)
+    wall = time.perf_counter() - t0
+    busy = profile_window(torch, lambda: run(model, params),
+                          {"K5": k5, "K8": k8, "K10": k10})
+    idle = f"not measured ({busy})"
+    if not isinstance(busy, str):
+        twall, dev_s, n_kern, groups, table = busy
+        idle = (f"{1.0 - dev_s / twall:.3f} (device kernels {dev_s:.3f} s, "
+                f"{n_kern} launches, over {twall:.3f} s wall, one traced run "
+                f"of {steps} calls; device ms / launches per call by group: "
+                f"{groups_text(groups, steps)})")
+        os.makedirs(OUT, exist_ok=True)
+        with open(os.path.join(OUT, "loss_profile.txt"), "w") as fh:
+            fh.write(f"{steps} loss calls, profiled: wall {twall:.3f} s, "
+                     f"device kernels {dev_s:.3f} s, {n_kern} launches\n"
+                     f"{table}\n")
+
+    # whole-loss parity on weights drawn well-conditioned, fp32 and bf16:
+    # kernels vs plain versions; K10's per-token outputs are those of its
+    # recorded inputs (the kernel and its plain version are deterministic)
+    def plain():
+        return plain_versions((k5, "flash_attention_fwd"), (k8, "rmsnorm"),
+                              (k10, "blocked_xent"))
+
+    def parity_run(tree, use_plain):
+        outs, calls = [], []
+        with contextlib.ExitStack() as st:
+            if use_plain:
+                st.enter_context(plain())
+            st.enter_context(recording(k10, "blocked_xent", calls))
+            run(model, tree, outs)
+        fn = k10.blocked_xent_plain if use_plain else k10.blocked_xent
+        return outs, [(a[0], a[1], fn(*a, **kw)) for a, kw in calls]
+    c16 = conditioned_params(torch, model, dev)
+    k16, _ = parity_run(c16, False)
+    p16, _ = parity_run(c16, True)
+    c32 = tree_map(lambda t: t.float(), c16)
+    del c16
+    k32, kk = parity_run(c32, False)
+    p32, pk = parity_run(c32, True)
+    del c32
+    worst32 = nll_worst = 0.0
+    ties = flips = 0
+    for (lk, _), (lp, _), (x32, w32, (nk, ak)), (_, _, (np_, ap)) in \
+            zip(k32, p32, kk, pk):
+        worst32 = max(worst32, abs(lk - lp) / abs(lp))
+        logits = xent_logits(torch, x32, w32, True)
+        scale = float(logits.abs().max())
+        top2 = logits.topk(2, dim=1).values
+        gap = top2[:, 0] - top2[:, 1]
+        del logits, top2
+        nll_worst = max(nll_worst, float((nk - np_).abs().max()) / scale)
+        tie = gap < XENT_NEAR * scale
+        ties += int(tie.sum())
+        flips += int(((ak != ap) & tie).sum())
+        check(not bool(((ak != ap) & ~tie).any()), "fp32 loss: an argmax "
+              "differs between the kernel and plain runs outside near-ties")
+    del kk, pk
+    check(worst32 <= 1e-4, f"fp32 loss kernel vs plain {worst32:.3e} > 1e-4")
+    check(nll_worst <= LOGIT_TOL, f"fp32 per-token nll kernel vs plain "
+          f"{nll_worst:.3e} of max |logit| > {LOGIT_TOL}")
+    excess = kp16 = pp16 = 0.0
+    for (lk, _), (lp, _), (lt, _) in zip(k16, p16, p32):
+        d_kt, d_pt = abs(lk - lt) / abs(lt), abs(lp - lt) / abs(lt)
+        kp16 = max(kp16, abs(lk - lp) / abs(lp))
+        pp16 = max(pp16, d_pt)
+        excess = max(excess, d_kt - d_pt)
+    check(excess <= 1e-2, f"bf16 loss: the kernel run is {excess:.3e} "
+          "further from the plain fp32 run than the plain bf16 run, > 1e-2")
+    acc_d = max(abs(a[1]["acc"] - b[1]["acc"]) for a, b in zip(k32, p32))
+
+    limit = smi("power.limit")[0]
+    (pk_b, base_b, ms_b), (pk_f, base_f, ms_f) = peaks[True], peaks[False]
+    print(f"loss TinyLlama-1.1B ({model.param_count():,} params, bf16, "
+          f"blocked_xent, vocab_block {cfg.vocab_block}) on "
+          f"{torch.cuda.get_device_name(0)} at {limit:.2f} W: "
+          f"{len(batches)} SyntheticLM batches of {LOSS['batch']} x "
+          f"{LOSS['seq']} (seed 0, steps {LOSS['steps']}): losses "
+          f"{[round(r[0], 4) for r in results]}, acc "
+          f"{[round(r[1]['acc'], 5) for r in results]}; launches K10 {n10} = "
+          f"1 x {steps}, K5 {n5} = {layers} x {steps}, K8 {n8} = "
+          f"{2 * layers + 1} x {steps}; untouched run {wall * 1e3 / steps:.2f} "
+          f"ms per loss call, {n_tok * steps / wall:.0f} evaluated tokens/s; "
+          f"device idle share {idle}; peak memory of one loss call: K10 "
+          f"{pk_b / 1e9:.3f} GB ({(pk_b - base_b) / 1e9:.3f} above the "
+          f"{base_b / 1e9:.3f} GB resident, {ms_b:.1f} ms), full logits "
+          f"{pk_f / 1e9:.3f} GB ({(pk_f - base_f) / 1e9:.3f} above, "
+          f"{ms_f:.1f} ms); whole-loss parity on well-conditioned weights: "
+          f"fp32 loss kernel vs plain worst {worst32:.3e} relative (bar "
+          f"1e-4), per-token nll worst {nll_worst:.3e} of max |logit| (bar "
+          f"{LOGIT_TOL}), acc differs by at most {acc_d:.3e}, argmax "
+          f"near-ties (gap < {XENT_NEAR} of max |logit|) {ties}, {flips} of "
+          f"them differ; bf16 loss kernel vs plain {kp16:.3e}, plain bf16 vs "
+          f"plain fp32 {pp16:.3e}, the kernel run's excess {excess:.3e} "
+          f"(bar 1e-2); bf16 losses kernel {[round(r[0], 5) for r in k16]}, "
+          f"plain {[round(r[0], 5) for r in p16]}, fp32 plain "
+          f"{[round(r[0], 5) for r in p32]}", flush=True)
+    del params, model.params
+    return phase_xent(torch, k10, dev, main_args, n10)
 
 
 # --------------------------------------------------------------------------
@@ -1028,22 +1339,6 @@ def phase_rmsnorm(torch, k8, dev, calls8, n8):
 # --------------------------------------------------------------------------
 NEAR_TIE = 1e-4           # router probability gap of a near-tie
 K9_TOL = {"bfloat16": 2e-2, "float32": 1e-5}   # of max |out|
-
-
-@contextlib.contextmanager
-def record_calls(mod, name, calls):
-    """Append the arguments of every call of `mod.name` to `calls`."""
-    fn = getattr(mod, name)
-
-    def rec(*args, **kwargs):
-        calls.append((args, kwargs))
-        return fn(*args, **kwargs)
-
-    setattr(mod, name, rec)
-    try:
-        yield
-    finally:
-        setattr(mod, name, fn)
 
 
 @contextlib.contextmanager
@@ -1280,15 +1575,13 @@ def phase_grouped_gemm(torch, k9, kept, n9, main_err):
         lib, lib_name = gg_library(torch, x, w, ids, bm)
         fns = (lambda: k9.grouped_gemm(x, w, ids, bm),
                lambda: k9.grouped_gemm_plain(x, w, ids, bm), lib)
-        ms, plain, lib_ms = (device_ms(torch, f, 20) for f in fns)
-        ev = cuda_ms(torch, fns[0], 20)
+        ms, plain, lib_ms = (cuda_ms(torch, f, 20) for f in fns)
         b_ms, b_by = gg_bound(torch, x, w, ids, bm)
         named = int((ids >= 0).sum())
         parts.append(f"{label} x {tuple(x.shape)} w {tuple(w.shape)} "
                      f"block_m {bm}, {named} of {ids.numel()} blocks named: "
-                     f"{ms:.4f} ms on the device ({ev:.4f} per call by "
-                     f"events; plain {plain:.3f}, {lib_name} {lib_ms:.4f}, "
-                     f"bound {b_ms:.4f} {b_by})")
+                     f"{ms:.4f} ms (plain {plain:.3f}, {lib_name} "
+                     f"{lib_ms:.4f}, bound {b_ms:.4f} {b_by})")
         if row is None:
             row = {"name": "grouped_gemm", "route": "cuda",
                    "source": "src/repro_torch/csrc/moe_gemm.cu",
@@ -1296,7 +1589,8 @@ def phase_grouped_gemm(torch, k9, kept, n9, main_err):
                    "launches": n9, "max_abs_err": main_err, "ms": ms,
                    "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
                    "library_ms": lib_ms}
-    print("K9 grouped_gemm timings: " + "; ".join(parts), flush=True)
+    print("K9 grouped_gemm timings (ms per call by CUDA events): "
+          + "; ".join(parts), flush=True)
     return row
 
 
@@ -1327,7 +1621,7 @@ def phase_moe_serving(torch, k5, k8, k9, moe, dev):
 
     # the main path: counts zeroed just before, read just after
     kept = {"calls": []}
-    with record_calls(k9, "grouped_gemm", kept["calls"]):
+    with recording(k9, "grouped_gemm", kept["calls"]):
         k5.launches = k8.launches = k9.launches = 0
         engine, session, _, steps = serve(torch, model, params, prompts, dev,
                                           chip, k9=kept)
@@ -1367,9 +1661,10 @@ def phase_moe_serving(torch, k5, k8, k9, moe, dev):
     kwh, co2 = session.live_energy_kwh, session.live_co2_kg
     del engine
     busy = profile_window(torch, lambda: serve(torch, model, params, prompts,
-                                               dev, chip, record=False))
-    idle = "not measured (no device time in the trace)"
-    if busy is not None:
+                                               dev, chip, record=False),
+                          {"K5": k5, "K8": k8, "K9": k9})
+    idle = f"not measured ({busy})"
+    if not isinstance(busy, str):
         twall, dev_s, n_kern, groups, table = busy
         idle = (f"{1.0 - dev_s / twall:.3f} (device kernels {dev_s:.3f} s, "
                 f"{n_kern} launches, over {twall:.3f} s wall, one traced "
@@ -1389,9 +1684,9 @@ def phase_moe_serving(torch, k5, k8, k9, moe, dev):
             logits, _ = model.decode_step(params, cache, toks, idx)
             torch.argmax(logits[:, 0], dim=-1).cpu()
     ticks10()
-    tick = profile_window(torch, ticks10)
-    tick_txt = "not measured"
-    if tick is not None:
+    tick = profile_window(torch, ticks10, {"K5": k5, "K8": k8, "K9": k9})
+    tick_txt = f"not measured ({tick})"
+    if not isinstance(tick, str):
         twall, tdev, tn, tgroups, ttable = tick
         tick_txt = (f"{tdev * 100:.3f} ms on the device "
                     f"({groups_text(tgroups, 10)}), {tn / 10:.0f} kernel "
@@ -1436,7 +1731,7 @@ def phase_moe_serving(torch, k5, k8, k9, moe, dev):
     routes, queue = [], []
     kept32 = {"calls": []}
     with routing_log(torch, moe, routes):
-        with record_calls(k9, "grouped_gemm", kept32["calls"]):
+        with recording(k9, "grouped_gemm", kept32["calls"]):
             _, _, _, k32 = serve(torch, model, cparams, prompts, dev, chip,
                                  routes=routes, k9=kept32)
         err32, txt32 = k9_check(torch, k9, kept32["first prefill"],
@@ -1508,6 +1803,7 @@ def main() -> int:
     from repro_torch.kernels import moe_gemm as k9
     from repro_torch.kernels import rmsnorm as k8
     from repro_torch.kernels import scan_chunk as k2
+    from repro_torch.kernels import xent as k10
     from repro_torch.models import moe
 
     t_start = time.perf_counter()
@@ -1540,8 +1836,11 @@ def main() -> int:
                                       served["n5"]),
                 phase_rmsnorm(torch, k8, dev, served["calls8"],
                               served["n8"])]
-    del served                      # TinyLlama's tensors, before DeepSeek's
+    del served                      # the serving phase's tensors
     gc.collect()
+    torch.cuda.empty_cache()
+    kernels.append(phase_loss(torch, k5, k8, k10, dev))
+    gc.collect()                    # TinyLlama's tensors, before DeepSeek's
     torch.cuda.empty_cache()
     kernels.append(phase_moe_serving(torch, k5, k8, k9, moe, dev))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

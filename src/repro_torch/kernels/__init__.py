@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version: `scan_chunk` (K2, the uncoupled chunk step), `coupled_chunk`
 (K1, the site-coupled chunk step), `flash_attention` (K5, attention
-forward of the serving prefill), `rmsnorm` (K8, every norm of the model)
-and `moe_gemm` (K9, every routed-expert product).  Sources are in
+forward of the serving prefill and the loss), `rmsnorm` (K8, every norm
+of the model), `moe_gemm` (K9, every routed-expert product) and `xent`
+(K10, the fused cross-entropy of the loss).  Sources are in
 `repro_torch/csrc/`; `_build` compiles them with nvcc at first use."""

@@ -1,3 +1,3 @@
-"""The port's model stack (dense family): parameter specs, layers, the
-decoder assembly and the `Model` API."""
+"""The port's model stack (dense and MoE families): parameter specs,
+layers, the decoder assembly, the losses and the `Model` API."""
 from repro_torch.models.model import Model, build_model  # noqa: F401

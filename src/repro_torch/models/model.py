@@ -3,6 +3,7 @@ with full attention or MLA (`src/repro/models/model.py`):
 
     model = build_model(cfg)
     params = model.init(generator, device)      # drawn on `device`
+    loss, metrics = model.loss(params, batch)   # forward, under no_grad
     logits, cache = model.prefill(params, {"tokens": tokens})
     logits, cache = model.decode_step(params, cache, tokens, index)
 
@@ -28,6 +29,17 @@ from repro_torch.core.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import param as P
 from repro_torch.models import transformer as T
+from repro_torch.models.loss import blocked_cross_entropy, cross_entropy
+
+
+def _shift_labels(tokens: torch.Tensor):
+    """next-token labels (last position predicts a pad; masked out)."""
+    labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                       dim=1)
+    mask = torch.cat([torch.ones_like(tokens[:, 1:], dtype=torch.float32),
+                      torch.zeros_like(tokens[:, :1], dtype=torch.float32)],
+                     dim=1)
+    return labels, mask
 
 
 def _as_module(tree) -> nn.Module:
@@ -103,9 +115,35 @@ class Model(nn.Module):
             return torch.einsum("bsd,vd->bsv", x, params["embed"])
         return torch.einsum("bsd,dv->bsv", x, params["lm_head"])
 
+    # -- training loss (forward) ---------------------------------------------
     def loss(self, params, batch):
-        raise NotImplementedError("training (Model.loss) is not ported yet "
-                                  "(ROADMAP.md Queue 1)")
+        """The training objective on `batch` ({"tokens": (B, S)}, a tensor
+        or a numpy array, as `SyntheticLM.batch_at` gives it).  Returns
+        (loss, {"nll", "acc", "aux"}), fp32 scalars.  Forward only: call
+        it under `torch.no_grad()` (the kernels refuse grad)."""
+        cfg = self.cfg
+        if cfg.encdec:
+            raise NotImplementedError("the encoder-decoder loss is not "
+                                      "ported yet (ROADMAP.md Queue 1)")
+        tokens = torch.as_tensor(batch["tokens"],
+                                 device=params["embed"].device).long()
+        x, positions = self._embed(params, {"tokens": tokens})
+        x, aux, _ = T.apply_segments(x, params["segments"], cfg,
+                                     causal=True, positions=positions)
+        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        labels, mask = _shift_labels(tokens)
+        if cfg.blocked_xent:
+            b, s, d = x.shape
+            emb = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+            nll, acc = blocked_cross_entropy(
+                x.reshape(b * s, d), emb, labels.reshape(-1),
+                block=cfg.vocab_block, mask=mask.reshape(-1),
+                transpose_emb=not cfg.tie_embeddings)
+        else:
+            logits = self._head(params, x)
+            nll, acc = cross_entropy(logits, labels, mask)
+        loss = nll + aux
+        return loss, {"nll": nll, "acc": acc, "aux": aux}
 
     # -- inference -------------------------------------------------------------
     def prefill(self, params, batch) -> Tuple[torch.Tensor, Any]:

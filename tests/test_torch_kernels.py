@@ -1,7 +1,6 @@
 """The port's kernels K1 (`coupled_chunk`), K2 (`scan_chunk`), K5
-(`flash_attention`), K8 (`rmsnorm`) and K9 (`moe_gemm`): their wrappers'
-dispatch and
-input checks, and — on a machine with an NVIDIA GPU — each CUDA kernel
+(`flash_attention`), K8 (`rmsnorm`), K9 (`moe_gemm`) and K10 (`xent`):
+their wrappers' dispatch and input checks, and — on a machine with an NVIDIA GPU — each CUDA kernel
 against its plain PyTorch version.
 
 This file imports neither `jax` nor `repro`, so the card tests run on a
@@ -12,7 +11,8 @@ machine with PyTorch alone:
 Here on the CPU the card tests skip.  The input builders are shared with
 tests/test_torch_engine.py and tests/test_torch_fleet.py, which hold the
 plain versions against the JAX package (tests/test_torch_serving.py does
-so for K5 and K8, tests/test_torch_moe.py for K9).
+so for K5 and K8, tests/test_torch_moe.py for K9, tests/test_torch_loss.py
+for K10).
 """
 import numpy as np
 import pytest
@@ -28,6 +28,7 @@ from repro_torch.kernels import moe_gemm as k9  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import rmsnorm as k8  # noqa: E402
 from repro_torch.kernels import scan_chunk as k2  # noqa: E402
+from repro_torch.kernels import xent as k10  # noqa: E402
 
 RTOL = 1e-9
 FINISH = 1e-6
@@ -413,3 +414,94 @@ def test_grouped_gemm_kernel_matches_plain_on_card(ids, bm, d, f, e, shift,
         close(got, ref, 1e-5, scale=float(ref.abs().max()))
     else:
         close(got, ref, 2e-2, scale=float(ref.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# K10 fused cross-entropy
+# ---------------------------------------------------------------------------
+def xent_inputs(t, d, v, dtype, dv, device="cpu", seed=0, shift=0):
+    """x and emb of std 0.5 (emb as the (d, V) head when `dv`), labels
+    drawn at random with the first in column 0 and the last three in the
+    last column; with `shift` x starts that many elements into its buffer
+    (contiguous, off the 16-byte alignment of the vector loads)."""
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.normal(0, 0.5, (t, d)), dtype=torch.float32)
+    emb = torch.as_tensor(rng.normal(0, 0.5, (v, d)), dtype=torch.float32)
+    lab = rng.integers(0, v, t)
+    lab[0], lab[-3:] = 0, v - 1
+    x = x.to(dtype).to(device)
+    if shift:
+        pad = torch.zeros(shift, dtype=dtype, device=device)
+        x = torch.cat([pad, x.reshape(-1)])[shift:].view(x.shape)
+    emb = (emb.T.contiguous() if dv else emb).to(dtype).to(device)
+    return x, emb, torch.as_tensor(lab).to(device)
+
+
+def test_blocked_xent_wrapper_dispatch_and_checks():
+    x, emb, lab = xent_inputs(70, 24, 300, torch.float32, dv=True)
+    before = k10.launches
+    nll, amax = k10.blocked_xent(x, emb, lab, transpose_emb=True, block_v=128)
+    ref = k10.blocked_xent_plain(x, emb, lab, transpose_emb=True, block_v=128)
+    assert torch.equal(nll, ref[0]) and torch.equal(amax, ref[1])
+    assert k10.launches == before                      # CPU: no launch
+    logits = x.double() @ emb.double()
+    close(nll, torch.logsumexp(logits, 1) - logits[torch.arange(70), lab],
+          1e-5, scale=1.0)
+    assert torch.equal(amax.long(), logits.argmax(1))
+    assert torch.equal(ops.blocked_xent(x, emb, lab, transpose_emb=True)[1],
+                       amax)
+    x, emb, lab = torch.zeros(4, 8), torch.zeros(10, 8), torch.zeros(4).long()
+    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+        k10.blocked_xent(x.to("meta"), emb.to("meta"), lab.to("meta"))
+    with pytest.raises(ValueError, match="do not fit"):
+        k10.blocked_xent(x, emb, lab, transpose_emb=True)   # (10, 8) as (d, V)
+    with pytest.raises(ValueError, match="do not fit"):
+        k10.blocked_xent(x, emb, lab[:3])
+    with pytest.raises(TypeError):
+        k10.blocked_xent(x, emb.bfloat16(), lab)             # mixed dtypes
+    with pytest.raises(TypeError):
+        k10.blocked_xent(x.double(), emb.double(), lab)
+    with pytest.raises(TypeError, match="labels"):
+        k10.blocked_xent(x, emb, lab.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        k10.blocked_xent(x, emb.T.contiguous().T, lab)
+    with pytest.raises(ValueError, match="block_v"):
+        k10.blocked_xent(x, emb, lab, block_v=0)
+    with pytest.raises(RuntimeError, match="forward only"):
+        k10.blocked_xent(x.requires_grad_(), emb, lab)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d,v,block_v,dv,shift", [
+    (256, 2048, 32000, 8192, True, 0),     # TinyLlama's head, 4 chunks
+    (128, 2048, 32000, 8192, False, 0),    # the same as a tied (V, d) table
+    (300, 128, 5000, 2048, False, 0),      # T and V tails, 3 chunks
+    (77, 96, 1000, 8192, True, 0),         # one chunk, T and V tails
+    (64, 100, 777, 256, True, 0),          # d and V off the vector width
+    (130, 64, 1000, 100, False, 0),        # block_v rounded up to 128
+    (96, 256, 2000, 512, True, 1),         # x misaligned
+    (3, 64, 40, 8192, False, 0)])          # fewer rows and columns than a tile
+def test_blocked_xent_kernel_matches_plain_on_card(t, d, v, block_v, dv,
+                                                   shift, dtype):
+    dev = _card()
+    x, emb, lab = xent_inputs(t, d, v, dtype, dv, dev, seed=t + v,
+                              shift=shift)
+    assert x.is_contiguous() and (x.data_ptr() % 16 != 0) == bool(shift)
+    before = k10.launches
+    nll, amax = k10.blocked_xent(x, emb, lab, transpose_emb=dv,
+                                 block_v=block_v)
+    pnll, pamax = k10.blocked_xent_plain(x, emb, lab, transpose_emb=dv,
+                                         block_v=block_v)
+    torch.cuda.synchronize()
+    assert k10.launches == before + 1
+    assert nll.dtype == torch.float32 and amax.dtype == torch.int32
+    nll, pnll = nll.cpu(), pnll.cpu()
+    assert bool(torch.isfinite(nll).all())
+    assert bool(((nll - pnll).abs() <= 1e-4 + 1e-4 * pnll.abs()).all()), \
+        float((nll - pnll).abs().max())
+    logits = (x.float() @ (emb.float() if dv else emb.float().T)).cpu()
+    top2 = logits.topk(2, dim=1).values
+    clear = top2[:, 0] - top2[:, 1] > 1e-4 * logits.abs().max()
+    assert torch.equal(amax.cpu()[clear], pamax.cpu()[clear])
+    assert torch.equal(amax.cpu()[clear].long(), logits.argmax(1)[clear])

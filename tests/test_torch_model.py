@@ -121,14 +121,18 @@ def test_frontier_matches_reference():
 
 
 def test_package_imports_neither_jax_nor_repro():
-    code = ("import sys, repro_torch.carina, repro_torch.core.engine_torch, "
-            "repro_torch.kernels.scan_chunk, repro_torch.kernels.coupled_chunk, "
-            "repro_torch.serving.engine, repro_torch.models.model, "
-            "repro_torch.core.serve, repro_torch.kernels.flash_attention, "
-            "repro_torch.kernels.rmsnorm;"
+    """Every module of the package, found by walking it, imported in a
+    fresh interpreter: none brings in `jax` or `repro`."""
+    code = ("import importlib, pkgutil, sys, repro_torch;"
+            "mods = [m.name for m in pkgutil.walk_packages("
+            "repro_torch.__path__, 'repro_torch.')];"
+            "[importlib.import_module(m) for m in mods];"
+            "assert {'repro_torch.kernels.xent', 'repro_torch.models.loss', "
+            "'repro_torch.data.pipeline', 'repro_torch.kernels.moe_gemm', "
+            "'repro_torch.models.moe'} <= set(mods), mods;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')];"
-            "print(bad); sys.exit(1 if bad else 0)")
+            "print(len(mods), bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=SRC)
     p = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=300, env=env)

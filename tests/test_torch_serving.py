@@ -53,7 +53,7 @@ from repro_torch.core.serve import ServingSession  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import param as PA  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
-from repro_torch.models.model import build_model, params_from_numpy  # noqa: E402
+from repro_torch.models.model import Model, build_model, params_from_numpy  # noqa: E402
 from repro_torch.serving.engine import ServingEngine, _write_slot  # noqa: E402
 
 ARCH = "tinyllama-1.1b"
@@ -472,7 +472,8 @@ UNPORTED = {
         kv_valid=torch.ones(1, 8, dtype=torch.bool)),
     "init-kind": lambda: PA.init_params(
         {"a": PA.ParamSpec((4,), init="a_log")}, None, "cpu"),
-    "loss": lambda: build_model(_smoke()).loss({}, {}),
+    "loss": lambda: Model(dataclasses.replace(_smoke(), encdec=True)).loss(
+        {}, {}),                              # the encoder-decoder loss
     "mla-cache": _long_mla_prompt,
     "mamba-cache": lambda: _write_slot(_mamba_cache(), _mamba_cache(), 0,
                                        _smoke(), 8),
