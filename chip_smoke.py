@@ -4,10 +4,10 @@
     python3 chip_smoke.py            # from the root of a checkout
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc,
-drives the trace-sweep engine, the serving engine and the training loss
-through their entry points at benchmark sizes, holds every kernel against its plain PyTorch
-version on the card, and checks the answers against the repo's own
-oracles:
+drives the trace-sweep engine, the kernel API, the serving engine and
+the training loss through their entry points at benchmark sizes, holds
+every kernel against its plain PyTorch version on the card, and checks
+the answers against the repo's own oracles:
 
   1. the card's name and power limit; the kernels' build time;
   2. K2 (`scan_chunk`): `execute_plan` over S = 100,000 uncoupled lanes
@@ -22,6 +22,19 @@ oracles:
      (both against the same sweep on the CPU and the fleet against the
      sequential oracle), `scan_stats()` kernel dispatches, and the OEM
      case 1 baseline (180.30 h / 48.67 kWh);
+  4a. K6 (`decode_attention`) through `kernels.ops.decode_attention`,
+     as the reference reaches it: TinyLlama-1.1B's decode (q (4, 32, 64)
+     over a (4, 2048, 4, 64) cache at length 1,000 and 2,048) and a 32k
+     cache of Qwen2.5-14B's heads (40 / 8 KV, D 128), bf16 and fp32, the
+     length as an int and as an int32 on the card; one launch per call;
+     kernel vs plain (fp32 2e-5, bf16 2e-2); length 0 gives zeros, Sk
+     2,000 (off the tiles) at length 1,999 and 2,100, and length > Sk
+     equal to length Sk; times against the bound and one SDPA call;
+  4b. K7 (`ssm_scan`) through `kernels.ops.ssm_scan`: Falcon-Mamba-7B's
+     selective scan flattened to C = 8192 x 16 over T = 916 (fp32) and
+     RecurrentGemma-9B's RG-LRU (C 4,096, T 2,048, fp32 and bf16 inputs);
+     one launch per call; hs and h_final within 1e-5 of max |h| of the
+     plain version; times against the bound;
   5. serving end to end: TinyLlama-1.1B at its published widths (22
      layers, d 2048, 32/4 heads, d_ff 5632, vocab 32000, bf16 weights
      drawn on the card from seed 0) behind `ServingEngine` with 4 slots,
@@ -1784,6 +1797,204 @@ def phase_moe_serving(torch, k5, k8, k9, moe, dev):
     return row
 
 
+# --------------------------------------------------------------------------
+# K6 and K7 through the kernel API (`repro_torch.kernels.ops`), the only
+# entry by which the reference reaches them
+# --------------------------------------------------------------------------
+QWEN_HEADS = dict(h=40, hkv=8, d=128)      # src/repro/configs/qwen2_5_14b.py
+K6_BAR_TEXT = {"bfloat16": "bf16 2^-7 |o| + 1e-3 max |o|",
+               "float32": "fp32 2e-5 + 2e-5 |o|"}
+
+
+def k6_bar(po, dtype):
+    """K6's elementwise bar against the plain version's output po (fp32).
+    Both compute in fp32 and round once to the output dtype, so bf16 may
+    differ by one rounding step (at most 2^-7 |o|), plus a floor set by
+    the output's own scale for entries near 0: q, k, v ~ N(0, 1) spread
+    the softmax, and a typical |o| is only about sqrt(e / n)."""
+    if str(dtype).endswith("bfloat16"):
+        return 2.0 ** -7 * po.abs() + 1e-3 * po.abs().max()
+    return 2e-5 + 2e-5 * po.abs()
+
+
+def k6_bound(q, k, n):
+    """q read and o written once, the K and V rows of the n valid keys read
+    once; 4 D operations per (head, key)."""
+    b, h, d = q.shape
+    hkv, t = k.shape[2], q.element_size()
+    bytes_ = 2 * q.numel() * t + 2 * b * n * hkv * d * t
+    return bound_ms(bytes_, 4.0 * b * h * n * d, 0,
+                    str(q.dtype).split(".")[1], peak=PEAK_TC_S)
+
+
+def phase_decode_attention(torch, k6, ops, dev):
+    """K6 at full width through `ops.decode_attention`: TinyLlama-1.1B's
+    decode (4 x 32 heads over a (4, 2048, 4, 64) cache, length 1,000 and
+    2,048) and a 32k cache of Qwen2.5-14B's heads (40 / 8 KV, D 128), in
+    bf16 and fp32; launch count, kernel vs plain (`k6_bar`),
+    the edges (length 0, Sk off the tiles, length > Sk), times against
+    the bound and one SDPA call."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def cache(b, sk, h, hkv, d, dtype):
+        return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                     for shape in ((b, h, d), (b, sk, hkv, d),
+                                   (b, sk, hkv, d)))
+
+    def length(n):        # as a decode loop holds it: an int32 on the card
+        return torch.tensor([n], dtype=torch.int32, device=dev)
+    tiny = {dt: cache(4, 2048, 32, 4, 64, dt)
+            for dt in (torch.bfloat16, torch.float32)}
+    qh = QWEN_HEADS
+    qwen = {dt: cache(1, 32768, qh["h"], qh["hkv"], qh["d"], dt)
+            for dt in (torch.bfloat16, torch.float32)}
+    cases = [(f"TinyLlama {str(dt)[6:]} length {n}", *tiny[dt], n)
+             for dt in tiny for n in (2048, 1000)]
+    cases += [(f"Qwen2.5-14B 32k {str(dt)[6:]}", *qwen[dt], 32768)
+              for dt in qwen]
+    k6.launches = 0
+    outs = [ops.decode_attention(q, k, v, length(n) if i % 2 else n)
+            for i, (_, q, k, v, n) in enumerate(cases)]
+    torch.cuda.synchronize()
+    n6 = k6.launches
+    check(n6 == len(cases), f"K6 launched {n6} times for {len(cases)} "
+          f"ops.decode_attention calls")
+
+    def held(name, o, po, dtype):
+        o, po = o.float(), po.float()
+        d = (o - po).abs()
+        err = float(d.max())
+        check(bool(torch.isfinite(o).all())
+              and bool((d <= k6_bar(po, dtype)).all()),
+              f"K6 {name}: max err {err:.3e}, max |o| "
+              f"{float(po.abs().max()):.3e} "
+              f"({K6_BAR_TEXT[str(dtype)[6:]]})")
+        return err
+
+    parts, row, main_err = [], None, 0.0
+    for (name, q, k, v, n), o in zip(cases, outs):
+        po = k6.decode_attention_plain(q, k, v, n)
+        err = held(name, o, po, q.dtype)
+        main_err = max(main_err, err)
+        sk = k.shape[1]
+        mask = (torch.arange(sk, device=dev) < n)[None, None, None, :]
+        q4, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        fns = (lambda: ops.decode_attention(q, k, v, n),
+               lambda: k6.decode_attention_plain(q, k, v, n),
+               lambda: F.scaled_dot_product_attention(
+                   q4, kt, vt, attn_mask=mask, enable_gqa=True))
+        ms, plain, lib = (cuda_ms(torch, f, 20) for f in fns)
+        b_ms, b_by = k6_bound(q, k, n)
+        parts.append(f"{name} q {tuple(q.shape)} cache {tuple(k.shape)}: "
+                     f"err {err:.3e} (max |o| "
+                     f"{float(po.float().abs().max()):.3e}), {ms:.4f} ms "
+                     f"(plain {plain:.4f}, SDPA "
+                     f"{lib:.4f}, bound {b_ms:.5f} {b_by})")
+        if row is None:
+            row = {"name": "decode_attention", "route": "cuda",
+                   "source": "src/repro_torch/csrc/decode_attention.cu",
+                   "replaces": "src/repro/kernels/decode_attention.py:76",
+                   "launches": n6, "max_abs_err": err, "ms": ms,
+                   "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": lib}
+    row["max_abs_err"] = main_err
+    print(f"K6 decode_attention through ops vs plain ("
+          f"{K6_BAR_TEXT['bfloat16']}, {K6_BAR_TEXT['float32']}; ms per "
+          f"call by CUDA events): " + "; ".join(parts), flush=True)
+
+    edges = []
+    for dt, (q, k, v) in tiny.items():
+        zero = ops.decode_attention(q, k, v, 0)
+        check(not bool(zero.any()), f"K6 length 0 ({dt}) is not zero")
+        ks, vs = k[:, :2000].contiguous(), v[:, :2000].contiguous()
+        for n in (1999, 2100):           # Sk off the tiles; length > Sk
+            o = ops.decode_attention(q, ks, vs, n)
+            err = held(f"Sk 2000 length {n}", o,
+                       k6.decode_attention_plain(q, ks, vs, n), dt)
+            edges.append(f"{str(dt)[6:]} Sk 2000 length {n} {err:.3e}")
+        check(torch.equal(ops.decode_attention(q, ks, vs, 2100),
+                          ops.decode_attention(q, ks, vs, 2000)),
+              "K6 length > Sk differs from length Sk")
+    print("K6 edges on the card: length 0 gives zeros (bf16, fp32); "
+          + ", ".join(edges) + "; length 2100 equals length 2000 bit for "
+          "bit", flush=True)
+    return row
+
+
+def scan_inputs(torch, gen, dev, kind):
+    """Full-width recurrence inputs, (1, T, C) in fp32:
+    Falcon-Mamba-7B's selective scan flattened over (d_inner 8192, N 16):
+    a = exp(dt A) with A_n = -(n + 1) and dt = softplus(N(-4, 1)),
+    b = dt x B (T 916, the serving traffic's longest prompt);
+    RecurrentGemma-9B's RG-LRU (lru_width 4096, T 2048): a = a0^(8 r) with
+    a0 ~ U(0.9, 0.999) and r = sigmoid(N(0, 1)), b = sqrt(1 - a^2) i x."""
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    if kind == "mamba":
+        t, di, n = 916, 8192, 16
+        dt = torch.nn.functional.softplus(rand(1, t, di, 1) - 4.0)
+        A = -torch.arange(1, n + 1, device=dev, dtype=torch.float32)
+        a = torch.exp(dt * A).reshape(1, t, di * n)
+        b = (dt * rand(1, t, di, 1) * rand(1, t, 1, n)).reshape(1, t, di * n)
+        return a, b
+    t, w = 2048, 4096
+    a0 = 0.9 + 0.099 * torch.rand((w,), generator=gen, device=dev)
+    a = a0 ** (8.0 * torch.sigmoid(rand(1, t, w)))
+    b = torch.sqrt(1 - a * a) * torch.sigmoid(rand(1, t, w)) * rand(1, t, w)
+    return a, b
+
+
+def phase_ssm_scan(torch, k7, ops, dev):
+    """K7 at full width through `ops.ssm_scan`: Falcon-Mamba-7B's flattened
+    selective scan (C 131,072, T 916, fp32) and RecurrentGemma-9B's RG-LRU
+    (C 4,096, T 2,048, fp32 and bf16 inputs); launch count, hs and h_final
+    within 1e-5 of max |h| of the plain version (both compute in fp32),
+    times against the bound."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    mamba = scan_inputs(torch, gen, dev, "mamba")
+    lru = scan_inputs(torch, gen, dev, "lru")
+    cases = [("Falcon-Mamba-7B fp32", *mamba), ("RG-LRU fp32", *lru),
+             ("RG-LRU bf16", *(x.bfloat16() for x in lru))]
+    k7.launches = 0
+    outs = [ops.ssm_scan(a, b) for _, a, b in cases]
+    torch.cuda.synchronize()
+    n7 = k7.launches
+    check(n7 == len(cases), f"K7 launched {n7} times for {len(cases)} "
+          f"ops.ssm_scan calls")
+    parts, row, main_err = [], None, 0.0
+    for (name, a, b), (hs, hf) in zip(cases, outs):
+        phs, phf = k7.ssm_scan_plain(a, b)
+        scale = float(phs.abs().max())
+        err = max(float((hs - phs).abs().max()),
+                  float((hf - phf).abs().max()))
+        check(bool(torch.isfinite(hs).all()) and err <= 1e-5 * scale,
+              f"K7 {name}: max err {err:.3e} against 1e-5 of max |h| "
+              f"{scale:.4g}")
+        main_err = max(main_err, err)
+        ms = cuda_ms(torch, lambda: ops.ssm_scan(a, b), 20)
+        plain = cuda_ms(torch, lambda: k7.ssm_scan_plain(a, b), 2)
+        t = a.element_size()
+        b_ms, b_by = bound_ms(2 * a.numel() * t + 4 * (hs.numel()
+                                                        + hf.numel()),
+                              2.0 * a.numel(), 0, "float32")
+        parts.append(f"{name} {tuple(a.shape)}: err {err:.3e} (max |h| "
+                     f"{scale:.4g}), {ms:.4f} ms (plain {plain:.3f}, bound "
+                     f"{b_ms:.4f} {b_by})")
+        if row is None:
+            row = {"name": "ssm_scan", "route": "cuda",
+                   "source": "src/repro_torch/csrc/ssm_scan.cu",
+                   "replaces": "src/repro/kernels/ssm_scan.py:53",
+                   "launches": n7, "max_abs_err": err, "ms": ms,
+                   "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": None}
+    row["max_abs_err"] = main_err
+    print("K7 ssm_scan through ops vs plain (1e-5 of max |h|; ms per call "
+          "by CUDA events; library: none, no single PyTorch call): "
+          + "; ".join(parts), flush=True)
+    return row
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: run from the root of a checkout (src/repro_torch "
@@ -1799,10 +2010,13 @@ def main() -> int:
     from repro_torch.core import engine_torch as et
     from repro_torch.kernels import _build
     from repro_torch.kernels import coupled_chunk as k1
+    from repro_torch.kernels import decode_attention as k6
     from repro_torch.kernels import flash_attention as k5
     from repro_torch.kernels import moe_gemm as k9
     from repro_torch.kernels import rmsnorm as k8
+    from repro_torch.kernels import ops
     from repro_torch.kernels import scan_chunk as k2
+    from repro_torch.kernels import ssm_scan as k7
     from repro_torch.kernels import xent as k10
     from repro_torch.models import moe
 
@@ -1831,6 +2045,10 @@ def main() -> int:
     kernels = [phase_scan_chunk(torch, carina, et, k2, k1, dev),
                phase_coupled_chunk(torch, carina, et, k2, k1, dev)]
     phase_end_to_end(torch, carina, et, dev)
+    kernels += [phase_decode_attention(torch, k6, ops, dev),
+                phase_ssm_scan(torch, k7, ops, dev)]
+    gc.collect()                    # K6's caches and K7's scans
+    torch.cuda.empty_cache()
     served = phase_serving(torch, k5, k8, dev)
     kernels += [phase_flash_attention(torch, k5, dev, served["calls5"],
                                       served["n5"]),

@@ -1,12 +1,17 @@
 """The kernels at the model's layout, as the reference's `kernels/ops.py`
-exposes them to `models/`: attention in (B, S, H, D), the grouped
-expert GEMM over block-sorted rows, and the fused cross-entropy."""
+exposes them: attention in (B, S, H, D), flash-decoding over a cache of
+valid prefix `length`, the diagonal linear-recurrence scan, the grouped
+expert GEMM over block-sorted rows, and the fused cross-entropy.  Each
+launches its hand-written kernel on CUDA tensors and runs its plain
+version on CPU tensors; there is no mode switch."""
 from __future__ import annotations
 
 from typing import Optional
 
+from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import moe_gemm as MG
+from repro_torch.kernels import ssm_scan as SS
 from repro_torch.kernels import xent as XE
 
 
@@ -19,6 +24,19 @@ def flash_attention(q, k, v, causal: bool = True,
                                   v.transpose(1, 2).contiguous(),
                                   causal=causal, scale=scale)
     return o.transpose(1, 2)
+
+
+def decode_attention(q, k, v, length):
+    """q (B,H,D); k,v (B,Sk,Hkv,D); length a Python int or a one-element
+    int32 tensor on the inputs' device -> (B,H,D), through K6 (keys at or
+    past min(length, Sk) masked; length 0 gives zeros)."""
+    return DA.decode_attention(q, k, v, length)
+
+
+def ssm_scan(a, b):
+    """a, b (B,T,C) -> (hs (B,T,C) fp32, h_final (B,C) fp32) for
+    h_t = a_t h_{t-1} + b_t from zero, through K7."""
+    return SS.ssm_scan(a, b)
 
 
 def grouped_gemm(x, w, block_ids, block_m: int):

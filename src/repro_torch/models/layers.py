@@ -9,15 +9,15 @@ kernel (K5, `kernels/ops.py::flash_attention`) exactly where the
 reference's gate admits it (no window, no softcap, no validity mask, no
 query offset, equal q/v head dims, more than one query); every other call
 runs `_attend_dense` in plain tensor ops, as the reference computes it
-outside any Pallas kernel.  `rms_norm` runs K8, which computes the same
+outside any Pallas kernel, over query chunks of `chunk_q` when Sq is
+larger.  `rms_norm` runs K8, which computes the same
 function as the reference's `rms_norm`.  The tensors' device picks the
 kernel (CUDA) or its plain version (CPU).  MLA's prefill has q/k head
 dim 192 and v head dim 128, so the flash gate sends it to the dense
 path, as in the reference.
 
 Not ported (raise `NotImplementedError`): windowed and soft-capped
-attention, head padding, grouped-KV decode, q-LoRA MLA, M-RoPE and
-query chunking above `chunk_q`.
+attention, head padding, grouped-KV decode, q-LoRA MLA and M-RoPE.
 """
 from __future__ import annotations
 
@@ -38,7 +38,8 @@ NEG_INF = -1e30
 
 def _unported(what: str):
     raise NotImplementedError(f"{what} is not ported yet (the port serves "
-                              "the dense family; ROADMAP.md Queue 1)")
+                              "the dense and MoE families with full "
+                              "attention or MLA; ROADMAP.md Queue 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -136,16 +137,22 @@ def attention(q, k, v, *, causal: bool, window: int = 0,
             and q_offset == 0 and d == dv and sq > 1):
         return ops.flash_attention(q, k, v, causal, scale)
 
-    if sq > chunk_q:
-        _unported(f"query chunking (Sq {sq} > chunk_q {chunk_q})")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if g > 1:  # broadcast KV heads, as the reference does
         k = k.repeat_interleave(g, dim=2)
         v = v.repeat_interleave(g, dim=2)
     kpos = torch.arange(sk, dtype=torch.int32, device=q.device)
-    qpos = q_offset + torch.arange(sq, dtype=torch.int32, device=q.device)
-    return _attend_dense(q, k, v, qpos, kpos, causal, window, scale, softcap,
-                         kv_valid)
+    # queries in chunks of chunk_q over all keys, as the reference scans
+    # them (layers.py:323-338).  It pads the last chunk and cuts the padded
+    # rows off; query rows are independent, so the port cuts the chunk
+    # short instead.  Forward only, so nothing is checkpointed.
+    outs = [_attend_dense(q[:, c0:c0 + chunk_q], k, v,
+                          q_offset + c0 + torch.arange(
+                              min(chunk_q, sq - c0), dtype=torch.int32,
+                              device=q.device),
+                          kpos, causal, window, scale, softcap, kv_valid)
+            for c0 in range(0, sq, chunk_q)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """The port's kernels K1 (`coupled_chunk`), K2 (`scan_chunk`), K5
-(`flash_attention`), K8 (`rmsnorm`), K9 (`moe_gemm`) and K10 (`xent`):
+(`flash_attention`), K6 (`decode_attention`), K7 (`ssm_scan`), K8
+(`rmsnorm`), K9 (`moe_gemm`) and K10 (`xent`):
 their wrappers' dispatch and input checks, and — on a machine with an NVIDIA GPU — each CUDA kernel
 against its plain PyTorch version.
 
@@ -12,7 +13,7 @@ Here on the CPU the card tests skip.  The input builders are shared with
 tests/test_torch_engine.py and tests/test_torch_fleet.py, which hold the
 plain versions against the JAX package (tests/test_torch_serving.py does
 so for K5 and K8, tests/test_torch_moe.py for K9, tests/test_torch_loss.py
-for K10).
+for K10, tests/test_torch_ops.py for K6 and K7).
 """
 import numpy as np
 import pytest
@@ -23,11 +24,13 @@ torch.set_num_threads(1)
 import repro_torch.carina as P  # noqa: E402
 from repro_torch.core import model  # noqa: E402
 from repro_torch.kernels import coupled_chunk as k1  # noqa: E402
+from repro_torch.kernels import decode_attention as k6  # noqa: E402
 from repro_torch.kernels import flash_attention as k5  # noqa: E402
 from repro_torch.kernels import moe_gemm as k9  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import rmsnorm as k8  # noqa: E402
 from repro_torch.kernels import scan_chunk as k2  # noqa: E402
+from repro_torch.kernels import ssm_scan as k7  # noqa: E402
 from repro_torch.kernels import xent as k10  # noqa: E402
 
 RTOL = 1e-9
@@ -505,3 +508,184 @@ def test_blocked_xent_kernel_matches_plain_on_card(t, d, v, block_v, dv,
     clear = top2[:, 0] - top2[:, 1] > 1e-4 * logits.abs().max()
     assert torch.equal(amax.cpu()[clear], pamax.cpu()[clear])
     assert torch.equal(amax.cpu()[clear].long(), logits.argmax(1)[clear])
+
+
+# ---------------------------------------------------------------------------
+# K6 flash-decoding, K7 linear-recurrence scan
+# ---------------------------------------------------------------------------
+def decode_inputs(b, h, hkv, sk, d, dtype, device="cpu", seed=0):
+    rng = np.random.default_rng(seed)
+    return (torch.as_tensor(rng.normal(size=(b, h, d)), dtype=torch.float32)
+            .to(dtype).to(device),
+            *(torch.as_tensor(rng.normal(size=(b, sk, hkv, d)),
+                              dtype=torch.float32).to(dtype).to(device)
+              for _ in range(2)))
+
+
+def scan_inputs(b, t, c, dtype, device="cpu", seed=0):
+    """a in (0.5, 1) and b ~ N(0, 0.1), as tests/test_kernels.py draws them."""
+    rng = np.random.default_rng(seed)
+    a = torch.as_tensor(rng.uniform(0.5, 1.0, (b, t, c)), dtype=torch.float32)
+    x = torch.as_tensor(rng.normal(0.0, 0.1, (b, t, c)), dtype=torch.float32)
+    return a.to(dtype).to(device), x.to(dtype).to(device)
+
+
+def naive_decode(q, k, v, length):
+    """One (b, head) at a time in fp64 over the keys before
+    min(length, Sk); zeros where there are none."""
+    b, h, d = q.shape
+    g = h // k.shape[2]
+    n = max(0, min(int(length), k.shape[1]))
+    o = torch.zeros((b, h, d), dtype=torch.float64)
+    for bi in range(b):
+        for hi in range(h):
+            if n:
+                kk = k[bi, :n, hi // g].double()
+                p = torch.softmax(kk @ q[bi, hi].double() / d ** 0.5, 0)
+                o[bi, hi] = p @ v[bi, :n, hi // g].double()
+    return o
+
+
+@pytest.mark.parametrize("length", [0, 1, 77, 300, 301, 1000])
+def test_decode_attention_plain_matches_naive(length):
+    q, k, v = decode_inputs(2, 8, 2, 300, 16, torch.float32, seed=length)
+    got = k6.decode_attention_plain(q, k, v, length)
+    close(got, naive_decode(q, k, v, length), 1e-5, scale=1.0)
+    n = torch.tensor([length], dtype=torch.int32)
+    assert torch.equal(k6.decode_attention_plain(q, k, v, n), got)
+
+
+def test_decode_attention_wrapper_dispatch_and_checks():
+    q, k, v = decode_inputs(2, 8, 2, 40, 16, torch.float32)
+    before = k6.launches
+    o = k6.decode_attention(q, k, v, 25, nsplit=3, block_k=8)
+    assert torch.equal(o, k6.decode_attention_plain(q, k, v, 25))
+    assert k6.launches == before                       # CPU: no launch
+    assert torch.equal(ops.decode_attention(q, k, v, 25), o)
+    n = torch.tensor([25], dtype=torch.int32)
+    assert torch.equal(ops.decode_attention(q, k, v, n), o)
+    assert torch.equal(ops.decode_attention(q, k, v, np.int32(25)), o)
+    assert ops.decode_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                                25).dtype == torch.bfloat16
+    assert k6.splits(2048, 8, 256) == (8, 256)
+    assert k6.splits(300, 3, 128) == (2, 256)      # the reference's cut
+    assert k6.splits(100, 8, 256) == (1, 100)
+    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+        k6.decode_attention(q.to("meta"), k.to("meta"), v.to("meta"), 3)
+    with pytest.raises(TypeError):
+        k6.decode_attention(q, k.bfloat16(), v, 3)             # mixed dtypes
+    with pytest.raises(TypeError):
+        k6.decode_attention(q.double(), k.double(), v.double(), 3)
+    with pytest.raises(TypeError, match="length"):
+        k6.decode_attention(q, k, v, 3.0)
+    with pytest.raises(TypeError, match="length"):
+        k6.decode_attention(q, k, v, torch.tensor([3]))        # int64
+    with pytest.raises(TypeError, match="length"):
+        k6.decode_attention(q, k, v, torch.tensor([3, 4], dtype=torch.int32))
+    with pytest.raises(ValueError, match="length lies on"):
+        k6.decode_attention(q, k, v, n.to("meta"))
+    with pytest.raises(ValueError):
+        k6.decode_attention(q[None], k, v, 3)
+    with pytest.raises(ValueError):
+        k6.decode_attention(q[:, :7], k, v, 3)       # 7 heads over 2 kv heads
+    with pytest.raises(ValueError):
+        k6.decode_attention(q, k[:, :0], v[:, :0], 3)          # no key
+    with pytest.raises(ValueError, match="D <= 256"):
+        k6.decode_attention(*decode_inputs(1, 2, 1, 4, 264, torch.float32), 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        k6.decode_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2),
+                            v, 3)
+    with pytest.raises(ValueError, match="nsplit"):
+        k6.decode_attention(q, k, v, 3, nsplit=0)
+
+
+def test_ssm_scan_wrapper_dispatch_and_checks():
+    a, b = scan_inputs(2, 9, 5, torch.float32)
+    before = k7.launches
+    hs, hf = k7.ssm_scan(a, b, chunk=4, block_c=2)
+    phs, phf = k7.ssm_scan_plain(a, b)
+    assert torch.equal(hs, phs) and torch.equal(hf, phf)
+    assert k7.launches == before                       # CPU: no launch
+    h = torch.zeros(2, 5, dtype=torch.float64)
+    for t in range(9):
+        h = a[:, t].double() * h + b[:, t].double()
+        close(hs[:, t], h, 1e-6, scale=1.0)
+    assert torch.equal(hf, hs[:, -1])
+    hs16, hf16 = ops.ssm_scan(a.bfloat16(), b.bfloat16())
+    assert hs16.dtype == hf16.dtype == torch.float32
+    assert torch.equal(ops.ssm_scan(a, b)[0], hs)
+    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+        k7.ssm_scan(a.to("meta"), b.to("meta"))
+    with pytest.raises(TypeError):
+        k7.ssm_scan(a, b.bfloat16())
+    with pytest.raises(TypeError):
+        k7.ssm_scan(a.double(), b.double())
+    with pytest.raises(ValueError):
+        k7.ssm_scan(a, b[:, :8])
+    with pytest.raises(ValueError):
+        k7.ssm_scan(a[0], b[0])
+    with pytest.raises(ValueError, match="contiguous"):
+        k7.ssm_scan(a.transpose(1, 2).contiguous().transpose(1, 2),
+                    b.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="chunk"):
+        k7.ssm_scan(a, b, chunk=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,sk,d,length,nsplit,block_k", [
+    (4, 32, 4, 2048, 64, 1000, 8, 256),    # TinyLlama's decode
+    (1, 40, 8, 4096, 128, 4096, 8, 256),   # Qwen2.5-14B's heads
+    (2, 8, 2, 1024, 64, 700, 4, 256),
+    (2, 16, 1, 2048, 64, 100, 8, 256),     # MQA, mostly masked
+    (1, 8, 2, 300, 64, 77, 3, 128),        # Sk off the tiles
+    (1, 8, 2, 300, 64, 301, 3, 128),       # length > Sk
+    (3, 8, 2, 300, 64, 0, 3, 128),         # length 0
+    (2, 4, 4, 130, 18, 129, 8, 16),        # D off the vector width
+    (1, 64, 2, 200, 128, 150, 2, 64),      # g * D = 4096
+])
+@pytest.mark.parametrize("as_tensor", [False, True])
+def test_decode_attention_kernel_matches_plain_on_card(b, h, hkv, sk, d,
+                                                       length, nsplit,
+                                                       block_k, as_tensor,
+                                                       dtype):
+    dev = _card()
+    q, k, v = decode_inputs(b, h, hkv, sk, d, dtype, dev, seed=sk + length)
+    n = (torch.tensor([length], dtype=torch.int32, device=dev) if as_tensor
+         else length)
+    before = k6.launches
+    o = k6.decode_attention(q, k, v, n, nsplit=nsplit, block_k=block_k)
+    ref = k6.decode_attention_plain(q, k, v, n)
+    torch.cuda.synchronize()
+    assert k6.launches == before + 1 and o.dtype == dtype
+    assert bool(torch.isfinite(o.float()).all())
+    # Both compute in fp32 and round once: bf16 may differ by one rounding
+    # step (<= 2^-7 |o|), plus a floor of 1e-3 of the output's own scale
+    # (a typical |o| is about sqrt(e / n) here, below a fixed 2e-2 bar).
+    o, ref = o.float().cpu(), ref.float().cpu()
+    if dtype == torch.bfloat16:
+        bar = 2.0 ** -7 * ref.abs() + 1e-3 * ref.abs().max()
+    else:
+        bar = MODEL_TOL[dtype]["atol"] + MODEL_TOL[dtype]["rtol"] * ref.abs()
+    assert bool(((o - ref).abs() <= bar).all()), float((o - ref).abs().max())
+    if length == 0:
+        assert not bool(o.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,c", [(2, 256, 512), (1, 100, 300),
+                                   (2, 64, 64), (3, 7, 129),
+                                   (1, 2048, 4096)])
+def test_ssm_scan_kernel_matches_plain_on_card(b, t, c, dtype):
+    dev = _card()
+    a, x = scan_inputs(b, t, c, dtype, dev, seed=t + c)
+    before = k7.launches
+    hs, hf = k7.ssm_scan(a, x)
+    phs, phf = k7.ssm_scan_plain(a, x)
+    torch.cuda.synchronize()
+    assert k7.launches == before + 1
+    assert hs.dtype == hf.dtype == torch.float32
+    bar = 1e-5 * float(phs.abs().max())
+    assert float((hs - phs).abs().max()) <= bar
+    assert float((hf - phf).abs().max()) <= bar

@@ -129,7 +129,8 @@ def test_package_imports_neither_jax_nor_repro():
             "[importlib.import_module(m) for m in mods];"
             "assert {'repro_torch.kernels.xent', 'repro_torch.models.loss', "
             "'repro_torch.data.pipeline', 'repro_torch.kernels.moe_gemm', "
-            "'repro_torch.models.moe'} <= set(mods), mods;"
+            "'repro_torch.models.moe', 'repro_torch.kernels.ssm_scan', "
+            "'repro_torch.kernels.decode_attention'} <= set(mods), mods;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')];"
             "print(len(mods), bad); sys.exit(1 if bad else 0)")

@@ -11,10 +11,14 @@ MoE) with the reference's weights carried across (`params_from_numpy`):
   capacity and at one small enough that copies drop: the routing
   (`expert_idx`, `keep`) equal to the reference's first, then the output
   and the aux loss;
-* (c) `mla_block` and `mla_decode` with per-slot positions;
+* (c) `mla_block` and `mla_decode` with per-slot positions, and
+  `attention` over query chunks (Sq 2,500 > chunk_q 1,024) on the dense
+  path: MLA's d != dv, causal and bidirectional, a query offset and a
+  validity mask;
 * (d) prefill + teacher-forced decode logits of both smoke models against
   the reference built with `use_scan=False`: fp32 1e-4 and bf16 2e-2 of
-  max |logit|;
+  max |logit|; DeepSeek smoke's `Model.loss` on 1 x 1,100 tokens (its
+  MLA attention over two query chunks): fp32 1e-5, bf16 1e-2;
 * (e) `ServingEngine` tokens and session totals against the reference's
   engine on the DeepSeek smoke model (the MLA `_write_slot`);
 * (f) `param_count` and `active_param_count` equal to the reference's for
@@ -44,6 +48,7 @@ from repro.serving.engine import _write_slot as ref_write_slot  # noqa: E402
 import repro_torch.carina as P  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.serve import ServingSession  # noqa: E402
+from repro_torch.data import pipeline as PD  # noqa: E402
 from repro_torch.kernels import moe_gemm as k9  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
@@ -257,6 +262,37 @@ def test_mla_block_and_decode_match_reference(dtype):
     np.testing.assert_allclose(_np(tr2), _np(rr2), **TOL[torch.bfloat16])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv,d,dv,sk,causal,q_offset,masked", [
+    (2, 2, 24, 16, 2500, True, 0, False),      # MLA's d != dv
+    (2, 2, 24, 16, 2500, False, 0, False),
+    (4, 2, 16, 16, 2800, True, 300, False),    # a query offset (GQA)
+    (2, 1, 16, 16, 2507, False, 7, True),      # bidirectional, kv mask
+], ids=["mla-causal", "mla-bidir", "offset-causal", "offset-bidir-masked"])
+def test_attention_over_query_chunks_matches_reference(h, hkv, d, dv, sk,
+                                                       causal, q_offset,
+                                                       masked, dtype):
+    """Sq = 2,500 over chunk_q = 1,024: three chunks, the last padded.
+    Every case fails the flash gate, so both packages chunk (the
+    reference's default kernel mode)."""
+    rng = np.random.default_rng(sk + q_offset)
+    sq = 2500
+    q = rng.normal(size=(1, sq, h, d)).astype(np.float32)
+    k = rng.normal(size=(1, sk, hkv, d)).astype(np.float32)
+    v = rng.normal(size=(1, sk, hkv, dv)).astype(np.float32)
+    valid = rng.random((1, sk)) < 0.8 if masked else None
+    kw = dict(causal=causal, q_offset=q_offset, chunk_q=1024)
+    jq, tq = _pair(q, dtype)
+    jk, tk = _pair(k, dtype)
+    jv, tv = _pair(v, dtype)
+    ref = RL.attention(jq, jk, jv, **kw, kv_valid=None if valid is None
+                       else jnp.asarray(valid))
+    got = L.attention(tq, tk, tv, **kw, kv_valid=None if valid is None
+                      else torch.as_tensor(valid))
+    assert got.dtype == dtype and got.shape == (1, sq, h, dv)
+    np.testing.assert_allclose(_np(got), _np(ref), **TOL[dtype])
+
+
 # ---------------------------------------------------------------------------
 # (d) whole models, (e) the engine
 # ---------------------------------------------------------------------------
@@ -355,6 +391,30 @@ def test_prefill_and_decode_logits_match_reference(models, pallas_mode):
         a, b = _np(rcache[0][0][key]), _np(pcache[0][0][key])
         np.testing.assert_allclose(b, a, rtol=2e-2,
                                    atol=2e-2 * np.abs(a).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_deepseek_loss_over_query_chunks_matches_reference(weights, dtype):
+    """DeepSeek smoke's `Model.loss` on 1 x 1,100 tokens: MLA fails the
+    flash gate, so its attention runs over two query chunks of 1,024 in
+    both packages (full logits, the reference's default mode); the bars
+    of tests/test_torch_loss.py."""
+    rmodel, params, pmodel = weights[DEEPSEEK]
+    if dtype == "float32":
+        params = jax.tree.map(lambda a: a.astype(jnp.float32), params)
+    pparams = params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
+    batch = PD.SyntheticLM(pmodel.cfg, 1, 1100, seed=3).batch_at(0)
+    rloss, rmet = rmodel.loss(params, {k: jnp.asarray(v)
+                                       for k, v in batch.items()})
+    with torch.no_grad():
+        loss, met = pmodel.loss(pparams, batch)
+    assert loss.dtype == torch.float32 and torch.isfinite(loss)
+    if dtype == "bfloat16":
+        np.testing.assert_allclose(float(loss), float(rloss), rtol=1e-2)
+        return
+    for a, b in ((loss, rloss), (met["nll"], rmet["nll"]),
+                 (met["aux"], rmet["aux"])):
+        np.testing.assert_allclose(float(a), float(b), rtol=1e-5, atol=0)
 
 
 def test_apply_segments_sums_the_aux_loss(weights):

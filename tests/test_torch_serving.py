@@ -467,9 +467,6 @@ UNPORTED = {
                                      causal=True, pad_heads=True),
     "group-kv": lambda: L.attention(*[torch.zeros(1, 4, 2, 16)] * 3,
                                     causal=False, group_kv=True),
-    "chunk-q": lambda: L.attention(
-        *[torch.zeros(1, 8, 2, 16)] * 3, causal=False, chunk_q=4,
-        kv_valid=torch.ones(1, 8, dtype=torch.bool)),
     "init-kind": lambda: PA.init_params(
         {"a": PA.ParamSpec((4,), init="a_log")}, None, "cpu"),
     "loss": lambda: Model(dataclasses.replace(_smoke(), encdec=True)).loss(
