@@ -10,10 +10,11 @@ offset, masked scores at the reference's -1e30.  The reference returns
 lse lane-replicated (a TPU layout); the port returns it (B, H, Sq).
 
 On a CUDA tensor the wrapper launches the hand-written kernel
-(csrc/flash_attention.cu) and counts the launch in `launches`; on a CPU
-tensor it runs `flash_attention_fwd_plain`.  Any other device raises.  It
-refuses inputs that require grad: the backward kernel (K11) comes with
-training.
+(csrc/flash_attention.cu: bf16 on the tensor cores, each softmax weight
+split into two bf16 terms so that P V keeps fp32-like weights; fp32 on
+FMAs) and counts the launch in `launches`; on a CPU tensor it runs
+`flash_attention_fwd_plain`.  Any other device raises.  It refuses inputs
+that require grad: the backward kernel (K11) comes with training.
 """
 from __future__ import annotations
 

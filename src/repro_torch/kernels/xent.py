@@ -15,9 +15,10 @@ chunk of that many columns (rounded up to its 128-column tile) and merges
 the chunks' partials as the scan merges blocks.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
-(csrc/xent.cu) and counts the launch in `launches`; on a CPU tensor it
-runs `blocked_xent_plain`.  Any other device raises.  It refuses inputs
-that require grad: the backward comes with training.
+(csrc/xent.cu: bf16 on the tensor cores, fp32 on FMAs) and counts the
+launch in `launches`; on a CPU tensor it runs `blocked_xent_plain`.  Any
+other device raises.  It refuses inputs that require grad: the backward
+comes with training.
 """
 from __future__ import annotations
 
@@ -33,8 +34,9 @@ from repro_torch.kernels import _build
 #: kernel launches on CUDA tensors since import (or the last reset)
 launches = 0
 
-#: the kernel's token tile and vocab tile (csrc/xent.cu)
-TILE_T, TILE_V = 64, 128
+#: the kernels' token tile by dtype and their vocab tile (csrc/xent.cu)
+TILE_T = {torch.bfloat16: 128, torch.float32: 64}
+TILE_V = 128
 _FNS = {torch.bfloat16: "blocked_xent_bf16", torch.float32: "blocked_xent_f32"}
 
 
@@ -127,7 +129,7 @@ def blocked_xent(x: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor,
     if chunks > 1:
         part = torch.empty((5, chunks, t), dtype=torch.float32,
                            device=x.device)
-        counter = torch.zeros((-(-t // TILE_T),), dtype=torch.int32,
+        counter = torch.zeros((-(-t // TILE_T[x.dtype]),), dtype=torch.int32,
                               device=x.device)
     else:
         part, counter = nll, amax                    # not read

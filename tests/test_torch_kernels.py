@@ -297,13 +297,36 @@ def test_rmsnorm_wrapper_dispatch_and_checks():
         k8.rmsnorm(x.T.contiguous().T[:, :5], s[:5])
 
 
+def assert_flash_close(o, o_ref, dtype):
+    """K5's o against its plain version.  The bf16 kernel splits each
+    softmax weight into two bf16 terms, so both sides compute in fp32 and
+    round o once: one rounding step (<= 2^-7 |o|) plus a floor of 1e-3 of
+    the output's own scale (a typical |o| here is ~0.05, below a fixed
+    2e-2 bar).  fp32: MODEL_TOL."""
+    o, o_ref = o.float().cpu(), o_ref.float().cpu()
+    if dtype == torch.bfloat16:
+        bar = 2.0 ** -7 * o_ref.abs() + 1e-3 * o_ref.abs().max()
+    else:
+        bar = MODEL_TOL[dtype]["atol"] + MODEL_TOL[dtype]["rtol"] * o_ref.abs()
+    assert bool(((o - o_ref).abs() <= bar).all()), \
+        float((o - o_ref).abs().max())
+
+
+# (causal, sq, sk, h, hkv, d): every combination of the first axes, then
+# TinyLlama's loss shape (S 2,048, 32 / 4 heads)
+FLASH_CARD_CASES = [
+    (causal, sq, sk, h, hkv, d)
+    for causal in (True, False)
+    for sq, sk in ((128, 128), (777, 777), (70, 200), (200, 70),
+                   (1000, 1000),               # off the 64-row tiles
+                   (193, 129), (129, 193))     # Sq > Sk and Sq < Sk, 64k + 1
+    for h, hkv in ((8, 8), (8, 1))
+    for d in (64, 16, 128, 32)] + [(True, 2048, 2048, 32, 4, 64)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 16, 128])
-@pytest.mark.parametrize("h,hkv", [(8, 8), (8, 1)])
-@pytest.mark.parametrize("sq,sk", [(128, 128), (777, 777), (70, 200),
-                                   (200, 70)])
-@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("causal,sq,sk,h,hkv,d", FLASH_CARD_CASES)
 def test_flash_attention_kernel_matches_plain_on_card(causal, sq, sk, h, hkv,
                                                       d, dtype):
     dev = _card()
@@ -314,8 +337,37 @@ def test_flash_attention_kernel_matches_plain_on_card(causal, sq, sk, h, hkv,
     torch.cuda.synchronize()
     assert k5.launches == before + 1
     assert o.dtype == dtype and lse.dtype == torch.float32
-    np.testing.assert_allclose(o.float().cpu().numpy(),
-                               o_ref.float().cpu().numpy(), **MODEL_TOL[dtype])
+    assert_flash_close(o, o_ref, dtype)
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_ref.cpu().numpy(),
+                               **LSE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scale,shift,h,hkv", [
+    (0.3, 0, 8, 2),                    # a given scale, two heads a block
+    (-0.2, 0, 8, 2),                   # a negative one
+    (None, 1, 8, 2),                   # q, k, v off 16-byte alignment
+    (None, 1, 6, 6)])                  # the same, one head a block
+def test_flash_attention_kernel_scale_and_alignment_on_card(scale, shift, h,
+                                                            hkv, dtype):
+    dev = _card()
+
+    def shifted(t):
+        if not shift:
+            return t
+        flat = torch.empty(t.numel() + shift, dtype=t.dtype, device=dev)
+        out = flat[shift:].view(t.shape)
+        out.copy_(t)
+        return out
+    q, k, v = (shifted(t) for t in attn_inputs(1, h, hkv, 300, 300, 64,
+                                                dtype, dev, seed=7))
+    assert all(t.is_contiguous() for t in (q, k, v))
+    assert (q.data_ptr() % 16 != 0) == bool(shift)
+    o, lse = k5.flash_attention_fwd(q, k, v, causal=True, scale=scale)
+    o_ref, lse_ref = k5.flash_attention_fwd_plain(q, k, v, causal=True,
+                                                  scale=scale)
+    assert_flash_close(o, o_ref, dtype)
     np.testing.assert_allclose(lse.cpu().numpy(), lse_ref.cpu().numpy(),
                                **LSE_TOL)
 
@@ -484,7 +536,11 @@ def test_blocked_xent_wrapper_dispatch_and_checks():
     (64, 100, 777, 256, True, 0),          # d and V off the vector width
     (130, 64, 1000, 100, False, 0),        # block_v rounded up to 128
     (96, 256, 2000, 512, True, 1),         # x misaligned
-    (3, 64, 40, 8192, False, 0)])          # fewer rows and columns than a tile
+    (3, 64, 40, 8192, False, 0),           # fewer rows and columns than a tile
+    (129, 256, 3000, 1024, True, 0),       # one row past a 128-row tile
+    (255, 256, 3000, 1024, False, 0),      # one row short of two tiles
+    (384, 2048, 32000, 8192, True, 0),     # TinyLlama's head, 3 row tiles
+    (200, 512, 5001, 2048, False, 0)])     # tied table, V % 8 != 0
 def test_blocked_xent_kernel_matches_plain_on_card(t, d, v, block_v, dv,
                                                    shift, dtype):
     dev = _card()
@@ -508,6 +564,19 @@ def test_blocked_xent_kernel_matches_plain_on_card(t, d, v, block_v, dv,
     clear = top2[:, 0] - top2[:, 1] > 1e-4 * logits.abs().max()
     assert torch.equal(amax.cpu()[clear], pamax.cpu()[clear])
     assert torch.equal(amax.cpu()[clear].long(), logits.argmax(1)[clear])
+
+
+def test_ablation_variants_apply_to_the_sources():
+    """Every part-removed variant of `kernels.ablate` still matches the
+    current K5 and K10 sources (the tool is run on the card; here only
+    its substitutions are checked)."""
+    from repro_torch.kernels import ablate
+    srcs = ablate.variant_sources()
+    for name, variants in ablate.VARIANTS.items():
+        base = srcs[(name, "unchanged")]
+        assert len(variants) >= 3
+        for label in variants:
+            assert srcs[(name, label)] != base, (name, label)
 
 
 # ---------------------------------------------------------------------------
