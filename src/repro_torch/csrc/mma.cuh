@@ -1,4 +1,4 @@
-// Tensor-core building blocks shared by the bf16 kernels (K5, K10):
+// Tensor-core building blocks shared by the bf16 kernels (K5, K9, K10):
 // warp-level bf16 `mma.sync` tiles with fp32 accumulators, their operands
 // brought from shared memory by `ldmatrix`, and `cp.async` copies that keep
 // the next tile in flight while the current one is multiplied.
@@ -82,6 +82,12 @@ __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
 // row-major tile of pitch `ld`, for ldmatrix_x4.
 __device__ __forceinline__ int a_offset(int lane, int m0, int k0, int ld) {
   return (m0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8;
+}
+// The same A operand from a tile stored k-major ([k][m], pitch ld), for
+// ldmatrix_x4_trans (an A that is the transpose of a row-major matrix).
+__device__ __forceinline__ int a_offset_km(int lane, int m0, int k0, int ld) {
+  return (k0 + (lane & 7) + ((lane >> 4) << 3)) * ld + m0 +
+         ((lane >> 3) & 1) * 8;
 }
 // Lane address of two n8 B operands (n0..n0+15, k0..k0+15) stored n-major
 // ([n][k], pitch ld), for ldmatrix_x4: r0, r1 = b0, b1 of columns n0..+7,

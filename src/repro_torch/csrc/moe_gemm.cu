@@ -6,64 +6,70 @@
 // int32.  out[i, :] = x[i, :] @ w[block_ids[i / block_m]] with fp32
 // accumulation over d, written in x's type (fp32 or bf16).  One addition
 // to the reference's contract: a block whose id lies outside [0, E) (the
-// packed layout's -1) is written as zeros and reads nothing.
+// packed layout's -1) is written as zeros and reads nothing.  Each block
+// reads its own expert id, which takes the place of the TPU's
+// scalar-prefetch index map.
 //
-// What bounds it: bytes.  Each expert's (d, f) weight slab is the bulk of
-// the traffic: at the DeepSeek-V2-Lite widths (d 2048, f 1408, bf16) a
-// slab is 5.77 MB, and a prefill of 916 tokens x top-6 touches all 64
-// experts per product (369 MB, 0.11 ms at the 3.35 TB/s of an NVIDIA
-// H100 SXM, data sheet, 700 W limit) for <= 32 GFLOP (0.032 ms at the
-// 989 TFLOP/s of its bf16 tensor cores).  A decode tick of 4 slots routes
-// 24 rows: <= 24 slabs and almost no arithmetic.  This first version does
-// the arithmetic with fp32 FMAs on the CUDA cores (67 TFLOP/s peak), so
-// at prefill its own ceiling is the FMA rate, not the bound; mma/wgmma
-// tiles are later work.
+// What bounds it, at the DeepSeek-V2-Lite widths (d 2048, f 1408, bf16;
+// NVIDIA H100 SXM data sheet, 700 W: 3.35 TB/s, 989 TFLOP/s bf16 tensor
+// cores): a 916-token prefill names 127 blocks of 64 rows over all 64
+// experts, 46.9 GFLOP (0.047 ms) against 369 MB of weight slabs and rows
+// (0.11 ms): bytes, with the products close behind.  A 4-slot decode
+// tick names 22 blocks of 8 rows, 22 slabs of 5.77 MB (0.038 ms) and
+// almost no arithmetic: a stream over weight slabs.
 //
-// Design: the Pallas grid (row block, column tile, d step) with the d
-// axis sequential becomes one block per (row tile, column tile) that
-// loops over d itself.  The block reads its expert id from block_ids and
-// points at that expert's slab (the TPU's scalar-prefetch index map).
-// Per d step it stages the (BM, BK) row tile transposed and the (BK, BN)
-// weight tile row-major in shared memory as fp32; the next step's tiles
-// are loaded into registers (16 bytes a load where rows are aligned, raw)
-// while this step's FMAs run.  A thread owns a TM x TN block of the
-// output tile in fp32 registers and reads its operands as float4.  Two tile shapes:
-// 64 x 64 (BK 32, 4 x 4 per thread) for prefill-sized groups, and 8 x 128
-// (BK 64, 1 x 4 per thread) for decode, where a group holds a handful of
-// rows and the kernel is a stream over weight slabs.  Ragged f and d are
-// masked (zero-filled loads, no store past f).
+// bf16: two tensor-core kernels, `mma.sync` m16n8k16 tiles (bf16 in,
+// fp32 sums, one rounding to bf16 at the store), operands by `ldmatrix`
+// from a `cp.async` ring (csrc/mma.cuh).
+//   gg_prefill (row tiles of 64, a block_m multiple of 64): one block per
+//     (64-row tile, 128 columns of f), 4 warps of 32 x 64; a 4-stage ring
+//     of 32-deep x and weight tiles over d.  The expert's (d, f) slab is
+//     the B operand in place (k-major, `ldmatrix.trans`).  A row tile is
+//     one expert, so the 64 x 128 tile is as wide as a block can share its
+//     weight tile; the grid walks a row tile's column tiles together, so
+//     each x tile comes from memory once and the two or so blocks of one
+//     expert meet their weight tiles in L2.
+//   gg_tick (row tiles of 8, any other block_m): out^T = w^T x^T, so f is
+//     the `mma` M side and the 8 token rows its N = 8 side, and no half of
+//     a fragment is padding.  One block per (8-row tile, 64 columns of f),
+//     4 warps of 16 columns, a 4-stage ring of 64-deep slab tiles (A by
+//     `ldmatrix.trans` of the k-major slab): the 22 named blocks of a tick
+//     give 484 streaming blocks (704 for the down product), 3-4 per SM,
+//     each holding up to 27 KB of its slab in flight.
+// Unaligned x or w, or d and f off the 16-byte width, stage by element
+// loads in the same kernels (VEC false).  Ragged d is zero-filled, ragged
+// f masked at the store.  Blocks of a -1 id store zeros and exit.
+//
+// fp32: an FMA kernel (a tensor-core product would be TF32).  Per d
+// step it stages the (BM, BK) row tile transposed and the (BK, BN) weight
+// tile in shared memory; the next step's tiles are loaded into registers
+// while this step's FMAs run; a thread owns a TM x TN block of the output
+// tile.  Tiles: 64 x 64 (BK 32, 4 x 4 a thread) for prefill-sized
+// groups, 8 x 128 (BK 64, 1 x 4 a thread) for a decode tick.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "mma.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;
+using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f(float v) {
-  return __float2bfloat16(v);
-}
+constexpr int THREADS = 256;  // fp32 kernel
 
-template <typename T, int BM, int BN, int BK, int TM, int TN, bool VEC>
+template <int BM, int BN, int BK, int TM, int TN, bool VEC>
 __global__ void __launch_bounds__(THREADS)
-grouped_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                    const int* __restrict__ block_ids, T* __restrict__ out,
+grouped_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                    const int* __restrict__ block_ids, float* __restrict__ out,
                     int block_m, int n_experts, int d, int f) {
   static_assert((BM / TM) * (BN / TN) == THREADS, "one output per thread");
   static_assert(TN == 4 && (TM == 1 || TM == 4), "float4 reads");
   // elements per global load: 16 bytes when VEC (rows of x and w aligned
   // to 16 bytes, d and f multiples of V), else one
-  constexpr int V = VEC ? 16 / sizeof(T) : 1;
+  constexpr int V = VEC ? 4 : 1;
   static_assert(BK % V == 0 && BN % V == 0, "whole vectors per tile row");
   constexpr int LDA = BM + 4;                 // transposed row tile
   constexpr int A_VECS = BM * BK / V;         // loads per tile
@@ -72,7 +78,7 @@ grouped_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   constexpr int B_PER = B_VECS / THREADS;
   static_assert(B_VECS % THREADS == 0, "whole weight tiles per thread");
   constexpr int COLS = BN / TN;
-  using Chunk = typename std::conditional<VEC, uint4, T>::type;
+  using Chunk = typename std::conditional<VEC, uint4, float>::type;
 
   __shared__ __align__(16) float sA[BK * LDA];
   __shared__ __align__(16) float sB[BK * BN];
@@ -87,12 +93,12 @@ grouped_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   if (e < 0 || e >= n_experts) {              // an empty block: zeros
     for (int i = tid; i < BM * BN; i += THREADS) {
       const int c = n0 + i % BN;
-      if (c < f) out[(size_t)(row0 + i / BN) * f + c] = from_f<T>(0.f);
+      if (c < f) out[(size_t)(row0 + i / BN) * f + c] = 0.f;
     }
     return;
   }
-  const T* xb = x + (size_t)row0 * d;
-  const T* wb = w + (size_t)e * d * f;
+  const float* xb = x + (size_t)row0 * d;
+  const float* wb = w + (size_t)e * d * f;
 
   // the next d step's tiles, held raw in registers while the FMAs run
   Chunk ra[A_PER], rb[B_PER];
@@ -121,17 +127,17 @@ grouped_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int idx = tid + i * THREADS;
       if (idx >= A_VECS) continue;
       const int r = idx / (BK / V), c = (idx % (BK / V)) * V;
-      const T* v = reinterpret_cast<const T*>(&ra[i]);
+      const float* v = reinterpret_cast<const float*>(&ra[i]);
 #pragma unroll
-      for (int j = 0; j < V; ++j) sA[(c + j) * LDA + r] = to_f(v[j]);
+      for (int j = 0; j < V; ++j) sA[(c + j) * LDA + r] = v[j];
     }
 #pragma unroll
     for (int i = 0; i < B_PER; ++i) {
       const int idx = tid + i * THREADS;
       const int r = idx / (BN / V), c = (idx % (BN / V)) * V;
-      const T* v = reinterpret_cast<const T*>(&rb[i]);
+      const float* v = reinterpret_cast<const float*>(&rb[i]);
 #pragma unroll
-      for (int j = 0; j < V; ++j) sB[r * BN + c + j] = to_f(v[j]);
+      for (int j = 0; j < V; ++j) sB[r * BN + c + j] = v[j];
     }
   };
 
@@ -168,44 +174,280 @@ grouped_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    T* o = out + (size_t)(row0 + ty * TM + i) * f;
+    float* o = out + (size_t)(row0 + ty * TM + i) * f;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int c = n0 + tx * TN + j;
-      if (c < f) o[c] = from_f<T>(acc[i][j]);
+      if (c < f) o[c] = acc[i][j];
     }
   }
 }
 
-template <typename T, int BM, int BN, int BK, int TM, int TN>
-int launch_tiles(const void* x, const void* w, const void* ids, void* out,
-                 int t, int block_m, int n_experts, int d, int f, int vector,
-                 cudaStream_t st) {
+// -------------------------------------------------------------------------
+// bf16 on the tensor cores
+// -------------------------------------------------------------------------
+constexpr int MMA_THREADS = 128;   // 4 warps
+constexpr int STAGES = 4;          // depth of both cp.async rings
+
+// Zeros over rows [row0, row0 + R) x columns [c0, c0 + C) of out (f wide).
+template <int R, int C>
+__device__ __forceinline__ void store_zeros(bf16* __restrict__ out, int row0,
+                                            int c0, int f) {
+  const bf16 zero = __float2bfloat16(0.f);
+  for (int i = threadIdx.x; i < R * C; i += MMA_THREADS) {
+    const int c = c0 + i % C;
+    if (c < f) out[(size_t)(row0 + i / C) * f + c] = zero;
+  }
+}
+
+// Prefill tile: PM rows (one expert) x PN columns, d in steps of PK.
+constexpr int PM = 64, PN = 128, PK = 32;
+constexpr int P_ALD = PK + mma::PAD;              // x tile pitch
+constexpr int P_BLD = PN + mma::PAD;              // weight tile pitch
+constexpr int P_AS = PM * P_ALD, P_BS = PK * P_BLD;
+constexpr int P_SMEM = STAGES * (P_AS + P_BS) * (int)sizeof(bf16);
+
+// Grid (T / PM * ceil(f / PN)), column tile fastest: the column tiles of
+// one row tile are neighbours in launch order, so its x rows are read from
+// memory once and the blocks of one expert meet its weight tiles in L2.  Warp w owns rows
+// (w / 2) * 32.. and columns (w % 2) * 64.. of the tile: 2 x 8 m16n8
+// fragments.
+template <bool VEC>
+__global__ void __launch_bounds__(MMA_THREADS)
+gg_prefill(const bf16* __restrict__ x, const bf16* __restrict__ w,
+           const int* __restrict__ block_ids, bf16* __restrict__ out,
+           int block_m, int n_experts, int d, int f) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sa = reinterpret_cast<bf16*>(smem_raw);   // [STAGES][PM][P_ALD]
+  bf16* sb = sa + STAGES * P_AS;                  // [STAGES][PK][P_BLD]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int n_cols = (f + PN - 1) / PN;
+  const int row0 = blockIdx.x / n_cols * PM, n0 = blockIdx.x % n_cols * PN;
+  const int e = block_ids[row0 / block_m];
+  if (e < 0 || e >= n_experts) {
+    store_zeros<PM, PN>(out, row0, n0, f);
+    return;
+  }
+  const bf16* xb = x + (size_t)row0 * d;
+  const bf16* wb = w + (size_t)e * d * f;
+  const int ksteps = (d + PK - 1) / PK;
+
+  auto load_stage = [&](int ks) {
+    const int k0 = ks * PK;
+    mma::load_tile<PM, PK, MMA_THREADS, VEC>(sa + (ks % STAGES) * P_AS, xb, 0,
+                                             k0, PM, d, d, tid);
+    mma::load_tile<PK, PN, MMA_THREADS, VEC>(sb + (ks % STAGES) * P_BS, wb,
+                                             k0, n0, d, f, f, tid);
+  };
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int b = 0; b < 8; ++b)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.f;
+
+#pragma unroll
+  for (int ks = 0; ks < STAGES - 1; ++ks) {
+    if (ks < ksteps) load_stage(ks);
+    mma::cp_async_commit();
+  }
+  for (int ks = 0; ks < ksteps; ++ks) {
+    mma::cp_async_wait<STAGES - 2>();        // stage ks has arrived
+    __syncthreads();                         // and stage ks - 1 is free
+    if (ks + STAGES - 1 < ksteps) load_stage(ks + STAGES - 1);
+    mma::cp_async_commit();
+    const bf16* ca = sa + (ks % STAGES) * P_AS;
+    const bf16* cb = sb + (ks % STAGES) * P_BS;
+#pragma unroll
+    for (int kk = 0; kk < PK / 16; ++kk) {
+      uint32_t af[2][4], bfr[4][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        mma::ldmatrix_x4(af[mt], ca + mma::a_offset(lane, wm * 32 + mt * 16,
+                                                    kk * 16, P_ALD));
+#pragma unroll
+      for (int np = 0; np < 4; ++np)
+        mma::ldmatrix_x4_trans(bfr[np], cb + mma::b_offset_kn(
+                                            lane, wn * 64 + np * 16, kk * 16,
+                                            P_BLD));
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          mma::mma_bf16(acc[mt][2 * np], af[mt], bfr[np][0], bfr[np][1]);
+          mma::mma_bf16(acc[mt][2 * np + 1], af[mt], bfr[np][2], bfr[np][3]);
+        }
+    }
+  }
+  mma::cp_async_wait<0>();
+
+  // lane (g, t4) holds rows g and g + 8 of each fragment at columns
+  // 2 t4 and 2 t4 + 1
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      bf16* o = out + (size_t)(row0 + wm * 32 + mt * 16 + hh * 8 + g) * f;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int c = n0 + wn * 64 + nt * 8 + 2 * t4;
+        const float v0 = acc[mt][nt][2 * hh], v1 = acc[mt][nt][2 * hh + 1];
+        if (VEC) {                           // f even: c < f means c + 1 < f
+          if (c < f)
+            *reinterpret_cast<__nv_bfloat162*>(o + c) =
+                __floats2bfloat162_rn(v0, v1);
+        } else {
+          if (c < f) o[c] = __float2bfloat16(v0);
+          if (c + 1 < f) o[c + 1] = __float2bfloat16(v1);
+        }
+      }
+    }
+}
+
+// Tick tile: 8 token rows x TF columns of f, d in steps of TK.
+constexpr int TR = 8, TF = 64, TK = 64;
+constexpr int T_WLD = TF + mma::PAD;              // slab tile pitch
+constexpr int T_XLD = TK + mma::PAD;              // x tile pitch
+constexpr int T_WS = TK * T_WLD, T_XS = TR * T_XLD;
+constexpr int T_SMEM = STAGES * (T_WS + T_XS) * (int)sizeof(bf16);
+
+// Grid (T / TR, ceil(f / TF)).  Warp w owns columns w * 16.. of the tile:
+// one m16n8 fragment of out^T (16 columns of f x the 8 rows).
+template <bool VEC>
+__global__ void __launch_bounds__(MMA_THREADS)
+gg_tick(const bf16* __restrict__ x, const bf16* __restrict__ w,
+        const int* __restrict__ block_ids, bf16* __restrict__ out,
+        int block_m, int n_experts, int d, int f) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sw = reinterpret_cast<bf16*>(smem_raw);   // [STAGES][TK][T_WLD]
+  bf16* sx = sw + STAGES * T_WS;                  // [STAGES][TR][T_XLD]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row0 = blockIdx.x * TR, n0 = blockIdx.y * TF;
+  const int e = block_ids[row0 / block_m];
+  if (e < 0 || e >= n_experts) {
+    store_zeros<TR, TF>(out, row0, n0, f);
+    return;
+  }
+  const bf16* xb = x + (size_t)row0 * d;
+  const bf16* wb = w + (size_t)e * d * f;
+  const int ksteps = (d + TK - 1) / TK;
+
+  auto fetch = [&](int ks) {
+    const int k0 = ks * TK;
+    mma::load_tile<TK, TF, MMA_THREADS, VEC>(sw + (ks % STAGES) * T_WS, wb,
+                                             k0, n0, d, f, f, tid);
+    mma::load_tile<TR, TK, MMA_THREADS, VEC>(sx + (ks % STAGES) * T_XS, xb, 0,
+                                             k0, TR, d, d, tid);
+  };
+
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int ks = 0; ks < STAGES - 1; ++ks) {
+    if (ks < ksteps) fetch(ks);
+    mma::cp_async_commit();
+  }
+  for (int ks = 0; ks < ksteps; ++ks) {
+    mma::cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (ks + STAGES - 1 < ksteps) fetch(ks + STAGES - 1);
+    mma::cp_async_commit();
+    const bf16* cw = sw + (ks % STAGES) * T_WS;
+    const bf16* cx = sx + (ks % STAGES) * T_XS;
+#pragma unroll
+    for (int kp = 0; kp < TK / 32; ++kp) {
+      // B (x^T, k x 8 rows) for two k16 steps: rows of x, 8 k apart
+      uint32_t xf[4], wf[2][4];
+      mma::ldmatrix_x4(xf,
+                       cx + (lane & 7) * T_XLD + kp * 32 + (lane >> 3) * 8);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        mma::ldmatrix_x4_trans(wf[h], cw + mma::a_offset_km(
+                                          lane, warp * 16, kp * 32 + h * 16,
+                                          T_WLD));
+      mma::mma_bf16(acc, wf[0], xf[0], xf[1]);
+      mma::mma_bf16(acc, wf[1], xf[2], xf[3]);
+    }
+  }
+  mma::cp_async_wait<0>();
+
+  // acc: columns g and g + 8 of this warp's 16, token rows 2 t4, 2 t4 + 1
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int c = n0 + warp * 16 + hh * 8 + g;
+    if (c < f)
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2)
+        out[(size_t)(row0 + 2 * t4 + e2) * f + c] =
+            __float2bfloat16(acc[2 * hh + e2]);
+  }
+}
+
+template <typename Kernel>
+int launch_mma(Kernel kernel, dim3 grid, int smem, const void* x,
+               const void* w, const void* ids, void* out, int block_m,
+               int n_experts, int d, int f, cudaStream_t st) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, MMA_THREADS, smem, st>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+      static_cast<const int*>(ids), static_cast<bf16*>(out), block_m,
+      n_experts, d, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_bf16(const void* x, const void* w, const void* ids, void* out,
+                int t, int block_m, int n_experts, int d, int f, int tile_m,
+                int vector, cudaStream_t st) {
+  if (tile_m == PM) {
+    const dim3 grid(t / PM * ((f + PN - 1) / PN));
+    return vector ? launch_mma(gg_prefill<true>, grid, P_SMEM, x, w, ids, out,
+                               block_m, n_experts, d, f, st)
+                  : launch_mma(gg_prefill<false>, grid, P_SMEM, x, w, ids,
+                               out, block_m, n_experts, d, f, st);
+  }
+  if (tile_m == TR) {
+    const dim3 grid(t / TR, (f + TF - 1) / TF);
+    return vector ? launch_mma(gg_tick<true>, grid, T_SMEM, x, w, ids, out,
+                               block_m, n_experts, d, f, st)
+                  : launch_mma(gg_tick<false>, grid, T_SMEM, x, w, ids, out,
+                               block_m, n_experts, d, f, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int BM, int BN, int BK, int TM, int TN>
+int launch_f32_tiles(const void* x, const void* w, const void* ids, void* out,
+                     int t, int block_m, int n_experts, int d, int f,
+                     int vector, cudaStream_t st) {
   const dim3 grid(t / BM, (f + BN - 1) / BN);
-  auto* xp = static_cast<const T*>(x);
-  auto* wp = static_cast<const T*>(w);
+  auto* xp = static_cast<const float*>(x);
+  auto* wp = static_cast<const float*>(w);
   auto* ip = static_cast<const int*>(ids);
-  auto* op = static_cast<T*>(out);
+  auto* op = static_cast<float*>(out);
   if (vector)
-    grouped_gemm_kernel<T, BM, BN, BK, TM, TN, true><<<grid, THREADS, 0, st>>>(
+    grouped_gemm_kernel<BM, BN, BK, TM, TN, true><<<grid, THREADS, 0, st>>>(
         xp, wp, ip, op, block_m, n_experts, d, f);
   else
-    grouped_gemm_kernel<T, BM, BN, BK, TM, TN, false><<<grid, THREADS, 0, st>>>(
+    grouped_gemm_kernel<BM, BN, BK, TM, TN, false><<<grid, THREADS, 0, st>>>(
         xp, wp, ip, op, block_m, n_experts, d, f);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch(const void* x, const void* w, const void* ids, void* out, int t,
-           int block_m, int n_experts, int d, int f, int tile_m, int vector,
-           void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+int launch_f32(const void* x, const void* w, const void* ids, void* out,
+               int t, int block_m, int n_experts, int d, int f, int tile_m,
+               int vector, cudaStream_t st) {
   if (tile_m == 64)
-    return launch_tiles<T, 64, 64, 32, 4, 4>(x, w, ids, out, t, block_m,
-                                             n_experts, d, f, vector, st);
+    return launch_f32_tiles<64, 64, 32, 4, 4>(x, w, ids, out, t, block_m,
+                                              n_experts, d, f, vector, st);
   if (tile_m == 8)
-    return launch_tiles<T, 8, 128, 64, 1, 4>(x, w, ids, out, t, block_m,
-                                             n_experts, d, f, vector, st);
+    return launch_f32_tiles<8, 128, 64, 1, 4>(x, w, ids, out, t, block_m,
+                                              n_experts, d, f, vector, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -220,14 +462,19 @@ extern "C" int grouped_gemm_bf16(const void* x, const void* w,
                                  const void* block_ids, void* out, int t,
                                  int block_m, int n_experts, int d, int f,
                                  int tile_m, int vector, void* stream) {
-  return launch<__nv_bfloat16>(x, w, block_ids, out, t, block_m, n_experts, d,
-                               f, tile_m, vector, stream);
+  return launch_bf16(x, w, block_ids, out, t, block_m, n_experts, d, f,
+                     tile_m, vector, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int grouped_gemm_f32(const void* x, const void* w,
                                 const void* block_ids, void* out, int t,
                                 int block_m, int n_experts, int d, int f,
                                 int tile_m, int vector, void* stream) {
-  return launch<float>(x, w, block_ids, out, t, block_m, n_experts, d, f,
-                       tile_m, vector, stream);
+  return launch_f32(x, w, block_ids, out, t, block_m, n_experts, d, f,
+                    tile_m, vector, static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory of one bf16 block of row tile `tile_m` (bytes).
+extern "C" int grouped_gemm_smem(int tile_m) {
+  return tile_m == PM ? P_SMEM : tile_m == TR ? T_SMEM : -1;
 }

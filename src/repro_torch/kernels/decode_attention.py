@@ -5,10 +5,10 @@ o (B, H, D) in q's dtype, the math in fp32 throughout.
 It is the counterpart of the reference's Pallas kernel
 `src/repro/kernels/decode_attention.py::decode_attention` (and of its
 oracle `kernels/ref.py::decode_attention_ref`): GQA by kv head =
-h // (H / Hkv), the cache split into `nsplit` slices of whole `block_k`
-tiles exactly as the reference splits it, un-normalised partials per
-split, then the reference's rescale-combine.  Where the reference's two
-functions disagree, the port chooses and its tests pin it:
+h // (H / Hkv), the cache split into slices of keys, un-normalised
+partials per split, then the reference's rescale-combine.  Where the
+reference's two functions disagree, the port chooses and its tests pin
+it:
 
 * keys at positions >= min(length, Sk) are masked, so `length` > Sk gives
   the oracle's answer (the Pallas kernel also attends to its own zero
@@ -18,6 +18,12 @@ functions disagree, the port chooses and its tests pin it:
 
 `length` is a Python int or a one-element int32 tensor on the inputs'
 device, which the kernel reads on the device (no host sync).
+
+`nsplit` and `block_k` are the reference's arguments: they are checked
+and otherwise ignored, and no longer set the kernel's split.  The card
+sets it: `split_plan` cuts the cache into whole 64-key tiles so that
+B x Hkv x splits fills one wave of 3 CTAs per SM (the Pallas kernel's
+split would leave most of an H100's 132 SMs idle at a small batch).
 
 On a CUDA tensor the wrapper launches the hand-written kernels
 (csrc/decode_attention.cu: the split pass and the combine) and counts
@@ -44,27 +50,30 @@ launches = 0
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 MAX_GROUP_WIDTH = 4096          # g * D: the accumulators of one CTA
+KEY_TILE = 64                   # keys per bf16 tile (two fp32 tiles)
+MIN_SPLIT_TILES = 2             # tiles per split at the least
+CTAS_PER_SM = 3                 # split-pass CTAs an SM holds at D <= 128
 _FNS = {torch.bfloat16: "decode_attention_bf16",
         torch.float32: "decode_attention_f32"}
 
 Length = Union[int, torch.Tensor]       # or a numpy integer
 
 
-def splits(sk: int, nsplit: int, block_k: int) -> Tuple[int, int]:
-    """(splits, keys per split) as the reference cuts the cache
-    (src/repro/kernels/decode_attention.py:90-95): each split a whole
-    number of tiles of min(block_k, keys per split)."""
-    nsplit = max(1, min(nsplit, sk // block_k or 1))
-    per_split = -(-sk // nsplit)
-    bk = min(block_k, per_split)
-    return nsplit, -(-per_split // bk) * bk
+def split_plan(b: int, hkv: int, sk: int, sms: int) -> Tuple[int, int]:
+    """(splits, keys per split) of the split pass on a card of `sms` SMs:
+    whole KEY_TILE-key tiles per split, at least MIN_SPLIT_TILES of them,
+    and as many splits as bring the b * hkv * splits CTAs up to one wave
+    of CTAS_PER_SM per SM (never past it); the last split may be short."""
+    tiles = -(-sk // KEY_TILE)
+    want = max(1, CTAS_PER_SM * sms // (b * hkv))
+    per_split = max(MIN_SPLIT_TILES, -(-tiles // want)) * KEY_TILE
+    return -(-sk // per_split), per_split
 
 
 def decode_attention_plain(q, k, v, length: Length, *,
                            scale: Optional[float] = None) -> torch.Tensor:
     """The same function with the scores written out (any device): the
-    plain version the kernel is held against (`nsplit` and `block_k` only
-    set the kernel's summation order)."""
+    plain version the kernel is held against."""
     exact_fp32()
     b, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -133,11 +142,11 @@ def decode_attention(q, k, v, length: Length, *, nsplit: int = 8,
         raise ValueError(f"decode_attention takes B and Hkv up to 65535, "
                          f"got {b} and {hkv}")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    ns, per_split = splits(sk, nsplit, block_k)
     g = h // hkv
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
+    ns, per_split = split_plan(b, hkv, sk, _sm_count(q.device))
     acc = torch.empty((b, hkv, ns, g, d), dtype=torch.float32,
                       device=q.device)
     ml = torch.empty((2, b, hkv, ns, g), dtype=torch.float32,
@@ -161,6 +170,11 @@ def decode_attention(q, k, v, length: Length, *, nsplit: int = 8,
     global launches
     launches += 1
     return o
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)

@@ -10,7 +10,11 @@ from shapes alone and leaves its unused blocks at -1).
 
 On a CUDA tensor the wrapper launches the hand-written kernel
 (csrc/moe_gemm.cu) and counts the launch in `launches`; on a CPU tensor
-it runs `grouped_gemm_plain`.  Any other device raises.
+it runs `grouped_gemm_plain`.  Any other device raises.  In bf16 the
+kernel multiplies on the tensor cores (bf16 products summed in fp32,
+one rounding at the store), with one tile for 64-row blocks (a prefill)
+and one for 8-row blocks (a decode tick, a stream over weight slabs);
+in fp32 it is an FMA kernel with the same two row tiles.
 """
 from __future__ import annotations
 
@@ -25,7 +29,8 @@ from repro_torch.kernels import _build
 #: kernel launches on CUDA tensors since import (or the last reset)
 launches = 0
 
-#: the kernel's row tiles (csrc/moe_gemm.cu); block_m must be a multiple
+#: the kernel's row tiles (csrc/moe_gemm.cu: the bf16 `gg_prefill` and
+#: `gg_tick`, the fp32 kernel's two shapes); block_m must be a multiple
 #: of one of them
 TILE_M = (64, 8)
 _FNS = {torch.bfloat16: "grouped_gemm_bf16", torch.float32: "grouped_gemm_f32"}
