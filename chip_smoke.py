@@ -9,14 +9,21 @@ the training loss through their entry points at benchmark sizes, holds
 every kernel against its plain PyTorch version on the card, and checks
 the answers against the repo's own oracles:
 
-  1. the card's name and power limit; the kernels' build time;
+  1. the card's name and power limit; the kernels' build time; the
+     card's per-launch floor (an empty kernel launched 50 times back to
+     back, by CUDA events);
   2. K2 (`scan_chunk`): `execute_plan` over S = 100,000 uncoupled lanes
      (OEM case 1 trimmed to 300,000 scenarios, a 64-schedule hourly
      family, a week-long carbon trace, progress_buckets=8), fp64 and
-     mixed, kernel vs plain version, launches and ms per launch;
+     mixed, kernel vs plain version, launches and ms per launch (fp64
+     and mixed); the launch plan (threads, blocks, shared memory, blocks
+     an SM) and `ptxas -v` registers;
   3. K1 (`coupled_chunk`): `fleet_sweep` over 8 campaigns x 500 fleet
      cases = 4,000 coupled lanes under `Site(power_cap_kw=2.0,
-     office_kw=0.12)`, the same checks plus the site peak;
+     office_kw=0.12)`, the same checks plus the site peak; ms per launch
+     in fp64 and mixed; the share of (group, slot) pairs that took 0-4
+     throttle steps before the fixed point stopped (`step_histogram`);
+     the launch plan and `ptxas -v` registers;
   4. end to end through `repro_torch.carina`: `Campaign.sweep` over a
      week-long carbon trace, the README's capped two-OEM `Fleet.sweep`
      (both against the same sweep on the CPU and the fleet against the
@@ -268,6 +275,28 @@ def max_abs(torch, outs_a, outs_b):
                if a.numel())
 
 
+def chunk_ptxas(build, source):
+    """`ptxas -v` registers (and spills) of a chunk kernel's E = 1
+    instances, fp64 and fp32, from this run's build log."""
+    log = build.BUILD_LOG.get(source)
+    if log is None:
+        return "not built in this run"
+    parts, name, spill = [], None, ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif name and "spill" in ln:
+            spill = ln.strip()
+        elif name and "Used" in ln and "registers" in ln:
+            m = re.search(r"kernelI([df])Li1E(?:EvP|Lb1ELb1ELb1E)", name)
+            if m:
+                parts.append(f"{'fp64' if m.group(1) == 'd' else 'fp32'} "
+                             f"{ln.split('Used', 1)[1].split(',')[0].strip()}"
+                             f" ({spill})")
+            name = None
+    return "; ".join(parts) or "no such kernel in the log"
+
+
 def week_trace(carina):
     """The 7-day synthetic carbon trace of the benchmarks: diurnal swing +
     weekly drift + seeded noise around the DTE grid factor."""
@@ -285,7 +314,7 @@ def hourly_family(carina, n, prefix):
                          for h in range(24)]) for i in range(n)]
 
 
-def phase_scan_chunk(torch, carina, et, k2, k1, dev, S=100_000):
+def phase_scan_chunk(torch, carina, et, k2, k1, build, dev, S=100_000):
     """K2 at the scale-out benchmark's size, fp64 and mixed."""
     wl, m = carina.calibrate_workload(carina.OEM_CASE_1,
                                       carina.MachineProfile())
@@ -353,15 +382,23 @@ def phase_scan_chunk(torch, carina, et, k2, k1, dev, S=100_000):
     b_ms, b_by = k2_bound(torch, args, out_k, kw["B"])
     margs, mkw = captured[0]
     ms_mixed = cuda_ms(torch, lambda: k2.scan_chunk(*margs, **mkw), 20)
+    b_mixed, _ = k2_bound(torch, margs, k2.scan_chunk(*margs, **mkw),
+                          mkw["B"])
     idle = max(0.0, 1.0 - launches * ms / (wall * 1e3))
+    A, E = args[2].shape[0], args[4].shape[1]
+    plans = {str(d).split(".")[1]: k2.device_plan(A, E, d)
+             for d in (torch.float64, torch.float32)}
+    print(f"K2 launch at the first chunk (A {A}, E {E}): {plans}; ptxas "
+          f"{chunk_ptxas(build, 'scan_chunk')}", flush=True)
     print(f"K2 scan_chunk: S={S} lanes, tables {tuple(plan.tab_u.shape)}, "
           f"compile_plan x2 {t_compile:.1f} s, execute_plan {wall:.3f} s, "
           f"launches {launches}, chunk shape {tuple(args[2].shape)}; "
           f"fp64 kernel vs plain max rel {err64:.3e} (bar 1e-9), "
           f"mixed vs fp64 {err_mixed:.3e} (bar 1e-6), mixed kernel vs "
           f"plain {err_mixed_plain:.3e}; ms/launch fp64 {ms:.4f} "
-          f"mixed {ms_mixed:.4f} plain {plain_ms:.3f}; bound {b_ms:.4f} ms "
-          f"({b_by}); host chunk assembly {t_inputs:.3f} s, copy "
+          f"mixed {ms_mixed:.4f} plain {plain_ms:.3f}; bound fp64 "
+          f"{b_ms:.4f} ms ({b_by}), mixed {b_mixed:.4f} ms; host chunk "
+          f"assembly {t_inputs:.3f} s, copy "
           f"{st.copy_bytes / 1e9:.3f} GB; device idle share of execute_plan "
           f"{idle:.3f}", flush=True)
     return {"name": "scan_chunk", "route": "cuda",
@@ -372,7 +409,8 @@ def phase_scan_chunk(torch, carina, et, k2, k1, dev, S=100_000):
             "library_ms": None}
 
 
-def phase_coupled_chunk(torch, carina, et, k2, k1, dev, M=8, S=500):
+def phase_coupled_chunk(torch, carina, et, k2, k1, build, dev, M=8,
+                        S=500):
     """K1 at the fleet benchmark's size, fp64 and mixed."""
     wl, m = carina.calibrate_workload(carina.OEM_CASE_1,
                                       carina.MachineProfile())
@@ -408,10 +446,11 @@ def phase_coupled_chunk(torch, carina, et, k2, k1, dev, M=8, S=500):
     t0 = time.perf_counter()
     et._chunk_inputs(plan, np.arange(plan.n_lanes), 0, 96 * plan.sph)
     t_inputs = time.perf_counter() - t0
-    captured = []
+    captured, captured_mixed = [], []
     with recording(k1, "coupled_chunk", captured):
         got = et.execute_plan(plan, device=dev)
-    got_mixed = et.execute_plan(mixed, device=dev)
+    with recording(k1, "coupled_chunk", captured_mixed):
+        got_mixed = et.execute_plan(mixed, device=dev)
     with plain_versions((k2, "scan_chunk"), (k1, "coupled_chunk")):
         ref = et.execute_plan(plan, device=dev)
         ref_mixed = et.execute_plan(mixed, device=dev)
@@ -438,14 +477,31 @@ def phase_coupled_chunk(torch, carina, et, k2, k1, dev, M=8, S=500):
     plain_ms = cuda_ms(torch, lambda: k1.coupled_chunk_plain(*args, **akw),
                        2)
     b_ms, b_by = k1_bound(torch, args, out_k)
+    margs, mkw = captured_mixed[0]
+    ms_mixed = cuda_ms(torch, lambda: k1.coupled_chunk(*margs, **mkw), 20)
+    b_mixed, _ = k1_bound(torch, margs, k1.coupled_chunk(*margs, **mkw))
     idle = max(0.0, 1.0 - launches * ms / (wall * 1e3))
+    for label, (a_, kw_) in (("fp64", (args, akw)), ("mixed", (margs, mkw))):
+        hist = k1.step_histogram(*a_, **kw_)
+        total = max(1, sum(hist))
+        print(f"K1 throttle steps past the first operating point, {label} "
+              f"first chunk: (group, slot) pairs with a lane running by "
+              f"steps 0..{len(hist) - 1}: {hist}, shares "
+              f"{[round(h / total, 4) for h in hist]}", flush=True)
+    G, Lp = args[0].shape[:2]
+    plans = {str(d).split(".")[1]: k1.device_plan(G, Lp, d)
+             for d in (torch.float64, torch.float32)}
+    print(f"K1 launch at the first chunk (G {G}, Lp {Lp}): {plans}; ptxas "
+          f"{chunk_ptxas(build, 'coupled_chunk')}", flush=True)
     print(f"K1 coupled_chunk: {M}x{S} = {M * S} coupled lanes, dense "
           f"{tuple(args[0].shape)}, fleet_sweep {wall:.3f} s, launches "
           f"{launches}; fp64 kernel vs plain max rel {err64:.3e} (bar "
           f"1e-9), mixed vs fp64 {err_mixed:.3e} (bar 1e-6), mixed kernel "
           f"vs plain {err_mixed_plain:.3e}, site peak diff {peak_diff:.3e} "
-          f"kW; ms/launch {ms:.4f} plain {plain_ms:.3f}; bound {b_ms:.4f} "
-          f"ms ({b_by}); host chunk assembly (first chunk) {t_inputs:.3f} s, "
+          f"kW; ms/launch fp64 {ms:.4f} mixed {ms_mixed:.4f} plain "
+          f"{plain_ms:.3f}; bound fp64 {b_ms:.4f} ms ({b_by}), mixed "
+          f"{b_mixed:.4f} ms; host chunk assembly (first chunk) "
+          f"{t_inputs:.3f} s, "
           f"copy {st.copy_bytes / 1e9:.3f} GB; first-chunk launch >= the "
           f"mean launch, so device idle share of fleet_sweep <= {idle:.3f}",
           flush=True)
@@ -2163,8 +2219,12 @@ def main() -> int:
                 if "Used" in ln and "registers" in ln]
         print(f"ptxas {name}: " + " | ".join(used), flush=True)
     dev = torch.device("cuda", 0)
-    kernels = [phase_scan_chunk(torch, carina, et, k2, k1, dev),
-               phase_coupled_chunk(torch, carina, et, k2, k1, dev)]
+    floor = cuda_ms(torch, lambda: torch.cuda._sleep(0), 50)
+    print(f"launch floor: an empty kernel (torch.cuda._sleep(0)) launched 50 "
+          f"times back to back, {floor:.4f} ms per launch by CUDA events",
+          flush=True)
+    kernels = [phase_scan_chunk(torch, carina, et, k2, k1, _build, dev),
+               phase_coupled_chunk(torch, carina, et, k2, k1, _build, dev)]
     phase_end_to_end(torch, carina, et, dev)
     kernels += [phase_decode_attention(torch, k6, ops, _build, dev),
                 phase_ssm_scan(torch, k7, ops, dev)]

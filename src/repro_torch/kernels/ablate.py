@@ -1,31 +1,40 @@
 """Where the kernels' time goes: K5 (csrc/flash_attention.cu), K10
-(csrc/xent.cu) and K9 (csrc/moe_gemm.cu) in bf16, and K6
-(csrc/decode_attention.cu), built beside variants with one part removed,
-each timed at the main path's shapes on one card.
+(csrc/xent.cu) and K9 (csrc/moe_gemm.cu) in bf16, K6
+(csrc/decode_attention.cu), and the chunk kernels K2
+(csrc/scan_chunk.cu) and K1 (csrc/coupled_chunk.cu) in fp64 and fp32,
+built beside variants with one part removed, each timed at the main
+path's shapes on one card.
 
     PYTHONPATH=src python -m repro_torch.kernels.ablate [--baseline DIR]
         [source ...]
 
-(sources: flash_attention, xent, moe_gemm, decode_attention; all by
-default).  With --baseline, the same sources of another checkout rooted
-at DIR (a `git archive` of an earlier commit, say) are built and timed
-beside them as the variant "baseline", so two versions are compared
-within one call; K9 is then also timed in fp32, both versions.
+(sources: flash_attention, xent, moe_gemm, decode_attention,
+scan_chunk, coupled_chunk; all by default).  With --baseline, the same
+sources of another checkout rooted at DIR (a `git archive` of an earlier
+commit, say) are built and timed beside them as the variant "baseline",
+so two versions are compared within one call; K9 is then also timed in
+fp32, both versions, and K2's and K1's variants are applied to the
+baseline too (`BASELINE_VARIANTS`, "baseline: <variant>").
 
 A variant computes a wrong result by design: it is timed, never checked.
 The gap between a variant and the unchanged kernel is what that part costs
-where it does not overlap the rest.  Every variant is a text substitution
-of the current source; `variant_sources` raises if one no longer applies
+where it does not overlap the rest.  Variants named "alt: ..." are design
+alternatives the kernel was chosen against; they compute the right
+result.  Every variant is a text substitution
+of the current source, with its local headers (`*.cuh`) inlined;
+`variant_sources` raises if one no longer applies
 (tests/test_torch_kernels.py checks that on the CPU), so the table stays
 in step with the kernels.  Builds go to build/kernels/ablate/; nothing
-here runs when the package is imported.
+here runs when the package is imported.  Each variant's `ptxas -v`
+registers and the blocks an SM holds at its launch width are printed
+beside its time.
 """
 from __future__ import annotations
 
 import ctypes
 import json
 import math
-import shutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -136,40 +145,190 @@ VARIANTS: Dict[str, Dict[str, List[Edit]]] = {
             ("      for (int j = group; j < nk; j += p.groups) {",
              "      for (int j = group; j < 0; j += p.groups) {")],
     },
+    "scan_chunk": {
+        "fast pow": [
+            ("  if constexpr (CHAIN)\n"
+             "    return (float)xpow((double)a, (double)b);\n"
+             "  else\n    return powf(a, b);",
+             "  return __powf(a, b);"),
+            ("  return a > 0.0 ? pos : (a == 0.0 ? zero : a);",
+             "  return (double)__powf((float)a, (float)b);")],
+        "no series loads": [
+            ("    stage<W>(st, rowidx, a0, 1, valid, nrows, C, t0, vec);\n"
+             "    st += nrows * W * 4;\n"
+             "    stage<W>(st, bg, a0, 1, valid, nrows, C, t0, vec);\n"
+             "    stage<W>(st + arr, pr, a0, 1, valid, nrows, C, t0, vec);\n"
+             "    stage<W>(st + 2 * arr, lens, a0, 1, valid, nrows, C, t0, "
+             "vec);\n", ""),
+            ("      stage<W>(st + (3 + e) * arr, cf, a0 * EC + e, EC, valid, "
+             "nrows, C, t0,\n", "      if (0) (0,\n"),
+            ("for (int j = 0; j < W; ++j) row[j] = at<int, W>(st, r, j);",
+             "for (int j = 0; j < W; ++j) row[j] = (t0 + j) % R;"),
+            ("carina::rates(u, bt, at<T, W>(st, r, j), p)",
+             "carina::rates(u, bt, T(0.25), p)"),
+            ("fmin((double)at<T, W>(st + 2 * arr, r, j),", "fmin(3600.0,"),
+            ("en * (double)at<T, W>(st + (3 + e) * arr, r, j);", "en * 0.4;"),
+            ("en * (double)at<T, W>(st + arr, r, j);", "en * 0.1;")],
+        # design alternatives, measured beside the kernel
+        "alt: 32-byte rows": [("constexpr int TS = 64 / (int)sizeof(T);",
+                               "constexpr int TS = 32 / (int)sizeof(T);")],
+        "alt: 128-byte rows": [("constexpr int TS = 64 / (int)sizeof(T);",
+                                "constexpr int TS = 128 / (int)sizeof(T);")],
+        "alt: 3 stages": [("constexpr int STAGES = 2;",
+                           "constexpr int STAGES = 3;")],
+        "alt: L2 128B prefetch": [("cp.async.cg.shared.global [%0]",
+                                   "cp.async.cg.shared.global.L2::128B [%0]")],
+        "loads only": [
+            ("const Rates<T> rr = carina::rates(u, bt, at<T, W>(st, r, j), "
+             "p);",
+             "const Rates<T> rr = {T(1e-3) + T(1e-9) * u, "
+             "at<T, W>(st, r, j) + bt, T(1e-12)};")],
+    },
+    "coupled_chunk": {
+        "fast pow": [
+            ("  if constexpr (CHAIN)\n"
+             "    return (float)xpow((double)a, (double)b);\n"
+             "  else\n    return powf(a, b);",
+             "  return __powf(a, b);"),
+            ("  return a > 0.0 ? pos : (a == 0.0 ? zero : a);",
+             "  return (double)__powf((float)a, (float)b);")],
+        "no series loads": [
+            ("const size_t s = L * C + t;", "const size_t s = L * C;"),
+            ("in.off = office[gg * C + t];", "in.off = office[gg * C];"),
+            ("in.cf[e] = cf[(L * EC + e) * C + t];",
+             "in.cf[e] = cf[(L * EC + e) * C];")],
+        "loads only": [
+            ("      const T pw = carina::power_w<T, true>(x, p.idle, p.dyn, "
+             "p.alpha);", "      const T pw = x;"),
+            ("      return carina::point(uu, bt, bgt, p, p_work, p_oh);",
+             "      return Point<T>{T(1) + T(1e-9) * uu, p_work + p_oh + bt};"),
+            ("    return carina::power_w<T, true>(bgt, p.idle, p.dyn, p.alpha);",
+             "    return bgt;")],
+        "one throttle step": [
+            ("for (int it = 0; it < iters; ++it) {",
+             "for (int it = 0; it < 1; ++it) {")],
+        # design alternatives, measured beside the kernel
+        "alt: butterfly of log2(Lp) levels": [
+            ("#pragma unroll\n  for (int off = 16; off > 0; off >>= 1) {\n"
+             "    const T x",
+             "  for (int off = WARP ? Lp >> 1 : 16; off > 0; off >>= 1) {\n"
+             "    const T x")],
+        "alt: no shared power terms": [("32 / (gpw * Lp) >= 4", "false")],
+        "alt: 32 / Lp groups a warp": [
+            ("while (gpw < 32 / Lp && (long long)G > 8LL * sms * gpw) gpw *= 2;",
+             "gpw = 32 / Lp;")],
+    },
 }
+
+
+#: source -> variant name -> substitutions for the baseline's text (the
+#: kernel it replaced), applied with --baseline as "baseline: <variant>"
+BASELINE_VARIANTS: Dict[str, Dict[str, List[Edit]]] = {  # K2, K1 as first built
+    "scan_chunk": {
+        "fast pow": [
+            ("__device__ __forceinline__ float xpow(float a, float b) { "
+             "return powf(a, b); }",
+             "__device__ __forceinline__ float xpow(float a, float b) { "
+             "return __powf(a, b); }"),
+            ("__device__ __forceinline__ double xpow(double a, double b) { "
+             "return pow(a, b); }",
+             "__device__ __forceinline__ double xpow(double a, double b) { "
+             "return (double)__powf((float)a, (float)b); }")],
+        "no series loads": [
+            ("const int row = rowidx[s0 + t];", "const int row = t % R;"),
+            ("carina::rates(u, bt, bg[s0 + t], p);",
+             "carina::rates(u, bt, T(0.25), p);"),
+            ("fmin((double)lens[s0 + t],", "fmin(3600.0,"),
+            ("en * (double)cf[((size_t)a * E + e) * C + t];", "en * 0.4;"),
+            ("en * (double)pr[s0 + t];", "en * 0.1;")],
+        "loads only": [
+            ("const Rates<T> r = carina::rates(u, bt, bg[s0 + t], p);",
+             "const Rates<T> r = {T(1e-3) + T(1e-9) * u, bg[s0 + t] + bt, "
+             "T(1e-12)};")],
+    },
+    "coupled_chunk": {
+        "fast pow": [
+            ("__device__ __forceinline__ float xpow(float a, float b) { "
+             "return powf(a, b); }",
+             "__device__ __forceinline__ float xpow(float a, float b) { "
+             "return __powf(a, b); }"),
+            ("__device__ __forceinline__ double xpow(double a, double b) { "
+             "return pow(a, b); }",
+             "__device__ __forceinline__ double xpow(double a, double b) { "
+             "return (double)__powf((float)a, (float)b); }")],
+        "no series loads": [
+            ("        u = ur[0];\n        bt = br[0];\n",
+             "        u = T(0.6);\n        bt = T(50);\n"),
+            ("bgt = bg[L * C + t];", "bgt = T(0.25);"),
+            ("off = office[(size_t)g * C + t];", "off = T(0.1);"),
+            ("len = (double)lens[L * C + t];", "len = 3600.0;"),
+            ("en * (double)cf[(L * E + e) * C + t];", "en * 0.4;"),
+            ("en * (double)pr[L * C + t];", "en * 0.1;")],
+        "loads only": [
+            ("const Rates<T> r = carina::rates(u, bt, bgt, p);",
+             "const Rates<T> r = {T(1e-3) + T(1e-9) * u, bgt + bt, "
+             "T(1e-12)};"),
+            ("r2 = carina::rates(u * f, bt, bgt, p);",
+             "r2 = {r.scen_per_s, r.p_avg_w * f, r.kwh_per_s};"),
+            ("carina::power_w(bgt, p.idle, p.dyn, p.alpha) / T(1000)",
+             "bgt / T(1000)")],
+        "one throttle step": [
+            ("for (int it = 0; it < iters; ++it) {",
+             "for (int it = 0; it < 1; ++it) {")],
+    },
+}
+
+
+def _inline_headers(text: str, csrc: Path) -> str:
+    """`text` with each `#include "x.cuh"` of a header in `csrc` replaced
+    by the header itself (its `#pragma once` dropped), so a variant may
+    edit a shared header and a baseline builds with its own headers."""
+    for h in sorted(csrc.glob("*.cuh")):
+        inc = f'#include "{h.name}"'
+        if inc in text:
+            body = h.read_text().replace("#pragma once\n", "")
+            text = text.replace(inc, body, 1).replace(inc, "")
+    return text
+
+
+def _apply(name, label, text, edits):
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise ValueError(f"ablation {name} / {label}: a pattern "
+                             f"matches {text.count(old)} times")
+        text = text.replace(old, new)
+    return text
 
 
 def variant_sources(names=None, baseline=None) -> Dict[Tuple[str, str], str]:
     """(source, variant) -> the variant's text, "unchanged" included, for
-    the sources in `names` (all by default), and "baseline" from the
-    checkout rooted at `baseline` if given; raises if a substitution does
-    not match its source exactly once."""
+    the sources in `names` (all by default), and "baseline" (with its own
+    `BASELINE_VARIANTS`) from the checkout rooted at `baseline` if given;
+    raises if a substitution does not match its source exactly once."""
     out = {}
     for name, variants in VARIANTS.items():
         if names is not None and name not in names:
             continue
-        src = (_build.CSRC / f"{name}.cu").read_text()
+        src = _inline_headers((_build.CSRC / f"{name}.cu").read_text(),
+                              _build.CSRC)
         out[(name, "unchanged")] = src
         if baseline is not None:
-            out[(name, "baseline")] = (Path(baseline) / "src" / "repro_torch"
-                                       / "csrc" / f"{name}.cu").read_text()
+            bdir = Path(baseline) / "src" / "repro_torch" / "csrc"
+            base = _inline_headers((bdir / f"{name}.cu").read_text(), bdir)
+            out[(name, "baseline")] = base
+            for label, edits in BASELINE_VARIANTS.get(name, {}).items():
+                out[(name, f"baseline: {label}")] = _apply(
+                    name, f"baseline: {label}", base, edits)
         for label, edits in variants.items():
-            text = src
-            for old, new in edits:
-                if text.count(old) != 1:
-                    raise ValueError(f"ablation {name} / {label}: a pattern "
-                                     f"matches {text.count(old)} times")
-                text = text.replace(old, new)
-            out[(name, label)] = text
+            out[(name, label)] = _apply(name, label, src, edits)
     return out
 
 
 def _build_all(sources):
-    """Compile every variant in parallel; returns the loaded libraries."""
+    """Compile every variant in parallel; returns the loaded libraries and
+    each build's `ptxas -v` log."""
     out_dir = _build.BUILD_DIR / "ablate"
     out_dir.mkdir(parents=True, exist_ok=True)
-    for h in _build.CSRC.glob("*.cuh"):
-        shutil.copy(h, out_dir)
     procs = {}
     for i, (key, text) in enumerate(sources.items()):
         cu = out_dir / f"v{i}_{key[0]}.cu"
@@ -178,13 +337,35 @@ def _build_all(sources):
         procs[key] = (subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
-    libs = {}
+    libs, logs = {}, {}
     for key, (proc, so) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"ablation build {key} failed:\n{log}")
         libs[key] = ctypes.CDLL(str(so))
-    return libs
+        logs[key] = log
+    return libs, logs
+
+
+def registers(log: str) -> Dict[str, int]:
+    """Mangled kernel name -> registers a thread, from a `ptxas -v` log."""
+    regs, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif name and "Used" in ln and "registers" in ln:
+            regs[name] = int(ln.split("Used", 1)[1].split()[0])
+            name = None
+    return regs
+
+
+def blocks_per_sm(regs: int, threads: int) -> int:
+    """Blocks of `threads` one H100 SM holds at `regs` registers a thread
+    (no shared memory): 65,536 registers allotted in 256-register units a
+    warp, 64 warps, 32 blocks."""
+    warps = -(-threads // 32)
+    by_regs = (65536 // (-(-regs * 32 // 256) * 256)) // warps
+    return max(0, min(32, 64 // warps, by_regs))
 
 
 def _event_ms(torch, fn, reps):
@@ -343,6 +524,165 @@ def _time_k6(torch, libs, rnd, dev, stream):
     return rows
 
 
+def _physics(torch, n, dtype, dev, gen):
+    """Per-lane scalars of OEM case 1's calibrated workload and machine
+    (dyn and alpha spread per lane); n_scen so large that no lane
+    finishes inside a chunk."""
+    from repro_torch import carina
+    wl, m = carina.calibrate_workload(carina.OEM_CASE_1,
+                                      carina.MachineProfile())
+
+    def uni(lo, hi):
+        return (torch.rand(n, generator=gen, device=dev,
+                           dtype=torch.float64) * (hi - lo) + lo).to(dtype)
+
+    def full(v):
+        return torch.full(n, v, dtype=dtype, device=dev)
+    return (full(1e15), full(wl.rate_at_full), full(wl.batch_overhead_s),
+            full(m.idle_w), uni(0.8, 1.2) * m.dyn_w, uni(1.2, 2.0),
+            full(m.gamma), full(m.overhead_w_frac))
+
+
+def k2_inputs(torch, dtype, dev, gen, A=100_000, R=24, C=96, E=1):
+    """K2's synthetic chunk at chip_smoke.py's captured shape (B = 1):
+    every lane runs all C slots (remaining 1e15 scenarios)."""
+    def uni(shape, lo, hi):
+        return (torch.rand(shape, generator=gen, device=dev,
+                           dtype=torch.float64) * (hi - lo) + lo).to(dtype)
+    s0 = torch.randint(0, R, (A, 1), generator=gen, device=dev)
+    rowidx = ((s0 + torch.arange(C, device=dev)) % R).to(torch.int32)
+    ins = (uni((A, R, 1), 0.35, 0.95),
+           torch.full((A, R, 1), 50.0, dtype=dtype, device=dev), rowidx,
+           uni((A, C), 0.0, 0.5), uni((A, E, C), 0.3, 0.6),
+           uni((A, C), 0.0, 0.2),
+           torch.full((A, C), 3600.0, dtype=dtype, device=dev))
+    z = torch.zeros(A, dtype=torch.float64, device=dev)
+    state = (z + 1e15, z, z, torch.zeros((A, E), dtype=torch.float64,
+                                         device=dev), z)
+    return ins + state + _physics(torch, (A,), dtype, dev, gen)
+
+
+def k1_inputs(torch, dtype, dev, gen, cap, G=512, Lp=8, C=96, E=1):
+    """K1's synthetic chunk at chip_smoke.py's captured shape (B = 1, the
+    benchmark's 8-lane groups, office draw 0.05-0.12 kW): every lane runs
+    all C slots."""
+    def uni(shape, lo, hi):
+        return (torch.rand(shape, generator=gen, device=dev,
+                           dtype=torch.float64) * (hi - lo) + lo).to(dtype)
+    ins = (uni((G, Lp, C, 1), 0.35, 0.95),
+           torch.full((G, Lp, C, 1), 50.0, dtype=dtype, device=dev),
+           uni((G, Lp, C), 0.0, 0.5), uni((G, Lp, E, C), 0.3, 0.6),
+           uni((G, Lp, C), 0.0, 0.2),
+           torch.full((G, Lp, C), 3600.0, dtype=dtype, device=dev),
+           torch.full((G,), cap, dtype=dtype, device=dev),
+           uni((G, C), 0.05, 0.12))
+    z = torch.zeros((G, Lp), dtype=torch.float64, device=dev)
+    state = (z + 1e15, z, z, torch.zeros((G, Lp, E), dtype=torch.float64,
+                                         device=dev), z, z)
+    return ins + state + _physics(torch, (G, Lp), dtype, dev, gen)
+
+
+def _time_k2(torch, libs, gen, dev, stream):
+    """K2 at A = 100,000 lanes, C = 96 slots, R = 24 rows, B = E = 1, in
+    fp64 and fp32 (the mixed plan's instance)."""
+    rows = []
+    for dtype, fname in ((torch.float64, "scan_chunk_f64"),
+                         (torch.float32, "scan_chunk_f32")):
+        args = k2_inputs(torch, dtype, dev, gen)
+        out = tuple(torch.empty_like(s) for s in args[7:12])
+        ptrs = [x.data_ptr() for x in args + out]
+        A, R, _ = args[0].shape
+        C, E = args[2].shape[1], args[4].shape[1]
+        for label, fn in _variants(libs, "scan_chunk", fname,
+                                   [ctypes.c_void_p] * 25
+                                   + [ctypes.c_int] * 5 + [ctypes.c_void_p]):
+            def call(fn=fn):
+                return fn(*ptrs, A, R, 1, C, E, stream)
+            if call():
+                raise RuntimeError(f"K2 {label}: launch failed")
+            rows.append(("K2", f"{str(dtype)[6:]} A {A} C {C} R {R} B 1 "
+                         f"E {E}", label, _event_ms(torch, call, 10)))
+        del args, out
+    return rows
+
+
+def _time_k1(torch, libs, gen, dev, stream):
+    """K1 at (G, Lp, C, B) = (512, 8, 96, 1), E = 1, 4 throttle steps, in
+    fp64 and fp32, under the benchmark's 2.0 kW cap and under a 1.0 kW
+    cap that binds in every slot."""
+    rows = []
+    for cap in (2.0, 1.0):
+        for dtype, fname in ((torch.float64, "coupled_chunk_f64"),
+                             (torch.float32, "coupled_chunk_f32")):
+            args = k1_inputs(torch, dtype, dev, gen, cap)
+            out = tuple(torch.empty_like(s) for s in args[8:14])
+            ptrs = [x.data_ptr() for x in args + out]
+            G, Lp, C, B = args[0].shape
+            E = args[3].shape[2]
+            for label, fn in _variants(
+                    libs, "coupled_chunk", fname,
+                    [ctypes.c_void_p] * 28 + [ctypes.c_int] * 6
+                    + [ctypes.c_double, ctypes.c_void_p]):
+                def call(fn=fn):
+                    return fn(*ptrs, G, Lp, C, B, E, 4, 1e-6, stream)
+                if call():
+                    raise RuntimeError(f"K1 {label}: launch failed")
+                rows.append(("K1", f"{str(dtype)[6:]} ({G},{Lp},{C},{B}) "
+                             f"E {E} cap {cap} kW", label,
+                             _event_ms(torch, call, 10)))
+            steps = getattr(libs[("coupled_chunk", "unchanged")],
+                            f"coupled_chunk_steps_{fname[-3:]}", None)
+            if steps is not None:
+                hist = torch.zeros(5, dtype=torch.int32, device=dev)
+                steps.argtypes = ([ctypes.c_void_p] * 28
+                                  + [ctypes.c_int] * 6
+                                  + [ctypes.c_double] + [ctypes.c_void_p] * 2)
+                steps(*ptrs, G, Lp, C, B, E, 4, 1e-6, hist.data_ptr(),
+                      stream)
+                print(f"K1 {str(dtype)[6:]} cap {cap} kW: (group, slot) "
+                      f"pairs by throttle steps 0-4 {hist.tolist()}",
+                      flush=True)
+            del args, out
+    return rows
+
+
+#: the `<source>_plan` arguments before (f64, out) at the timed shapes
+PLAN_ARGS = {"scan_chunk": (100_000, 1), "coupled_chunk": (512, 8)}
+
+
+def _occupancy(libs, logs, names):
+    """One line per built variant of K2 and K1: `ptxas -v` registers of
+    each kernel's E = 1 instance (K1: B = 1, a warp's groups, the power
+    terms shared out over the lane's replicas) and the
+    blocks an SM holds at the timed shape (the library's own
+    `<source>_plan`, CUDA's occupancy API, where it has one; else from
+    the registers at 128 threads a block)."""
+    lines = []
+    for (src, label), log in logs.items():
+        if src not in names or src not in PLAN_ARGS:
+            continue
+        parts = []
+        for kname, n in registers(log).items():
+            m = re.search(r"kernelI([df])(?:Li(\d+)E)?((?:Lb\dE)*)", kname)
+            if (m is None or m.group(2) not in (None, "1")
+                    or m.group(3) not in ("", "Lb1ELb1ELb1E")):
+                continue
+            f64 = m.group(1) == "d"
+            fn = getattr(libs[(src, label)], f"{src}_plan", None)
+            if fn is not None:
+                out = (ctypes.c_int * 4)()
+                fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+                fn(*PLAN_ARGS[src], int(f64), out)
+                per_sm = f"{out[3]} blocks/SM (occupancy API)"
+            else:
+                per_sm = (f"{blocks_per_sm(n, 128)} blocks/SM of 128 "
+                          f"(from registers)")
+            parts.append(f"{'f64' if f64 else 'f32'} (E = 1) {n} "
+                         f"registers, {per_sm}")
+        lines.append(f"{src} {label}: " + "; ".join(parts))
+    return lines
+
+
 def main(argv=None) -> int:
     import torch
     args = list(argv if argv is not None else sys.argv[1:])
@@ -364,7 +704,7 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    libs = _build_all(variant_sources(names, baseline))
+    libs, logs = _build_all(variant_sources(names, baseline))
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -377,7 +717,12 @@ def main(argv=None) -> int:
               "xent": lambda: _time_k10(torch, libs, rnd, gen, dev, stream),
               "moe_gemm": lambda: _time_k9(torch, libs, rnd, dev, stream),
               "decode_attention": lambda: _time_k6(torch, libs, rnd, dev,
-                                                   stream)}
+                                                   stream),
+              "scan_chunk": lambda: _time_k2(torch, libs, gen, dev, stream),
+              "coupled_chunk": lambda: _time_k1(torch, libs, gen, dev,
+                                                stream)}
+    for line in _occupancy(libs, logs, names):
+        print(line, flush=True)
     rows = [row for name in names for row in timers[name]()]
     for kernel, shape, label, ms in rows:
         print(f"{kernel} {shape} {label}: {ms:.4f} ms", flush=True)

@@ -13,8 +13,11 @@ counterpart of the reference's Pallas kernel
 signature.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
-(csrc/coupled_chunk.cu, lanes in threads, group sums by warp shuffles)
-and counts the launch in `launches`; on a CPU tensor it runs
+(csrc/coupled_chunk.cu: lanes in threads, group sums by warp shuffles,
+the throttle's fixed point left at its exact stop, `launch_plan` threads
+a block) and counts the launch in `launches`; `step_histogram` launches
+the same kernel counting the throttle steps it took.  On a CPU tensor it
+runs
 `coupled_chunk_plain`, the same function as a Python slot loop of tensor
 ops.  Any other device raises.
 
@@ -36,6 +39,23 @@ launches = 0
 
 #: most lanes one group may have (one CUDA block of threads)
 MAX_GROUP_LANES = 1024
+
+
+def launch_plan(G: int, Lp: int, sms: int) -> tuple:
+    """(threads a block, blocks, groups a warp) of the kernel's launch for
+    G groups of Lp lanes on a card of `sms` SMs, the rule of
+    csrc/coupled_chunk.cu::plan: above 32 lanes a group, one block of Lp
+    threads a group; else the fewest groups a warp (a power of two, at
+    most 32 / Lp) that keep the warps at 8 an SM or fewer, in blocks of
+    one warp below 4 warps an SM and of four from there."""
+    if Lp > 32:
+        return Lp, G, 1
+    gpw = 1
+    while gpw < 32 // Lp and G > 8 * sms * gpw:
+        gpw *= 2
+    warps = -(-G // gpw)
+    threads = 128 if warps >= 4 * sms else 32
+    return threads, -(-warps * 32 // threads), gpw
 
 
 def coupled_chunk_plain(u_rows, b_rows, bg, cf, pr, lens, cap_g, office,
@@ -135,6 +155,32 @@ def coupled_chunk(u_rows, b_rows, bg, cf, pr, lens, cap_g, office,
     if u_rows.device.type == "cpu":
         return coupled_chunk_plain(*args, iters=iters,
                                    finish_frac=finish_frac)
+    return _launch(args, iters, finish_frac)
+
+
+def step_histogram(u_rows, b_rows, bg, cf, pr, lens, cap_g, office,
+                   remaining, rt, kwh, co2, cost, speak,
+                   n_scen, rate, oh, idle, dyn, alpha, gamma, ohfrac,
+                   *, iters: int, finish_frac: float) -> list:
+    """Launch the kernel on CUDA tensors (counted in `launches`) and
+    return how many (group, slot) pairs with a lane running took 0, 1,
+    ..., `iters` throttle steps past the slot's first operating point
+    before the fixed point stopped; the outputs are dropped."""
+    if u_rows.device.type != "cuda":
+        raise RuntimeError("step_histogram counts the CUDA kernel's steps")
+    hist = torch.zeros(int(iters) + 1, dtype=torch.int32,
+                       device=u_rows.device)
+    _launch((u_rows, b_rows, bg, cf, pr, lens, cap_g, office,
+             remaining, rt, kwh, co2, cost, speak,
+             n_scen, rate, oh, idle, dyn, alpha, gamma, ohfrac),
+            iters, finish_frac, hist)
+    return hist.tolist()
+
+
+def _launch(args, iters, finish_frac, hist=None):
+    """Check the inputs, launch the kernel (with `hist`, the instance that
+    counts throttle steps into it) and count the launch."""
+    u_rows, cf = args[0], args[3]
     if u_rows.device.type != "cuda":
         raise RuntimeError(f"coupled_chunk runs on CUDA or CPU tensors, not "
                            f"{u_rows.device}")
@@ -145,17 +191,21 @@ def coupled_chunk(u_rows, b_rows, bg, cf, pr, lens, cap_g, office,
         raise TypeError(f"coupled_chunk computes in float64 or float32, got "
                         f"{cdt}")
     _check(args, cdt, G, Lp, C, B, E)
-    out = tuple(torch.empty_like(s)
-                for s in (remaining, rt, kwh, co2, cost, speak))
+    out = tuple(torch.empty_like(s) for s in args[8:14])
     if G == 0:
         return out
     lib = _library()
-    fn = (lib.coupled_chunk_f64 if cdt == torch.float64
-          else lib.coupled_chunk_f32)
+    f64 = cdt == torch.float64
+    if hist is None:
+        fn, extra = (lib.coupled_chunk_f64 if f64
+                     else lib.coupled_chunk_f32), ()
+    else:
+        fn, extra = (lib.coupled_chunk_steps_f64 if f64
+                     else lib.coupled_chunk_steps_f32), (hist.data_ptr(),)
     with torch.cuda.device(u_rows.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*(x.data_ptr() for x in args + out), G, Lp, C, B, E,
-                 int(iters), float(finish_frac), stream)
+                 int(iters), float(finish_frac), *extra, stream)
     if err:
         raise RuntimeError(f"coupled_chunk kernel launch failed: CUDA error "
                            f"{err}")
@@ -164,10 +214,28 @@ def coupled_chunk(u_rows, b_rows, bg, cf, pr, lens, cap_g, office,
     return out
 
 
+def device_plan(G: int, Lp: int, dtype: torch.dtype) -> dict:
+    """The launch the kernel takes on the current card: threads a block,
+    blocks, groups a warp, and the blocks an SM holds (CUDA's occupancy
+    API, E = 1, B = 1)."""
+    out = (ctypes.c_int * 4)()
+    err = _library().coupled_chunk_plan(G, Lp, int(dtype == torch.float64),
+                                        out)
+    if err:
+        raise RuntimeError(f"coupled_chunk_plan failed: CUDA error {err}")
+    return dict(zip(("threads", "blocks", "groups_per_warp",
+                     "blocks_per_sm"), out))
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.library("coupled_chunk")
+    head = [ctypes.c_void_p] * 28 + [ctypes.c_int] * 6 + [ctypes.c_double]
     for fn in (lib.coupled_chunk_f64, lib.coupled_chunk_f32):
-        fn.argtypes = [ctypes.c_void_p] * 28 + [ctypes.c_int] * 6 \
-            + [ctypes.c_double, ctypes.c_void_p]
+        fn.argtypes = head + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    for fn in (lib.coupled_chunk_steps_f64, lib.coupled_chunk_steps_f32):
+        fn.argtypes = head + [ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
+    lib.coupled_chunk_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.coupled_chunk_plan.restype = ctypes.c_int
     return lib

@@ -10,8 +10,10 @@ the counterpart of the reference's `_scan_chunk_jax_impl`
 (src/repro/core/engine_jax.py), which XLA compiles from a `lax.scan`.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
-(csrc/scan_chunk.cu, one thread per lane, the slot loop inside) and
-counts the launch in `launches`; on a CPU tensor it runs
+(csrc/scan_chunk.cu: one thread per lane, the slot loop inside, the
+series staged through shared memory in tiles of 64 bytes a lane, 8 fp64
+or 16 fp32 slots; `launch_plan` lanes a block) and counts the launch in
+`launches`; on a CPU tensor it runs
 `scan_chunk_plain`, the same function as a Python slot loop of tensor
 ops.  Any other device raises.
 
@@ -30,6 +32,15 @@ from repro_torch.kernels import _build
 
 #: kernel launches on CUDA tensors since import (or the last reset)
 launches = 0
+
+
+def launch_plan(A: int, sms: int) -> tuple:
+    """(threads a block, blocks) of the kernel's launch for A lanes on a
+    card of `sms` SMs, the rule of csrc/scan_chunk.cu::plan_threads: a
+    block's lanes are one contiguous region of every lane-major array,
+    128 of them, or 64 or 32 where 128 would leave SMs without a block."""
+    threads = next((t for t in (128, 64) if -(-A // t) >= sms), 32)
+    return threads, -(-A // threads)
 
 
 def _bucket_lookup(u_tab, b_tab, sidx, row, prog, B: int):
@@ -141,10 +152,23 @@ def scan_chunk(u_tab, b_tab, rowidx, bg, cf, pr, lens,
     return out
 
 
+def device_plan(A: int, E: int, dtype: torch.dtype) -> dict:
+    """The launch the kernel takes on the current card for A lanes and E
+    carbon members: threads a block, blocks, dynamic shared memory bytes,
+    and the blocks an SM holds (CUDA's occupancy API)."""
+    out = (ctypes.c_int * 4)()
+    err = _library().scan_chunk_plan(A, E, int(dtype == torch.float64), out)
+    if err:
+        raise RuntimeError(f"scan_chunk_plan failed: CUDA error {err}")
+    return dict(zip(("threads", "blocks", "smem", "blocks_per_sm"), out))
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.library("scan_chunk")
     for fn in (lib.scan_chunk_f64, lib.scan_chunk_f32):
         fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.scan_chunk_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.scan_chunk_plan.restype = ctypes.c_int
     return lib

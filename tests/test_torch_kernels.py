@@ -148,6 +148,8 @@ def test_coupled_chunk_wrapper_dispatch_and_checks():
     with pytest.raises(RuntimeError, match="CUDA or CPU"):
         k1.coupled_chunk(*(x.to("meta") for x in args), iters=4,
                          finish_frac=FINISH)
+    with pytest.raises(RuntimeError, match="CUDA kernel"):
+        k1.step_histogram(*args, iters=4, finish_frac=FINISH)
     k1._check(args, torch.float64, 3, 8, 24, 4, 2)      # accepted
     with pytest.raises(ValueError, match="power-of-two"):
         k1._check(k1_tensors(*dense_inputs(4, Lp=6)), torch.float64, 3, 6,
@@ -189,6 +191,237 @@ def test_coupled_chunk_kernel_matches_plain_on_card(B, Lp, dtype, rtol):
     close(got[0].cpu(), ref[0].cpu(), rtol, scale=scalars[0])
     for g, r in zip(got[1:], ref[1:]):
         close(g.cpu(), r.cpu(), rtol)
+
+
+def edge_chunk_inputs(A, C, B, E, seed=0, R_=24):
+    """K2 inputs at any (A, C, B, E): each lane finishes in slot 0, a few
+    slots in (inside a tile of the kernel or across its edge), never, or
+    is done already; a partial first slot."""
+    rng = np.random.default_rng(seed)
+    wl, m = P.calibrate_workload(P.OEM_CASE_1, P.MachineProfile())
+    n_scen = np.full(A, float(wl.n_scenarios))
+    ins = (rng.uniform(0.2, 1.0, (A, R_, B)),
+           rng.choice([25.0, 50.0, 100.0], (A, R_, B)),
+           rng.integers(0, R_, (A, C)).astype(np.int32),
+           rng.uniform(0.0, 0.5, (A, C)), rng.uniform(0.3, 0.6, (A, E, C)),
+           rng.uniform(0.0, 0.2, (A, C)), np.full((A, C), 3600.0))
+    ins[6][:, 0] = 1800.0
+    kind = rng.integers(0, 4, A)
+    rem = np.choose(kind, [np.full(A, 1.0),                # slot 0
+                           rng.uniform(1e4, 4e4, A),       # a few slots in
+                           n_scen,                         # never
+                           np.zeros(A)])                   # done already
+    state = (rem, rng.uniform(0, 1e5, A), rng.uniform(0, 10, A),
+             rng.uniform(0, 5, (A, E)), rng.uniform(0, 1, A))
+    scalars = (n_scen, np.full(A, wl.rate_at_full),
+               np.full(A, wl.batch_overhead_s), np.full(A, m.idle_w),
+               rng.uniform(0.8, 1.2, A) * m.dyn_w,
+               rng.uniform(1.2, 2.0, A), np.full(A, m.gamma),
+               np.full(A, m.overhead_w_frac))
+    return ins, state, scalars
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, RTOL),
+                                        (torch.float32, 1e-6)])
+@pytest.mark.parametrize("B,E", [(1, 1), (4, 3), (1, 5)])
+@pytest.mark.parametrize("C", [1, 7, 96])
+@pytest.mark.parametrize("A", [1, 127, 129, 1000])
+def test_scan_chunk_kernel_edges_on_card(A, C, B, E, dtype, rtol):
+    """The staged kernel at lane counts around its 128-lane blocks, chunk
+    lengths off its 4-slot tiles (C = 1, 7: element copies; 96: 16-byte
+    copies), E in registers (1, 3) and the general path (5), B = 4's
+    progress lookup, and lanes that finish in slot 0, mid-tile or never."""
+    dev = _card()
+    ins, state, scalars = edge_chunk_inputs(A, C, B, E, seed=A + C)
+    args = k2_tensors(ins, state, scalars, dtype, dev)
+    before = k2.launches
+    got = k2.scan_chunk(*args, B=B)
+    ref = k2.scan_chunk_plain(*args, B=B)
+    torch.cuda.synchronize()
+    assert k2.launches == before + 1
+    close(got[0].cpu(), ref[0].cpu(), rtol, scale=scalars[0])
+    for g, r in zip(got[1:], ref[1:]):
+        close(g.cpu(), r.cpu(), rtol)
+    if C == 96:                 # slot-0 and a-few-slots lanes are done
+        few = state[0] < 5e4
+        assert (got[0].cpu().numpy()[few] <= 1e-6 * scalars[0][few]).all()
+
+
+def edge_dense_inputs(B, Lp, C=24, E=1, seed=0):
+    """K1 inputs with four groups: one under a cap below its base draw
+    (f falls to the floor in one step and stays: the exact stop after one
+    step), one under an infinite cap (the stop before any step), one
+    under a cap that binds part of the time (several steps), and one all
+    padding.  Lanes finish in about three slots from fresh, so with B > 1
+    the progress bucket moves by one or two a slot."""
+    rng = np.random.default_rng(seed)
+    wl, m = P.calibrate_workload(P.OEM_CASE_1, P.MachineProfile())
+    counts = (Lp, max(1, Lp // 2), Lp, 0)
+    G = len(counts)
+    real = np.zeros((G, Lp), dtype=bool)
+    for g, n in enumerate(counts):
+        real[g, :n] = True
+
+    def lanes(values, fill):
+        return np.where(real, values, fill)
+
+    n = lanes(np.full((G, Lp), 3.0e4), 1.0)
+    frac = rng.choice([1.0, 0.6, 0.3, 0.0], (G, Lp))
+    ins = (rng.uniform(0.3, 1.0, (G, Lp, C, B)),
+           rng.choice([25.0, 50.0, 100.0], (G, Lp, C, B)),
+           rng.uniform(0.0, 0.5, (G, Lp, C)),
+           rng.uniform(0.3, 0.6, (G, Lp, E, C)),
+           rng.uniform(0.0, 0.2, (G, Lp, C)), np.full((G, Lp, C), 3600.0),
+           np.array([0.01, np.inf, 0.15 * counts[2], np.inf]),
+           rng.uniform(0.05, 0.12, (G, C)))
+    state = (lanes(n * frac, 0.0), rng.uniform(0, 1e5, (G, Lp)),
+             rng.uniform(0, 10, (G, Lp)), rng.uniform(0, 5, (G, Lp, E)),
+             rng.uniform(0, 1, (G, Lp)), rng.uniform(0, 0.4, (G, Lp)))
+    scalars = (n, lanes(np.full((G, Lp), wl.rate_at_full), 0.0),
+               lanes(np.full((G, Lp), wl.batch_overhead_s), 0.0),
+               lanes(np.full((G, Lp), m.idle_w), 0.0),
+               lanes(rng.uniform(0.8, 1.2, (G, Lp)) * m.dyn_w, 0.0),
+               lanes(rng.uniform(1.2, 2.0, (G, Lp)), 1.0),
+               lanes(np.full((G, Lp), m.gamma), 0.0),
+               lanes(np.full((G, Lp), m.overhead_w_frac), 0.0))
+    return ins, state, scalars
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, RTOL),
+                                        (torch.float32, 1e-6)])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("Lp", [1, 8, 16, 32, 64])
+def test_coupled_chunk_kernel_edges_on_card(Lp, B, dtype, rtol):
+    """The redesigned K1 against its plain version where the exact stop of
+    the throttle's fixed point is taken after no step, after one, and not
+    at all, at one lane a group up to a block a group (the power terms
+    shared out over a lane's replicas at Lp 1 and 8, not at 16 and 32),
+    and (B = 4) where the progress bucket moves past the prefetched
+    rows."""
+    dev = _card()
+    ins, state, scalars = edge_dense_inputs(B, Lp, seed=Lp + B)
+    args = k1_tensors(ins, state, scalars, dtype, dev)
+    before = k1.launches
+    got = k1.coupled_chunk(*args, iters=model.SITE_THROTTLE_ITERS,
+                           finish_frac=FINISH)
+    ref = k1.coupled_chunk_plain(*args, iters=model.SITE_THROTTLE_ITERS,
+                                 finish_frac=FINISH)
+    torch.cuda.synchronize()
+    assert k1.launches == before + 1
+    close(got[0].cpu(), ref[0].cpu(), rtol, scale=scalars[0])
+    for g, r in zip(got[1:], ref[1:]):
+        close(g.cpu(), r.cpu(), rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("Lp", [1, 8, 64])
+def test_coupled_chunk_exact_stop_on_card(Lp, dtype):
+    """Under an infinite cap every (group, slot) pair stops before any
+    throttle step; under a cap below the base draw f falls to the floor
+    in one step and the next step returns it bit for bit."""
+    dev = _card()
+    ins, state, scalars = edge_dense_inputs(1, Lp, seed=Lp)
+    pick = [0, 1, 3]                    # the floor, the uncapped, padding
+    ins = tuple(a[pick] for a in ins)
+    scalars = tuple(a[pick] for a in scalars)
+    state = (np.where(scalars[0] > 1.0, 1e12, 0.0),) + tuple(
+        a[pick] for a in state[1:])        # real lanes run every slot
+    args = k1_tensors(ins, state, scalars, dtype, dev)
+    C = ins[0].shape[2]
+    before = k1.launches
+    hist = k1.step_histogram(*args, iters=model.SITE_THROTTLE_ITERS,
+                             finish_frac=FINISH)
+    assert k1.launches == before + 1
+    assert hist == [C, C] + [0] * (model.SITE_THROTTLE_ITERS - 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("Lp,B", [(8, 1), (1, 1), (8, 4)])
+def test_coupled_chunk_packed_warps_on_card(Lp, B, dtype):
+    """Past 8 warps an SM the kernel packs two or more groups into a warp:
+    1,200 groups (300 copies of the edge groups) against the plain
+    version."""
+    dev = _card()
+    ins, state, scalars = edge_dense_inputs(B, Lp, seed=Lp)
+    reps = 300
+    ins, state, scalars = ([np.concatenate([a] * reps) for a in x]
+                           for x in (ins, state, scalars))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert k1.launch_plan(len(ins[6]), Lp, sms)[2] > 1
+    args = k1_tensors(ins, state, scalars, dtype, dev)
+    got = k1.coupled_chunk(*args, iters=model.SITE_THROTTLE_ITERS,
+                           finish_frac=FINISH)
+    ref = k1.coupled_chunk_plain(*args, iters=model.SITE_THROTTLE_ITERS,
+                                 finish_frac=FINISH)
+    torch.cuda.synchronize()
+    rtol = RTOL if dtype == torch.float64 else 1e-6
+    close(got[0].cpu(), ref[0].cpu(), rtol, scale=scalars[0])
+    for g, r in zip(got[1:], ref[1:]):
+        close(g.cpu(), r.cpu(), rtol)
+
+
+@pytest.mark.cuda
+def test_chunk_launch_plans_match_the_kernels_on_card():
+    """The Python launch plans are the rules the C launchers apply."""
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dtype in (torch.float64, torch.float32):
+        for A in (1, 129, 1000, 100_000):
+            got = k2.device_plan(A, 1, dtype)
+            assert (got["threads"], got["blocks"]) == k2.launch_plan(A, sms)
+            assert got["blocks_per_sm"] >= 1
+        for G, Lp in ((512, 8), (3, 8), (2000, 8), (7, 64), (1200, 1)):
+            got = k1.device_plan(G, Lp, dtype)
+            assert (got["threads"], got["blocks"],
+                    got["groups_per_warp"]) == k1.launch_plan(G, Lp, sms)
+            assert got["blocks_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("A,sms", [(100_000, 132), (1, 132), (127, 132),
+                                   (129, 132), (1000, 132), (8447, 132),
+                                   (8448, 132), (16896, 132), (5, 1)])
+def test_scan_chunk_launch_plan_covers_the_lanes(A, sms):
+    """K2's blocks cover the A lanes once, in 128-lane blocks unless that
+    would leave SMs idle, then in 64 or 32; at chip_smoke's S = 1e5 on
+    132 SMs, 782 blocks of 128."""
+    threads, blocks = k2.launch_plan(A, sms)
+    assert threads in (32, 64, 128)
+    assert (blocks - 1) * threads < A <= blocks * threads
+    if threads < 128:
+        assert -(-A // (2 * threads)) < sms
+    if threads > 32:
+        assert blocks >= sms
+    if A == 100_000:
+        assert (threads, blocks) == (128, 782)
+
+
+@pytest.mark.parametrize("G,Lp,sms", [(512, 8, 132), (3, 8, 132),
+                                      (4096, 8, 132), (2, 64, 132),
+                                      (7, 1024, 132), (1000, 32, 132),
+                                      (1, 1, 1), (2000, 8, 132),
+                                      (100000, 1, 132), (1057, 4, 132)])
+def test_coupled_chunk_launch_plan_keeps_groups_whole(G, Lp, sms):
+    """K1's warps hold whole groups (a block a group above 32 lanes) and
+    cover every group once; a warp serves one group while the card has
+    8 warps an SM or fewer to fill, more (a power of two) only past that;
+    the benchmark's 512 groups of 8 run as 512 one-warp blocks."""
+    threads, blocks, gpw = k1.launch_plan(G, Lp, sms)
+    if Lp > 32:
+        assert (threads, blocks, gpw) == (Lp, G, 1)
+        return
+    assert threads in (32, 128) and gpw * Lp <= 32
+    assert gpw & (gpw - 1) == 0
+    warps = -(-G // gpw)
+    assert (blocks - 1) * threads < warps * 32 <= blocks * threads
+    assert G <= 8 * sms * gpw or gpw * Lp == 32
+    assert gpw == 1 or G > 8 * sms * gpw // 2
+    assert (threads == 128) == (warps >= 4 * sms)
+    if (G, Lp, sms) == (512, 8, 132):
+        assert (threads, blocks, gpw) == (32, 512, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -587,10 +820,14 @@ def test_blocked_xent_kernel_matches_plain_on_card(t, d, v, block_v, dv,
 
 def test_ablation_variants_apply_to_the_sources():
     """Every part-removed variant of `kernels.ablate` still matches the
-    current K5 and K10 sources (the tool is run on the card; here only
-    its substitutions are checked)."""
+    current K1, K2, K5, K6, K9 and K10 sources, with their headers inlined
+    (the tool is run on the card; here only its substitutions are
+    checked)."""
     from repro_torch.kernels import ablate
     srcs = ablate.variant_sources()
+    assert set(ablate.VARIANTS) == {"scan_chunk", "coupled_chunk",
+                                    "flash_attention", "decode_attention",
+                                    "moe_gemm", "xent"}
     for name, variants in ablate.VARIANTS.items():
         base = srcs[(name, "unchanged")]
         assert len(variants) >= 3
