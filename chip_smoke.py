@@ -43,7 +43,9 @@ the answers against the repo's own oracles:
      selective scan flattened to C = 8192 x 16 over T = 916 (fp32) and
      RecurrentGemma-9B's RG-LRU (C 4,096, T 2,048, fp32 and bf16 inputs);
      one launch per call; hs and h_final within 1e-5 of max |h| of the
-     plain version; times against the bound;
+     plain version; times against the bound; `scan_plan`'s chunks and
+     blocks at each shape (one thread a chain at Falcon-Mamba's width,
+     the chunk-parallel scan at the RG-LRU's) and `ptxas -v` registers;
   5. serving end to end: TinyLlama-1.1B at its published widths (22
      layers, d 2048, 32/4 heads, d_ff 5632, vocab 32000, bf16 weights
      drawn on the card from seed 0) behind `ServingEngine` with 4 slots,
@@ -63,8 +65,11 @@ the answers against the repo's own oracles:
   6. K5 and K8 against their plain versions at the main path's shapes,
      first and deepest layer, and the stated ones (K5 also at the loss's
      (4, 32, 2048, 64) causal shape; bf16 o within 2^-7 |o| + 1e-3 max
-     |o|, one rounding step), with times, bounds and the PyTorch
-     yardstick; then TinyLlama's tensors are freed;
+     |o|, one rounding step; K8 also at the loss's (8192, 2048) rows and
+     DeepSeek-V2-Lite's kv_norm rows (d 512), each with the layout its
+     launch plan picks and its time beside the launch floor), with
+     times, bounds and the PyTorch yardstick; then TinyLlama's tensors
+     are freed;
   7. the training loss of TinyLlama-1.1B at full width and depth
      (weights from seed 0 on the card, `blocked_xent=True`) through
      `Model.loss` on three `SyntheticLM` batches of 4 x 2048 tokens
@@ -807,7 +812,8 @@ def trace(torch, fn):
     return wall, sorted(rows, key=lambda e: -e.self_device_time_total)
 
 
-KERNEL_GROUPS = (("K5", ("flash_fwd",)), ("K8", ("rmsnorm_kernel",)),
+KERNEL_GROUPS = (("K5", ("flash_fwd",)),
+                 ("K8", ("rmsnorm_rows", "rmsnorm_general")),
                  ("K9", ("grouped_gemm_kernel", "gg_prefill", "gg_tick")),
                  ("K10", ("xent_kernel",)),
                  ("cuBLAS", ("nvjet", "gemv", "gemm", "splitK", "cutlass")),
@@ -1132,11 +1138,13 @@ def phase_flash_attention(torch, k5, dev, calls5, n5):
     return row
 
 
-def phase_rmsnorm(torch, k8, dev, calls8, n8):
+def phase_rmsnorm(torch, k8, build, dev, calls8, n8, floor):
     """K8 vs plain at the main path's largest prefill and decode rows,
     each at its first norm (layer 0) and its last (the final norm, over
-    the deepest residual rows), and at (1024, d); times against the bound
-    and F.rms_norm."""
+    the deepest residual rows), at (1024, d), at the loss's (8192, d)
+    rows and at DeepSeek-V2-Lite's MLA kv_norm rows (d 512) of a prefill
+    and a tick; each with the layout `launch_plan` picks, its time beside
+    the card's launch floor, the bound and F.rms_norm."""
     import torch.nn.functional as F
     cases = []
     for kind, rows in (("prefill", max(calls8)), ("decode", min(calls8))):
@@ -1144,8 +1152,16 @@ def phase_rmsnorm(torch, k8, dev, calls8, n8):
             cases.append((f"main path {kind} {where}", *args[:2]))
     gen = torch.Generator(device=dev).manual_seed(2)
     s = cases[0][2]
-    x = torch.randn((1024, s.shape[0]), generator=gen, device=dev).bfloat16()
-    cases.append(("stated", x, s))
+
+    def rand(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std
+                ).bfloat16()
+    s512 = rand(512, std=0.1)
+    cases += [("stated", rand(1024, s.shape[0]), s),
+              ("loss rows", rand(8192, s.shape[0]), s),
+              ("DeepSeek kv_norm prefill", rand(916, 512), s512),
+              ("DeepSeek kv_norm tick", rand(4, 512), s512)]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     parts, row, main_err = [], None, 0.0
     for name, x, s in cases:
         y = k8.rmsnorm(x, s, 1e-6)
@@ -1165,10 +1181,14 @@ def phase_rmsnorm(torch, k8, dev, calls8, n8):
         t = x.element_size()
         b_ms, b_by = bound_ms(2 * x.numel() * t + s.numel() * s.element_size(),
                               4.0 * x.numel(), 0, "float32")
-        parts.append(f"{name} {tuple(x.shape)} (max |x| "
+        tpr, rpb = k8.launch_plan(x.shape[0], x.shape[1], sms, t, True)
+        layout = (f"a block of {tpr} threads a row" if tpr > 32 else
+                  f"a warp a row, {rpb} rows a block")
+        parts.append(f"{name} {tuple(x.shape)} ({layout}; max |x| "
                      f"{float(x.abs().max()):.4g}): err {err:.3e}, {ms:.4f} ms "
-                     f"(plain {plain:.4f}, F.rms_norm {lib:.4f}, bound "
-                     f"{b_ms:.5f} {b_by})")
+                     f"= {ms / floor:.2f}x the launch floor {floor:.4f} (plain "
+                     f"{plain:.4f}, F.rms_norm {lib:.4f}, bound {b_ms:.5f} "
+                     f"{b_by})")
         if row is None:
             row = {"name": "rmsnorm", "route": "cuda",
                    "source": "src/repro_torch/csrc/rmsnorm.cu",
@@ -1179,6 +1199,9 @@ def phase_rmsnorm(torch, k8, dev, calls8, n8):
     row["max_abs_err"] = main_err
     print("K8 rmsnorm vs plain (bf16 2e-2; ms per call by CUDA events): "
           + "; ".join(parts), flush=True)
+    print("K8 ptxas: " + ptxas_report(build, "rmsnorm", ("rmsnorm_rows",
+                                                         "rmsnorm_general")),
+          flush=True)
     return row
 
 
@@ -2122,13 +2145,15 @@ def scan_inputs(torch, gen, dev, kind):
     return a, b
 
 
-def phase_ssm_scan(torch, k7, ops, dev):
+def phase_ssm_scan(torch, k7, ops, build, dev):
     """K7 at full width through `ops.ssm_scan`: Falcon-Mamba-7B's flattened
     selective scan (C 131,072, T 916, fp32) and RecurrentGemma-9B's RG-LRU
     (C 4,096, T 2,048, fp32 and bf16 inputs); launch count, hs and h_final
     within 1e-5 of max |h| of the plain version (both compute in fp32),
-    times against the bound."""
+    times against the bound; `scan_plan`'s chunks and blocks at each
+    shape, and the kernels' `ptxas -v` registers."""
     gen = torch.Generator(device=dev).manual_seed(7)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     mamba = scan_inputs(torch, gen, dev, "mamba")
     lru = scan_inputs(torch, gen, dev, "lru")
     cases = [("Falcon-Mamba-7B fp32", *mamba), ("RG-LRU fp32", *lru),
@@ -2155,9 +2180,15 @@ def phase_ssm_scan(torch, k7, ops, dev):
         b_ms, b_by = bound_ms(2 * a.numel() * t + 4 * (hs.numel()
                                                         + hf.numel()),
                               2.0 * a.numel(), 0, "float32")
-        parts.append(f"{name} {tuple(a.shape)}: err {err:.3e} (max |h| "
-                     f"{scale:.4g}), {ms:.4f} ms (plain {plain:.3f}, bound "
-                     f"{b_ms:.4f} {b_by})")
+        bsz, steps, c = a.shape
+        chunks, per = k7.scan_plan(bsz, steps, c, sms)
+        blocks = -(-c // k7.THREADS) * bsz
+        plan = (f"1 chunk, {blocks} blocks of {k7.THREADS}" if chunks == 1
+                else f"{chunks} chunks of {per} steps, {blocks * (chunks - 1)}"
+                f" + {blocks * chunks} blocks of {k7.THREADS} (phases 1, 3)")
+        parts.append(f"{name} {tuple(a.shape)} ({plan}): err {err:.3e} (max "
+                     f"|h| {scale:.4g}), {ms:.4f} ms (plain {plain:.3f}, "
+                     f"bound {b_ms:.4f} {b_by})")
         if row is None:
             row = {"name": "ssm_scan", "route": "cuda",
                    "source": "src/repro_torch/csrc/ssm_scan.cu",
@@ -2169,6 +2200,8 @@ def phase_ssm_scan(torch, k7, ops, dev):
     print("K7 ssm_scan through ops vs plain (1e-5 of max |h|; ms per call "
           "by CUDA events; library: none, no single PyTorch call): "
           + "; ".join(parts), flush=True)
+    print("K7 ptxas: " + ptxas_report(build, "ssm_scan", (
+        "scan_chains", "chunk_aggregates", "chunk_rescan")), flush=True)
     return row
 
 
@@ -2227,14 +2260,14 @@ def main() -> int:
                phase_coupled_chunk(torch, carina, et, k2, k1, _build, dev)]
     phase_end_to_end(torch, carina, et, dev)
     kernels += [phase_decode_attention(torch, k6, ops, _build, dev),
-                phase_ssm_scan(torch, k7, ops, dev)]
+                phase_ssm_scan(torch, k7, ops, _build, dev)]
     gc.collect()                    # K6's caches and K7's scans
     torch.cuda.empty_cache()
     served = phase_serving(torch, k5, k8, dev)
     kernels += [phase_flash_attention(torch, k5, dev, served["calls5"],
                                       served["n5"]),
-                phase_rmsnorm(torch, k8, dev, served["calls8"],
-                              served["n8"])]
+                phase_rmsnorm(torch, k8, _build, dev, served["calls8"],
+                              served["n8"], floor)]
     del served                      # the serving phase's tensors
     gc.collect()
     torch.cuda.empty_cache()

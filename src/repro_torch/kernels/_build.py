@@ -11,6 +11,7 @@ for them together.  Nothing here runs when the package is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -78,6 +79,14 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return took
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (the launch plans'
+    `sms`)."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def library(name: str) -> ctypes.CDLL:

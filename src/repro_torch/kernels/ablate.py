@@ -1,26 +1,28 @@
 """Where the kernels' time goes: K5 (csrc/flash_attention.cu), K10
 (csrc/xent.cu) and K9 (csrc/moe_gemm.cu) in bf16, K6
-(csrc/decode_attention.cu), and the chunk kernels K2
-(csrc/scan_chunk.cu) and K1 (csrc/coupled_chunk.cu) in fp64 and fp32,
-built beside variants with one part removed, each timed at the main
-path's shapes on one card.
+(csrc/decode_attention.cu), the chunk kernels K2 (csrc/scan_chunk.cu)
+and K1 (csrc/coupled_chunk.cu) in fp64 and fp32, K7 (csrc/ssm_scan.cu)
+and K8 (csrc/rmsnorm.cu), built beside variants with one part removed,
+each timed at the main path's shapes on one card.
 
     PYTHONPATH=src python -m repro_torch.kernels.ablate [--baseline DIR]
         [source ...]
 
 (sources: flash_attention, xent, moe_gemm, decode_attention,
-scan_chunk, coupled_chunk; all by default).  With --baseline, the same
-sources of another checkout rooted at DIR (a `git archive` of an earlier
-commit, say) are built and timed beside them as the variant "baseline",
-so two versions are compared within one call; K9 is then also timed in
-fp32, both versions, and K2's and K1's variants are applied to the
-baseline too (`BASELINE_VARIANTS`, "baseline: <variant>").
+scan_chunk, coupled_chunk, ssm_scan, rmsnorm; all by default).  With
+--baseline, the same sources of another checkout rooted at DIR (a `git
+archive` of an earlier commit, say) are built and timed beside them as
+the variant "baseline", so two versions are compared within one call;
+K9 is then also timed in fp32, both versions, and K2's and K1's
+variants are applied to the baseline too (`BASELINE_VARIANTS`,
+"baseline: <variant>").
 
 A variant computes a wrong result by design: it is timed, never checked.
 The gap between a variant and the unchanged kernel is what that part costs
 where it does not overlap the rest.  Variants named "alt: ..." are design
 alternatives the kernel was chosen against; they compute the right
-result.  Every variant is a text substitution
+result (K7's are checked against its plain version, and the error is
+printed).  Every variant is a text substitution
 of the current source, with its local headers (`*.cuh`) inlined;
 `variant_sources` raises if one no longer applies
 (tests/test_torch_kernels.py checks that on the CPU), so the table stays
@@ -217,6 +219,55 @@ VARIANTS: Dict[str, Dict[str, List[Edit]]] = {
         "alt: 32 / Lp groups a warp": [
             ("while (gpw < 32 / Lp && (long long)G > 8LL * sms * gpw) gpw *= 2;",
              "gpw = 32 / Lp;")],
+    },
+    "ssm_scan": {
+        "no phase 1": [
+            ("    chunk_aggregates<T><<<aggs, kThreads, 0, st>>>(a, b, agg, "
+             "steps,\n"
+             "                                                   channels, "
+             "chunks, len);\n", "")],
+        "no phase 2": [
+            ("  for (int j = 0; j < k; ++j) h = carry(ag[(size_t)j * "
+             "channels], h);\n", "")],
+        "no hs stores": [
+            ("    h = fmaf(to_f(a[off]), h, to_f(b[off]));\n"
+             "    hs[off] = h;\n",
+             "    h = fmaf(to_f(a[off]), h, to_f(b[off]));\n")],
+        # the design alternative, measured beside the kernel
+        "alt: one pass": [("constexpr bool kOnePass = false;",
+                           "constexpr bool kOnePass = true;")],
+    },
+    "rmsnorm": {
+        "no scale loads": [
+            ("  for (int k = 0; k < K; ++k) sv[k] = __ldg(sr + tid + k * "
+             "TPR);",
+             "  for (int k = 0; k < K; ++k) sv[k] = make_uint4(0, 0, 0, 0);")],
+        "no stores": [
+            ("  for (int k = 0; k < K; ++k) yr[tid + k * TPR] = "
+             "scaled<T>(xv[k], sv[k], r);",
+             "  for (int k = 0; k < K; ++k)\n    if (r < 0.f) yr[tid + k * "
+             "TPR] = scaled<T>(xv[k], sv[k], r);")],
+        # design alternatives, measured beside the kernel
+        "alt: 8 rows a block": [
+            ("rmsnorm_rows<T, D, 32><<<grid, 32 * rpb, 0, st>>>",
+             "rmsnorm_rows<T, D, 32><<<(rows + 7) / 8, 256, 0, st>>>")],
+        "alt: scale loads after the sum": [
+            ("#pragma unroll\n"
+             "  for (int k = 0; k < K; ++k) sv[k] = __ldg(sr + tid + k * "
+             "TPR);\n", ""),
+            ("  const float r = rsqrtf(ss / (float)D + eps);\n",
+             "  const float r = rsqrtf(ss / (float)D + eps);\n"
+             "#pragma unroll\n"
+             "  for (int k = 0; k < K; ++k) sv[k] = __ldg(sr + tid + k * "
+             "TPR);\n")],
+        "alt: streaming stores": [
+            ("  for (int k = 0; k < K; ++k) yr[tid + k * TPR] = "
+             "scaled<T>(xv[k], sv[k], r);",
+             "  for (int k = 0; k < K; ++k)\n"
+             "    __stcs(yr + tid + k * TPR, scaled<T>(xv[k], sv[k], r));")],
+        "alt: a warp a row at few rows": [
+            ("rmsnorm_rows<T, D, BT><<<grid, BT, 0, st>>>",
+             "rmsnorm_rows<T, D, 32><<<(rows + 1) / 2, 64, 0, st>>>")],
     },
 }
 
@@ -646,6 +697,116 @@ def _time_k1(torch, libs, gen, dev, stream):
     return rows
 
 
+def _time_k7(torch, libs, dev, stream):
+    """K7 at the RG-LRU's (1, 2048, 4096) in fp32 and with bf16 inputs and
+    at Falcon-Mamba-7B's flattened (1, 916, 131072) in fp32, the chunks
+    from `scan_plan`; the baseline with its own signature (no workspace,
+    one thread a chain).  Each variant's first call is held against the
+    plain version (a removed part gives a wrong result by design)."""
+    from repro_torch.kernels import ssm_scan as k7
+    rows = []
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for b, t, c, dtype in ((1, 2048, 4096, torch.float32),
+                           (1, 2048, 4096, torch.bfloat16),
+                           (1, 916, 131072, torch.float32)):
+        a = (0.5 + 0.5 * torch.rand((b, t, c), generator=gen, device=dev)
+             ).to(dtype)
+        x = (0.1 * torch.randn((b, t, c), generator=gen, device=dev)
+             ).to(dtype)
+        hs = torch.empty((b, t, c), device=dev)
+        hf = torch.empty((b, c), device=dev)
+        phs, _ = k7.ssm_scan_plain(a, x)
+        scale = float(phs.abs().max())
+        chunks, steps = k7.scan_plan(b, t, c, sms)
+        name = k7._FNS[dtype]
+        for (src, label), lib in libs.items():
+            if src != "ssm_scan":
+                continue
+            fn = getattr(lib, name)
+            if label == "baseline":
+                fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
+                    [ctypes.c_void_p]
+
+                def call(fn=fn):
+                    return fn(a.data_ptr(), x.data_ptr(), hs.data_ptr(),
+                              hf.data_ptr(), b, t, c, stream)
+            else:
+                fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + \
+                    [ctypes.c_void_p]
+                lib.ssm_scan_workspace.argtypes = [ctypes.c_int] * 3
+                lib.ssm_scan_workspace.restype = ctypes.c_size_t
+                work = torch.empty(lib.ssm_scan_workspace(b, c, chunks),
+                                   dtype=torch.uint8, device=dev)
+
+                def call(fn=fn, work=work):
+                    return fn(a.data_ptr(), x.data_ptr(), hs.data_ptr(),
+                              hf.data_ptr(), work.data_ptr(), b, t, c,
+                              chunks, steps, stream)
+            if call():
+                raise RuntimeError(f"K7 {label}: launch failed")
+            torch.cuda.synchronize()
+            err = float((hs - phs).abs().max()) / scale
+            rows.append(("K7", f"({b},{t},{c}) {str(dtype)[6:]}, {chunks} "
+                         f"chunks of {steps}", label,
+                         _event_ms(torch, call, 20)))
+            print(f"K7 ({b},{t},{c}) {str(dtype)[6:]} {label}: hs vs plain "
+                  f"{err:.3e} of max |h|", flush=True)
+        del a, x, hs, phs
+    return rows
+
+
+def _time_k8(torch, libs, rnd, dev, stream):
+    """K8 in bf16 at a decode tick's 4 rows, a 916-token prefill's rows,
+    the loss's 8,192 rows (d 2048) and MLA's kv_norm rows (d 512) at a
+    tick and a prefill, each in the layout `launch_plan` picks; the
+    baseline with its own signature (a warp a row, 8 rows a block)."""
+    from repro_torch.kernels import rmsnorm as k8
+    rows = []
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for t, d in ((4, 2048), (916, 2048), (8192, 2048), (4, 512), (916, 512)):
+        x, s = rnd(t, d), rnd(d, std=0.1)
+        y = torch.empty_like(x)
+        tpr, rpb = k8.launch_plan(t, d, sms, 2, True)
+        for (src, label), lib in libs.items():
+            if src != "rmsnorm":
+                continue
+            fn = lib.rmsnorm_bf16_bf16
+            if label == "baseline":
+                fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + \
+                    [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+                def call(fn=fn):
+                    return fn(x.data_ptr(), s.data_ptr(), y.data_ptr(), t, d,
+                              1e-6, 1, stream)
+            else:
+                fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + \
+                    [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+                def call(fn=fn):
+                    return fn(x.data_ptr(), s.data_ptr(), y.data_ptr(), t, d,
+                              1e-6, tpr, rpb, 1, stream)
+            if call():
+                raise RuntimeError(f"K8 {label}: launch failed")
+            rows.append(("K8", f"({t},{d}) bf16, {tpr} threads a row, {rpb} "
+                         f"rows a block", label, _event_ms(torch, call, 50)))
+    return rows
+
+
+def _registers_line(logs, src):
+    """`ptxas -v` registers of every kernel of each built variant."""
+    lines = []
+    for (name, label), log in logs.items():
+        if name == src:
+            parts = []
+            for k, n in registers(log).items():
+                m = re.search(r"_cu_[0-9a-f]{8}\d+([A-Za-z_]+)I(.*?)EEv", k)
+                parts.append(f"{m.group(1)}<{m.group(2)}> {n}" if m else
+                             f"{k} {n}")
+            lines.append(f"{src} {label}: " + ", ".join(parts))
+    return lines
+
+
 #: the `<source>_plan` arguments before (f64, out) at the timed shapes
 PLAN_ARGS = {"scan_chunk": (100_000, 1), "coupled_chunk": (512, 8)}
 
@@ -720,9 +881,15 @@ def main(argv=None) -> int:
                                                    stream),
               "scan_chunk": lambda: _time_k2(torch, libs, gen, dev, stream),
               "coupled_chunk": lambda: _time_k1(torch, libs, gen, dev,
-                                                stream)}
+                                                stream),
+              "ssm_scan": lambda: _time_k7(torch, libs, dev, stream),
+              "rmsnorm": lambda: _time_k8(torch, libs, rnd, dev, stream)}
     for line in _occupancy(libs, logs, names):
         print(line, flush=True)
+    for src in ("ssm_scan", "rmsnorm"):
+        if src in names:
+            for line in _registers_line(logs, src):
+                print(line, flush=True)
     rows = [row for name in names for row in timers[name]()]
     for kernel, shape, label, ms in rows:
         print(f"{kernel} {shape} {label}: {ms:.4f} ms", flush=True)

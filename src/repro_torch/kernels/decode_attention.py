@@ -146,7 +146,7 @@ def decode_attention(q, k, v, length: Length, *, nsplit: int = 8,
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
-    ns, per_split = split_plan(b, hkv, sk, _sm_count(q.device))
+    ns, per_split = split_plan(b, hkv, sk, _build.sm_count(q.device))
     acc = torch.empty((b, hkv, ns, g, d), dtype=torch.float32,
                       device=q.device)
     ml = torch.empty((2, b, hkv, ns, g), dtype=torch.float32,
@@ -170,11 +170,6 @@ def decode_attention(q, k, v, length: Length, *, nsplit: int = 8,
     global launches
     launches += 1
     return o
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)

@@ -7,14 +7,15 @@ as the reference's `models/layers.py::rms_norm`, so the port runs every
 norm of the model through it.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
-(csrc/rmsnorm.cu, one warp per row, 16-byte loads) and counts the launch
-in `launches`; on a CPU tensor it runs `rmsnorm_plain`.  Any other device
-raises.
+(csrc/rmsnorm.cu: one pass over each row, held in registers, in the
+layout `launch_plan` picks) and counts the launch in `launches`; on a CPU
+tensor it runs `rmsnorm_plain`.  Any other device raises.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
@@ -25,6 +26,26 @@ launches = 0
 
 _FNS = {(torch.bfloat16, torch.bfloat16): "rmsnorm_bf16_bf16",
         (torch.float32, torch.float32): "rmsnorm_f32_f32"}
+#: widths compiled as fixed cases (TinyLlama's d, MLA's kv_norm rank)
+FIXED_WIDTHS = (512, 2048)
+#: threads a block at most (csrc/rmsnorm.cu kMaxThreads)
+MAX_THREADS = 256
+#: rows a block where a warp takes a row
+WARP_ROWS_PER_BLOCK = 2
+
+
+def launch_plan(rows: int, d: int, sms: int, itemsize: int = 2,
+                aligned: bool = True) -> Tuple[int, int]:
+    """(threads a row, rows a block) of the kernel on a card of `sms` SMs.
+
+    At a fixed width with 16-byte aligned rows, up to one row an SM takes
+    a whole block a row: min(pieces, 256) threads, a 16-byte piece or more
+    each, so every row is one round trip of loads on an SM of its own.
+    Otherwise a warp takes a row, WARP_ROWS_PER_BLOCK rows a block, so
+    blocks are small and many are resident on each SM."""
+    if aligned and d in FIXED_WIDTHS and rows <= sms:
+        return min(d * itemsize // 16, MAX_THREADS), 1
+    return 32, WARP_ROWS_PER_BLOCK
 
 
 def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor,
@@ -64,13 +85,15 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     rows, d = x.shape
     if rows == 0:
         return y
-    width = 16 // x.element_size()
-    vector = int(d % width == 0 and x.data_ptr() % 16 == 0)
+    vector = (d * x.element_size() % 16 == 0 and x.data_ptr() % 16 == 0
+              and scale.data_ptr() % 16 == 0)
+    tpr, rpb = launch_plan(rows, d, _build.sm_count(x.device),
+                           x.element_size(), vector)
     fn = getattr(_library(), _FNS[(x.dtype, scale.dtype)])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), scale.data_ptr(), y.data_ptr(), rows, d,
-                 float(eps), vector, stream)
+                 float(eps), tpr, rpb, int(vector), stream)
     if err:
         raise RuntimeError(f"rmsnorm kernel launch failed: CUDA error {err}")
     global launches
@@ -84,6 +107,6 @@ def _library() -> ctypes.CDLL:
     for name in _FNS.values():
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + \
-            [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib

@@ -530,6 +530,17 @@ def test_rmsnorm_wrapper_dispatch_and_checks():
         k8.rmsnorm(x.T.contiguous().T[:, :5], s[:5])
 
 
+def shifted(t, shift):
+    """`t` copied into a buffer `shift` elements past its start: contiguous,
+    off the 16-byte alignment of the vector loads when shift is odd."""
+    if not shift:
+        return t
+    flat = torch.empty(t.numel() + shift, dtype=t.dtype, device=t.device)
+    out = flat[shift:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def assert_flash_close(o, o_ref, dtype):
     """K5's o against its plain version.  The bf16 kernel splits each
     softmax weight into two bf16 terms, so both sides compute in fp32 and
@@ -585,16 +596,9 @@ def test_flash_attention_kernel_matches_plain_on_card(causal, sq, sk, h, hkv,
 def test_flash_attention_kernel_scale_and_alignment_on_card(scale, shift, h,
                                                             hkv, dtype):
     dev = _card()
-
-    def shifted(t):
-        if not shift:
-            return t
-        flat = torch.empty(t.numel() + shift, dtype=t.dtype, device=dev)
-        out = flat[shift:].view(t.shape)
-        out.copy_(t)
-        return out
-    q, k, v = (shifted(t) for t in attn_inputs(1, h, hkv, 300, 300, 64,
-                                                dtype, dev, seed=7))
+    q, k, v = (shifted(t, shift) for t in attn_inputs(1, h, hkv, 300, 300,
+                                                       64, dtype, dev,
+                                                       seed=7))
     assert all(t.is_contiguous() for t in (q, k, v))
     assert (q.data_ptr() % 16 != 0) == bool(shift)
     o, lse = k5.flash_attention_fwd(q, k, v, causal=True, scale=scale)
@@ -609,13 +613,26 @@ def test_flash_attention_kernel_scale_and_alignment_on_card(scale, shift, h,
 @pytest.mark.parametrize("xdt,sdt", [(torch.bfloat16, torch.bfloat16),
                                      (torch.float32, torch.float32)])
 @pytest.mark.parametrize("t,d", [(1024, 2048), (4, 2048), (7, 100),
-                                 (33, 64)])
-def test_rmsnorm_kernel_matches_plain_on_card(t, d, xdt, sdt):
+                                 (33, 64),
+                                 (916, 2048), (8192, 2048),   # prefill, loss
+                                 (4, 512), (916, 512),        # MLA kv_norm
+                                 (133, 512), (1, 2048)])
+@pytest.mark.parametrize("shift", [0, 1])
+def test_rmsnorm_kernel_matches_plain_on_card(t, d, xdt, sdt, shift):
+    """Each layout `launch_plan` can pick: a block a row (few rows at the
+    fixed widths), a warp a row (many rows), the general kernel (other
+    widths; rows off 16-byte alignment)."""
     dev = _card()
     rng = np.random.default_rng(t)
     x = torch.as_tensor(rng.normal(0, 3, (t, d)), dtype=torch.float32)
     s = torch.as_tensor(rng.normal(0, 0.3, d), dtype=torch.float32)
-    x, s = x.to(xdt).to(dev), s.to(sdt).to(dev)
+    x, s = shifted(x.to(xdt).to(dev), shift), shifted(s.to(sdt).to(dev), shift)
+    aligned = (d * x.element_size() % 16 == 0 and x.data_ptr() % 16 == 0
+               and s.data_ptr() % 16 == 0)
+    assert aligned == (d * x.element_size() % 16 == 0 and not shift)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tpr, rpb = k8.launch_plan(t, d, sms, x.element_size(), aligned)
+    assert (tpr > 32) == (aligned and d in k8.FIXED_WIDTHS and t <= sms)
     before = k8.launches
     y = k8.rmsnorm(x, s, 1e-6)
     ref = k8.rmsnorm_plain(x, s, 1e-6)
@@ -623,6 +640,26 @@ def test_rmsnorm_kernel_matches_plain_on_card(t, d, xdt, sdt):
     assert k8.launches == before + 1 and y.dtype == xdt
     np.testing.assert_allclose(y.float().cpu().numpy(),
                                ref.float().cpu().numpy(), **MODEL_TOL[xdt])
+
+
+@pytest.mark.parametrize("rows,d,itemsize,aligned,plan", [
+    (4, 2048, 2, True, (256, 1)),      # a decode tick: a block a row
+    (4, 2048, 4, True, (256, 1)),      # fp32: two pieces a thread
+    (4, 512, 2, True, (64, 1)),        # MLA kv_norm at a tick
+    (132, 512, 4, True, (128, 1)),     # one row an SM
+    (133, 2048, 2, True, (32, 2)),     # more rows than SMs: a warp a row
+    (916, 2048, 2, True, (32, 2)),     # a prefill
+    (8192, 2048, 2, True, (32, 2)),    # the loss's rows
+    (4, 2048, 2, False, (32, 2)),      # rows off 16-byte alignment
+    (4, 100, 2, True, (32, 2)),        # another width
+])
+def test_rmsnorm_launch_plan_picks_the_layout_by_rows(rows, d, itemsize,
+                                                      aligned, plan):
+    assert k8.launch_plan(rows, d, 132, itemsize, aligned) == plan
+    tpr, rpb = plan
+    assert tpr * rpb <= k8.MAX_THREADS and tpr % 32 == 0
+    if tpr > 32:                        # whole 16-byte pieces a thread
+        assert (d * itemsize // 16) % tpr == 0
 
 
 # ---------------------------------------------------------------------------
@@ -820,14 +857,16 @@ def test_blocked_xent_kernel_matches_plain_on_card(t, d, v, block_v, dv,
 
 def test_ablation_variants_apply_to_the_sources():
     """Every part-removed variant of `kernels.ablate` still matches the
-    current K1, K2, K5, K6, K9 and K10 sources, with their headers inlined
+    current K1, K2, K5, K6, K7, K8, K9 and K10 sources, with their headers
+    inlined
     (the tool is run on the card; here only its substitutions are
     checked)."""
     from repro_torch.kernels import ablate
     srcs = ablate.variant_sources()
     assert set(ablate.VARIANTS) == {"scan_chunk", "coupled_chunk",
                                     "flash_attention", "decode_attention",
-                                    "moe_gemm", "xent"}
+                                    "moe_gemm", "xent", "ssm_scan",
+                                    "rmsnorm"}
     for name, variants in ablate.VARIANTS.items():
         base = srcs[(name, "unchanged")]
         assert len(variants) >= 3
@@ -1052,20 +1091,94 @@ def test_decode_attention_kernel_matches_plain_on_card(b, h, hkv, sk, d,
         assert not bool(o.any())
 
 
+def scan_edge(a, x, edge, steps):
+    """Inputs of a chunked scan's edge cases: a = 0 resets every 37 steps;
+    a up to 1.05; b = 0 over the first chunk of every other channel."""
+    a, x = a.clone(), x.clone()
+    if edge == "resets":
+        a[:, ::37] = 0
+    elif edge == "a to 1.05":
+        a = 0.9 + (a - 0.5) * 0.3
+    elif edge == "b 0 first chunk":
+        x[:, :steps, ::2] = 0
+    return a, x
+
+
+@pytest.mark.parametrize("b,t,c,sms", [(1, 916, 131072, 132),
+                                       (1, 2048, 4096, 132),
+                                       (1, 2048, 4096, 78),
+                                       (2, 256, 512, 132), (1, 100, 300, 132),
+                                       (2, 64, 64, 132), (3, 7, 129, 132),
+                                       (1, 1000, 64, 132), (4, 500, 1000, 132),
+                                       (1, 10 ** 6, 1, 132), (1, 31, 1, 132)])
+def test_scan_plan_cuts_t_into_chunks(b, t, c, sms):
+    chunks, steps = k7.scan_plan(b, t, c, sms)
+    if (b, t, c) == (1, 916, 131072):
+        assert chunks == 1               # Falcon-Mamba-7B: the chains fill it
+    if (b, t, c) == (1, 2048, 4096):
+        assert chunks > 1                # the RG-LRU: 32 blocks of chains
+    assert (chunks - 1) * steps < t <= chunks * steps      # T exactly
+    assert 1 <= chunks <= k7.MAX_CHUNKS
+    if chunks > 1:
+        assert steps >= k7.MIN_STEPS and steps % k7.STEP_GROUP == 0
+        assert b * c * chunks <= 2 * k7.CHAINS_PER_SM * sms or \
+            steps == k7.MIN_STEPS
+
+
+@pytest.mark.parametrize("edge", ["uniform", "resets", "a to 1.05",
+                                  "b 0 first chunk"])
+@pytest.mark.parametrize("steps", [1, 7, 16, 33, 64, 100, 128])
+def test_ssm_scan_chunk_decomposition_matches_the_sequential_scan(steps,
+                                                                  edge):
+    """`ssm_scan_chunked_plain` (the kernel's chunks, carried state and
+    rerun, in tensor ops) against the sequential plain scan: within 1e-6
+    of max |h|, chunk lengths that do and do not divide T = 100."""
+    a, x = scan_edge(*scan_inputs(2, 100, 33, torch.float32, seed=steps),
+                     edge, steps)
+    hs, hf = k7.ssm_scan_plain(a, x)
+    chs, chf = k7.ssm_scan_chunked_plain(a, x, steps)
+    bar = 1e-6 * float(hs.abs().max())
+    assert float((chs - hs).abs().max()) <= bar
+    assert float((chf - hf).abs().max()) <= bar
+    assert torch.equal(chf, chs[:, -1])
+    if edge == "b 0 first chunk":        # a zero state carries exactly
+        assert not bool(chs[:, :steps, ::2].any())
+    if edge == "resets" and steps <= 37:  # a reset starts the chain anew
+        assert torch.equal(chs[:, 37], x[:, 37])
+
+
+# (b, t, c, edge): every edge at the small shapes, Falcon-Mamba-7B's width
+SCAN_CARD_CASES = [
+    (b, t, c, edge)
+    for b, t, c in ((2, 256, 512), (1, 100, 300), (2, 64, 64), (3, 7, 129),
+                    (1, 2048, 4096), (1, 1000, 64), (4, 500, 1000),
+                    (2, 333, 100))
+    for edge in ("uniform", "resets", "a to 1.05", "b 0 first chunk")
+] + [(1, 916, 131072, "uniform")]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,t,c", [(2, 256, 512), (1, 100, 300),
-                                   (2, 64, 64), (3, 7, 129),
-                                   (1, 2048, 4096)])
-def test_ssm_scan_kernel_matches_plain_on_card(b, t, c, dtype):
+@pytest.mark.parametrize("b,t,c,edge", SCAN_CARD_CASES)
+def test_ssm_scan_kernel_matches_plain_on_card(b, t, c, edge, dtype):
+    """Both paths of `scan_plan`: one chunk (the chains fill the card, or
+    T is short) and the chunk-parallel scan (small B x C, T not a multiple
+    of the chunk), with resets, growing a and zero first chunks."""
     dev = _card()
-    a, x = scan_inputs(b, t, c, dtype, dev, seed=t + c)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunks, steps = k7.scan_plan(b, t, c, sms)
+    assert (chunks > 1) == (b * c * 2 < k7.CHAINS_PER_SM * sms
+                            and t >= 2 * k7.MIN_STEPS)
+    a, x = scan_edge(*scan_inputs(b, t, c, torch.float32, seed=t + c),
+                     edge, steps)
+    a, x = a.to(dtype).to(dev), x.to(dtype).to(dev)
     before = k7.launches
     hs, hf = k7.ssm_scan(a, x)
     phs, phf = k7.ssm_scan_plain(a, x)
     torch.cuda.synchronize()
     assert k7.launches == before + 1
     assert hs.dtype == hf.dtype == torch.float32
+    assert bool(torch.isfinite(hs).all())
     bar = 1e-5 * float(phs.abs().max())
     assert float((hs - phs).abs().max()) <= bar
     assert float((hf - phf).abs().max()) <= bar

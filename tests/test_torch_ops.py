@@ -143,6 +143,28 @@ def test_ssm_scan_matches_pallas_and_oracle(B, T, C, ch, bc, dtype):
         assert np.abs(_np(hf) - _np(rhf)).max() <= bar
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,C,ch,bc", SCAN_CASES)
+def test_ssm_scan_chunk_decomposition_matches_pallas_and_oracle(B, T, C, ch,
+                                                                bc, dtype):
+    """The CUDA kernel's chunk decomposition (`ssm_scan_chunked_plain`, at
+    the chunks `scan_plan` gives on a 132-SM card) against the reference's
+    Pallas kernel (interpret) and oracle, under the same bar."""
+    rng = np.random.default_rng(T + C)
+    ja, ta = _pair(rng.uniform(0.5, 1.0, (B, T, C)).astype(np.float32), dtype)
+    jb, tb = _pair((rng.normal(size=(B, T, C)) * 0.1).astype(np.float32),
+                   dtype)
+    chunks, steps = k7.scan_plan(B, T, C, 132)
+    assert chunks > 1
+    hs, hf = k7.ssm_scan_chunked_plain(ta, tb, steps)
+    for rhs, rhf in (pallas_scan(ja, jb, chunk=ch, block_c=bc,
+                                 interpret=True),
+                     KREF.ssm_scan_ref(ja, jb)):
+        bar = min(SCAN_BAR * np.abs(_np(rhs)).max(), 1e-3)
+        assert np.abs(_np(hs) - _np(rhs)).max() <= bar
+        assert np.abs(_np(hf) - _np(rhf)).max() <= bar
+
+
 def test_entry_points_check_their_arguments():
     (_, _, _), (q, k, v) = _decode_inputs(1, 4, 2, 16, "float32", 0)
     before = (k6.launches, k7.launches)
