@@ -28,7 +28,20 @@ the answers against the repo's own oracles:
      week-long carbon trace, the README's capped two-OEM `Fleet.sweep`
      (both against the same sweep on the CPU and the fleet against the
      sequential oracle), `scan_stats()` kernel dispatches, and the OEM
-     case 1 baseline (180.30 h / 48.67 kWh);
+     case 1 baseline (180.30 h / 48.67 kWh); then the schedule
+     optimizer (`phase_optimize`): `TraceObjective` at the benchmark's
+     shape (OEM case 1, T = 280 slots, populations of 256 and 1,024)
+     against `device="cpu"` (fp64 1e-9 per field, mixed 1e-6 of fp64),
+     the gradient of one scalarized loss (1e-9 in norm), ms per
+     evaluate and per gradient step, launches and idle share from one
+     trace each; the README's `Campaign(OEM_CASE_1).optimize("energy",
+     deadline_h=214, ...)` over the week trace (it must beat the six
+     policies' best energy within the deadline, its row equal the CPU
+     `trace_sweep`'s to 1e-9, K2 must launch); and the README's capped
+     two-OEM `Fleet.optimize("co2", deadlines=[300, 480])` (steps cut to
+     `OPT_FLEET_STEPS`; joint site CO2 at most the independent optima's
+     under the cap, rows equal the CPU `fleet_sweep`'s to 1e-9, K1 must
+     launch);
   4a. K6 (`decode_attention`) through `kernels.ops.decode_attention`,
      as the reference reaches it: TinyLlama-1.1B's decode (q (4, 32, 64)
      over a (4, 2048, 4, 64) cache at length 1,000 and 2,048) and a 32k
@@ -575,6 +588,274 @@ def phase_end_to_end(torch, carina, et, dev):
           f"{[round(r.site.peak_kw, 4) for r in rows]} kW; kernel "
           f"dispatches {st.kernel_dispatches}; OEM case 1 baseline "
           f"{base.runtime_h:.2f} h / {base.energy_kwh:.2f} kWh", flush=True)
+
+
+# --------------------------------------------------------------------------
+# the schedule optimizer: TraceObjective, Campaign.optimize, Fleet.optimize
+# --------------------------------------------------------------------------
+OPT_FIELDS = ("energy_kwh", "co2_kg", "runtime_h", "cost_usd", "unfinished")
+# Fleet.optimize's gradient steps in this run (the default is 500), cut so
+# the phase stays within about a minute: a joint step is ~15,000 eager
+# launches, ~0.35 s on the card (tools/time_fleet_optimize.py times the
+# default)
+OPT_FLEET_STEPS = 60
+
+
+@contextlib.contextmanager
+def timed(mod, name, store):
+    """Append the wall seconds of every call of `mod.name` to `store`."""
+    fn = getattr(mod, name)
+
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            store.append(time.perf_counter() - t0)
+
+    setattr(mod, name, run)
+    try:
+        yield
+    finally:
+        setattr(mod, name, fn)
+
+
+def objective_bound(lane_slots, ops, bytes_, passes=1):
+    """Least ms for an objective call doing `passes` x `ops` fp64
+    operations a lane-slot over `lane_slots` lane-slots (the scan runs
+    every slot of the horizon) and moving `bytes_` (intensities, per-slot
+    signals and outputs, each once): the bound K3 / K4 will be held to."""
+    ms, by = bound_ms(bytes_, 0, passes * ops * lane_slots, "float64")
+    return f"bound {ms:.7f} ms ({by})"
+
+
+def metrics_err(got, ref):
+    """Max relative error over an objective's fields (`unfinished`, a
+    fraction of the workload, against 1)."""
+    return max(rel_err(getattr(got, f), getattr(ref, f),
+                       1.0 if f == "unfinished" else None)
+               for f in got._fields)
+
+
+def rows_err(got, ref):
+    return max(rel_err([a.runtime_h, a.energy_kwh, a.co2_kg],
+                       [b.runtime_h, b.energy_kwh, b.co2_kg])
+               for a, b in zip(got, ref))
+
+
+def call_times(torch, fn, reps):
+    """Wall ms per synchronised call of `fn`, ms per call by CUDA events
+    around `reps` queued calls (`cuda_ms`: for a function of thousands of
+    small launches the launch queue fills, so this too is host-paced),
+    and one traced call's launches, device-busy ms and idle share."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps * 1e3
+    ev = cuda_ms(torch, fn, reps)
+    win = profile_window(torch, fn, {})
+    if isinstance(win, str):
+        return (f"{wall:.2f} ms wall, {ev:.3f} ms by CUDA events; trace "
+                f"not used: {win}")
+    t_wall, busy, launches, _, _ = win
+    return (f"{wall:.2f} ms wall, {ev:.3f} ms by CUDA events; traced: "
+            f"{launches} launches, device busy {busy * 1e3:.3f} ms of "
+            f"{t_wall * 1e3:.2f}, idle {1 - busy / t_wall:.3f}")
+
+
+def phase_optimize(torch, carina, et, dev):
+    """The schedule optimizer on the card: `TraceObjective` and
+    `FleetTraceObjective` at the benchmark's shapes against the CPU,
+    then the README's `Campaign.optimize` and capped two-OEM
+    `Fleet.optimize` end to end."""
+    from repro_torch.core import optimize as opt
+    PS = carina.ParametricSchedule
+
+    def loss_grad(to, p, scalarize):
+        p = p.clone().requires_grad_()
+        u = PS.u_from_logits(p, 0.05, 1.0, xp=torch)
+        val = scalarize(to.evaluate(u))
+        return val, torch.autograd.grad(val, p)[0]
+
+    def hold_grad(obj_card, obj_cpu, p0, scalarize, label):
+        v_cpu, g_cpu = loss_grad(obj_cpu, p0, scalarize)
+        v_card, g_card = loss_grad(obj_card, p0.to(dev), scalarize)
+        err = float(torch.linalg.vector_norm(g_card.cpu() - g_cpu)
+                    / torch.linalg.vector_norm(g_cpu))
+        check(err <= 1e-9, f"{label} gradient card vs CPU: {err:.3e}")
+        check(abs(v_card.item() / v_cpu.item() - 1) <= 1e-9,
+              f"{label} loss card vs CPU")
+        pd = p0.to(dev)
+        return err, call_times(
+            torch, lambda: loss_grad(obj_card, pd, scalarize)[0].item(), 5)
+
+    # 1. TraceObjective at benchmarks/run.py:285-297's shape
+    wl, m = carina.calibrate_workload(carina.OEM_CASE_1,
+                                      carina.MachineProfile())
+    case = carina.SweepCase(carina.parametric_schedule(24), wl, m,
+                            deadline_h=220.0)
+    rng = np.random.RandomState(0)
+    pops = {n: 0.05 + 0.90 * rng.rand(n, 24) for n in (256, 1024)}
+    obj = {(prec, where): carina.TraceObjective(
+        case, horizon_h=280.0, precision=prec, device=d)
+        for prec in ("fp64", "mixed") for where, d in (("card", dev),
+                                                       ("cpu", "cpu"))}
+    T = len(obj["fp64", "card"].lens)
+    for n, U in pops.items():
+        ref = obj["fp64", "cpu"].evaluate_batch(U)
+        for prec in ("fp64", "mixed"):
+            to = obj[prec, "card"]
+            err = metrics_err(to.evaluate_batch(U), ref)
+            bar = 1e-9 if prec == "fp64" else 1e-6
+            check(err <= bar, f"TraceObjective {prec} N={n} card vs CPU "
+                  f"fp64: {err:.3e} (bar {bar:g})")
+            sig = (4 * T + to.n_slots) * 8 + T * 8       # + rowidx
+            bound = objective_bound(
+                n * T, sum(K2_OPS.values()),
+                U.nbytes + sig + 5 * n * 8)
+            print(f"TraceObjective N={n} T={T} {prec}: card vs CPU fp64 "
+                  f"{err:.3e} (bar {bar:g}); {bound}; evaluate_batch "
+                  + call_times(torch, lambda: to.evaluate_batch(U), 3),
+                  flush=True)
+    objective = opt.Objective.coerce("energy", {"runtime_h": 220.0})
+    ref0 = obj["fp64", "cpu"].evaluate_batch(np.full((1, 24), 0.6))
+    scales = {k: max(abs(float(getattr(ref0, k)[0])), 1e-9)
+              for k in opt.METRIC_KEYS}
+    err, times = hold_grad(
+        obj["fp64", "card"], obj["fp64", "cpu"],
+        torch.as_tensor(np.random.RandomState(1).randn(24) * 0.5),
+        lambda mt: opt.scalarize(mt, objective, scales, xp=torch),
+        "TraceObjective")
+    bound = objective_bound(T, sum(K2_OPS.values()),
+                            2 * 24 * 8 + 5 * T * 8 + 8, passes=3)
+    print(f"TraceObjective gradient step (energy, runtime <= 220 h, "
+          f"T={T}; forward, backward, one read back): card vs CPU "
+          f"{err:.3e} in norm (bar 1e-9); {bound}, the backward counted "
+          f"as twice the forward; " + times, flush=True)
+
+    # 1b. FleetTraceObjective at the README fleet's shape: the two OEMs
+    # under Site(0.45, 0.12), deadlines 300 / 480 h (T = 624), the CEM
+    # population of optimize_fleet (192)
+    dls = [300.0, 480.0]
+    fcases = []
+    for wl0, dl in zip((carina.OEM_CASE_1, carina.OEM_CASE_2), dls):
+        w, mm = carina.calibrate_workload(wl0, carina.MachineProfile())
+        fcases.append(carina.SweepCase(carina.parametric_schedule(24), w,
+                                       mm, deadline_h=dl))
+    fobj = {d: carina.FleetTraceObjective(
+        fcases, site_cap_kw=0.45, office_kw=0.12, horizon_h=624.0,
+        device=d) for d in (dev, "cpu")}
+    U = 0.05 + 0.90 * np.random.RandomState(0).rand(192, 2, 24)
+    err = metrics_err(fobj[dev].evaluate_batch(U),
+                      fobj["cpu"].evaluate_batch(U))
+    check(err <= 1e-9, f"FleetTraceObjective card vs CPU: {err:.3e}")
+    fT = len(fobj[dev].lens)
+    print(f"FleetTraceObjective N=192 M=2 T={fT} under 0.45 kW: card vs "
+          f"CPU {err:.3e} (bar 1e-9); "
+          + objective_bound(192 * 2 * fT, sum(K1_OPS.values()),
+                            U.nbytes + 7 * fT * 8 + 11 * 192 * 8)
+          + "; evaluate_batch "
+          + call_times(torch, lambda: fobj[dev].evaluate_batch(U), 3),
+          flush=True)
+    fobjective = opt.Objective.coerce("co2")
+    ref0 = fobj["cpu"].evaluate_batch(np.full((1, 2, 24), 0.6))
+    fscales = {k: max(abs(float(np.asarray(getattr(ref0, k)).sum())), 1e-9)
+               for k in opt.METRIC_KEYS}
+    fscales["site_peak_kw"] = float(ref0.site_peak_kw[0])
+    err, times = hold_grad(
+        fobj[dev], fobj["cpu"],
+        torch.as_tensor(np.random.RandomState(2).randn(2, 24) * 0.5),
+        lambda mt: opt.scalarize_fleet(mt, fobjective, fscales, dls,
+                                       xp=torch), "FleetTraceObjective")
+    print(f"FleetTraceObjective gradient step (co2, deadlines {dls}; "
+          f"the same logits each call, so the gradient mask hint holds): "
+          f"card vs CPU {err:.3e} in norm (bar 1e-9); "
+          + objective_bound(2 * fT, sum(K1_OPS.values()),
+                            2 * 2 * 24 * 8 + 7 * fT * 8 + 8, passes=3)
+          + "; " + times, flush=True)
+
+    # 2. the README's Campaign.optimize (benchmarks/run.py:299-303)
+    week = week_trace(carina)
+    c = carina.Campaign(carina.OEM_CASE_1)
+    six = c.sweep(list(carina.POLICIES.values()), carbon_trace=week)
+    best_six = min(r.energy_kwh for r in six if r.runtime_h <= 214.0)
+    cem_s, grad_s = [], []
+    et.reset_scan_stats()
+    with timed(opt, "_cem_search", cem_s), timed(opt, "_grad_search",
+                                                 grad_s):
+        t0 = time.perf_counter()
+        res = c.optimize("energy", deadline_h=214.0, carbon_trace=week,
+                         candidates=256, iterations=30, steps=400)
+        wall = time.perf_counter() - t0
+    st = et.scan_stats()
+    check(st.kernel_dispatches["scan_chunk"] > 0,
+          "Campaign.optimize's report launched no scan_chunk kernel")
+    r = res.result
+    check(r.runtime_h <= 214.0 * 1.005 and r.energy_kwh <= best_six,
+          f"Campaign.optimize {r.runtime_h:.2f} h / {r.energy_kwh:.4f} kWh "
+          f"against the six policies' best {best_six:.4f} kWh")
+    final = carina.SweepCase(res.schedule, *c.calibrated(), c.bands,
+                             carina.as_trace(week, name="carbon-trace"),
+                             c.start_hour, label=res.schedule.name,
+                             deadline_h=214.0)
+    cpu = carina.trace_sweep([final], device="cpu")
+    e_row = rows_err([r], cpu)
+    e_met = rel_err([res.metrics.runtime_h, res.metrics.energy_kwh],
+                    [r.runtime_h, r.energy_kwh])
+    check(e_row <= 1e-9, f"Campaign.optimize row vs CPU: {e_row:.3e}")
+    check(e_met <= 1e-9, f"optimizer metrics vs its row: {e_met:.3e}")
+    print(f"Campaign(OEM_CASE_1).optimize('energy', deadline_h=214, week "
+          f"trace, 256 x 30 + 400 steps): {res.method}, wall {wall:.2f} s, "
+          f"CEM {sum(cem_s):.2f} s, grad {sum(grad_s):.2f} s = "
+          f"{sum(grad_s) / 400 * 1e3:.2f} ms a step; {r.runtime_h:.2f} h / "
+          f"{r.energy_kwh:.4f} kWh against the six policies' best "
+          f"{best_six:.4f} kWh; row vs CPU trace_sweep {e_row:.3e}, "
+          f"metrics vs row {e_met:.3e}; kernel dispatches "
+          f"{st.kernel_dispatches}", flush=True)
+
+    # 3. the README's capped two-OEM fleet, joint
+    site = carina.Site(power_cap_kw=0.45, office_kw=0.12)
+    fleet = carina.Fleet([carina.Campaign(carina.OEM_CASE_1),
+                          carina.Campaign(carina.OEM_CASE_2)], site)
+    cem_s, grad_s = [], []
+    et.reset_scan_stats()
+    with timed(opt, "_cem_search", cem_s), timed(opt, "_grad_search",
+                                                 grad_s):
+        t0 = time.perf_counter()
+        fres = fleet.optimize("co2", deadlines=dls, steps=OPT_FLEET_STEPS)
+        wall = time.perf_counter() - t0
+    st = et.scan_stats()
+    check(st.kernel_dispatches["coupled_chunk"] > 0,
+          "Fleet.optimize's report launched no coupled_chunk kernel")
+    carbon = fleet._carbon(None, None)
+    ind = carina.fleet_sweep([fleet._cases(
+        [r.schedule for r in fres.independent], carbon=carbon,
+        deadlines=dls, label="independent")], site)[0]
+    check(fres.site.co2_kg <= ind.site.co2_kg + 1e-9,
+          f"joint site CO2 {fres.site.co2_kg:.6f} above the independent "
+          f"optima's {ind.site.co2_kg:.6f}")
+    cpu = carina.fleet_sweep([fleet._cases(fres.schedules, carbon=carbon,
+                                           deadlines=dls, label="joint")],
+                             site, device="cpu")[0]
+    e_row = max(rows_err(fres.results, cpu.campaigns),
+                rel_err(fres.site.peak_kw, cpu.site.peak_kw))
+    check(e_row <= 1e-9, f"Fleet.optimize rows vs CPU: {e_row:.3e}")
+    check(float(np.max(fres.metrics.unfinished)) < 1e-6,
+          "Fleet.optimize left work unfinished")
+    print(f"Fleet([OEM 1, OEM 2], Site(0.45, 0.12)).optimize('co2', "
+          f"deadlines {dls}, 192 x 30 candidates, steps cut 500 -> "
+          f"{OPT_FLEET_STEPS}): wall {wall:.2f} s; CEM "
+          f"{', '.join(f'{s:.2f}' for s in cem_s)} s and grad "
+          f"{', '.join(f'{s / OPT_FLEET_STEPS * 1e3:.2f}' for s in grad_s)}"
+          f" ms a step (independent 1, independent 2, joint); site CO2 "
+          f"{fres.site.co2_kg:.6f} kg joint vs {ind.site.co2_kg:.6f} "
+          f"independent, peak {fres.site.peak_kw:.4f} kW, runtimes "
+          f"{[round(x.runtime_h, 2) for x in fres.results]} h; rows vs CPU "
+          f"fleet_sweep {e_row:.3e}; kernel dispatches "
+          f"{st.kernel_dispatches}", flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -2259,6 +2540,7 @@ def main() -> int:
     kernels = [phase_scan_chunk(torch, carina, et, k2, k1, _build, dev),
                phase_coupled_chunk(torch, carina, et, k2, k1, _build, dev)]
     phase_end_to_end(torch, carina, et, dev)
+    phase_optimize(torch, carina, et, dev)
     kernels += [phase_decode_attention(torch, k6, ops, _build, dev),
                 phase_ssm_scan(torch, k7, ops, _build, dev)]
     gc.collect()                    # K6's caches and K7's scans

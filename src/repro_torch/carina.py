@@ -15,9 +15,10 @@ Names mirror `repro.carina` for what the port covers.  Sweeps run on the
 card by default (`device="cuda"`); pass `device="cpu"` to run the
 kernels' plain PyTorch versions.  `ServingSession` is the live-mode
 adapter of the decode-serving engine (`repro_torch.serving.engine`); its
-windowed mode is not ported yet.  Not ported yet either: `optimize`,
-MPC, grid-data ingestion and calibration, the plan cache and
-`delta_sweep` (see ROADMAP.md).
+windowed mode is not ported yet.  `Campaign.optimize` and
+`Fleet.optimize` search schedules with gradients under `torch.autograd`
+(core/optimize.py).  Not ported yet: MPC, grid-data ingestion and
+calibration, the plan cache and `delta_sweep` (see ROADMAP.md).
 """
 from repro_torch.core.carbon import (DTE_FACTOR, MIDWEST_HOURLY,  # noqa: F401
                                      GridCarbonModel)
@@ -30,15 +31,24 @@ from repro_torch.core.energy import (ChipProfile, EnergyModel,  # noqa: F401
 from repro_torch.core.engine import (SweepCase,  # noqa: F401
                                      frontier_from_sweep, hourly_profile,
                                      sweep)
-from repro_torch.core.engine_torch import (PlanCursor, ScanStats,  # noqa: F401
-                                           SweepPlan, compile_plan,
-                                           execute_interval, execute_plan,
-                                           new_cursor, plan_from_numpy,
-                                           reset_scan_stats, scan_stats,
-                                           summarize_plan, trace_sweep)
+from repro_torch.core.engine_torch import (EvalMetrics,  # noqa: F401
+                                           FleetEvalMetrics,
+                                           FleetTraceObjective, PlanCursor,
+                                           ScanStats, SweepPlan,
+                                           TraceObjective, compile_plan,
+                                           evaluate_params, execute_interval,
+                                           execute_plan, new_cursor,
+                                           plan_from_numpy, reset_scan_stats,
+                                           scan_stats, summarize_plan,
+                                           trace_sweep)
 from repro_torch.core.fleet import (Fleet, FleetResult, Site,  # noqa: F401
                                     SiteRollup, fleet_sweep, simulate_fleet)
 from repro_torch.core.model import site_throttle  # noqa: F401
+from repro_torch.core.optimize import (ROBUST_MODES,  # noqa: F401
+                                       FleetOptimizeResult, Objective,
+                                       OptimizeResult, optimize_fleet,
+                                       optimize_schedule, pareto_front,
+                                       reduce_ensemble, scalarize_fleet)
 from repro_torch.core.policy import (BANDS, BASELINE,  # noqa: F401
                                      LARGE_BATCHES, LOW_PRIORITY_ONLY,
                                      PEAK_AWARE_AGGRESSIVE,

@@ -32,13 +32,18 @@ fleets whose campaigns couple through one power envelope.
     `SimResult`s; ensemble cases get mean CO2 plus per-member
     `EnsembleStats`.
 
+  * **objectives** (`TraceObjective`, `FleetTraceObjective`) are the same
+    physics as a differentiable function of a day schedule's per-slot
+    intensities, the substrate of `core/optimize.py`: plain PyTorch scans
+    on the tensors' device, differentiated by `torch.autograd`.
+
 Entry points run on the card (`device="cuda"`) unless the caller names
 another device; with no card and no device given they raise instead of
 falling back to the CPU.  `precision="mixed"` runs the per-slot physics
 in float32 with float64 carried state and sums.  Not in this package
 yet: lane sharding over several cards (`devices` > 1), the persistent
-plan cache (`cache_dir`), the NumPy backend (`backend=`),
-`replace_tables`/`delta_sweep` and the differentiable objectives.
+plan cache (`cache_dir`), the NumPy backend (`backend=`) and
+`replace_tables`/`delta_sweep`.
 """
 from __future__ import annotations
 
@@ -46,7 +51,8 @@ import dataclasses
 import functools
 import math
 from collections import OrderedDict
-from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -54,7 +60,8 @@ import torch
 from repro_torch.core import model
 from repro_torch.core.carbon import GridCarbonModel
 from repro_torch.core.device import reject_unported, resolve_device
-from repro_torch.core.schedule import SchedulingContext, as_schedule
+from repro_torch.core.schedule import (ParametricSchedule, SchedulingContext,
+                                       as_schedule)
 from repro_torch.core.signal import (Signal, SignalEnsemble, TraceSignal,
                                      carbon_signal, sample_signal)
 from repro_torch.core.simulator import SimResult, ensemble_stats
@@ -1307,6 +1314,529 @@ def summarize_plan(plan: SweepPlan, state: _ScanState) -> List[SimResult]:
             energy_ensemble=ensemble_stats(kwh_samples),
             runtime_ensemble=ensemble_stats(rt_samples)))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Differentiable objective path (the substrate of core/optimize.py).
+#
+# `trace_sweep` is built for *evaluation*: it probes schedules with Python
+# `decide()` calls, classifies them, and extends the horizon.
+# `TraceObjective` is the same physics specialized for *search*: everything
+# that depends on the case (signals, background, slot lengths, machine
+# scalars) is precomputed once, and what remains is a function
+#     per-slot intensities (..., n_slots)  ->  EvalMetrics
+# of torch tensors, so `torch.autograd` flows through the scan and one call
+# evaluates a whole population.  The per-slot physics does not depend on
+# the carried state, so it runs for all T slots at once; the slot loop
+# carries only the remaining work and reads nothing back to the host
+# (a capped fleet reads one mask comparison a pass, see
+# `FleetTraceObjective._evaluate_torch`).
+# ---------------------------------------------------------------------------
+class EvalMetrics(NamedTuple):
+    """Campaign outcome as a tuple of floats, arrays or tensors.
+
+    `cost_usd` is 0 when no price signal was given; `unfinished` is the
+    fraction of the workload left at the end of the horizon (0 when the
+    campaign completed — optimizers penalize it so solutions that stall
+    past the horizon are driven back into range).  When the case's
+    carbon is a `SignalEnsemble`, `co2_kg` carries one trailing ensemble
+    axis (..., E) — one value per member — while the other fields keep
+    shape (...): the schedule family is carbon-blind, so the dynamics
+    are identical across members and only the carbonization varies.
+    `repro_torch.core.optimize.reduce_ensemble` collapses that axis under
+    a robust objective (mean / CVaR / worst-case).
+    """
+    energy_kwh: Any
+    co2_kg: Any
+    runtime_h: Any
+    cost_usd: Any
+    unfinished: Any
+
+
+def _to_numpy(metrics):
+    """A metrics tuple of tensors as the same tuple of NumPy arrays."""
+    return type(metrics)(*(x.detach().cpu().numpy() for x in metrics))
+
+
+def _work_scan(remaining: torch.Tensor, scen_per_s: torch.Tensor,
+               lens: torch.Tensor, finish: Optional[torch.Tensor] = None):
+    """The slot-by-slot scan of the remaining work, the objectives' one
+    sequential part: from `remaining` (...), under the per-slot rates
+    `scen_per_s` (T, ...) and slot lengths `lens` (T,), the seconds each
+    slot ran (T, ...), the mask `remaining > finish` at each slot's start
+    (T, ...) when `finish` is given (else None), and the final remaining.
+    """
+    scen = model.TORCH.maximum(scen_per_s, 1e-30)
+    work = scen * lens.reshape((-1,) + (1,) * (scen.dim() - 1))
+    zero = remaining.new_zeros(())
+    dts, seen = [], []
+    # per-slot views by `unbind`: one autograd node for all T slots
+    # (indexing slot by slot adds T, each a full-size zero tensor in the
+    # backward); the slot lengths as 0-d tensors, since a Python number in
+    # `where` costs a launch a slot to make its tensor on the card
+    for ln, w_t, s_t, sps_t in zip(lens.unbind(0), work.unbind(0),
+                                   scen.unbind(0), scen_per_s.unbind(0)):
+        if finish is not None:
+            seen.append(remaining > finish)
+        # strict branch selection, NOT a minimum(ln, remaining/scen): when
+        # the campaign finishes exactly on a slot boundary, the minimum's
+        # tie splits its gradient across both branches and the analytic
+        # cancellation d(remaining - scen*dt)/du == 0 of the finish branch
+        # is lost.  The tie takes the finish branch.
+        dt = torch.where(remaining > w_t, ln, remaining / s_t)
+        dt = torch.where(remaining > 0.0, dt, zero)
+        remaining = remaining - sps_t * dt
+        dts.append(dt)
+    return (torch.stack(dts), torch.stack(seen) if seen else None,
+            remaining)
+
+
+class TraceObjective:
+    """One sweep case as a pure objective over day schedules.
+
+    Construction samples the case's signals over a *fixed* horizon
+    (`horizon_h`, default sized from a mid-intensity duration estimate or
+    the case deadline) — there is no retry-doubling or probe
+    classification afterwards.  `evaluate(u_day)` maps per-slot
+    intensities of shape (..., n_slots) to `EvalMetrics` of shape (...,):
+    on a tensor it is the differentiable scan on the tensor's device; on a
+    NumPy array it runs the same scan on the objective's `device` (the
+    card by default) and returns NumPy.
+
+    A schedule that finishes inside the horizon gets exactly the numbers
+    `trace_sweep` would produce for the equivalent `ParametricSchedule`
+    (same grid, same shared rate model); one that does not reports
+    `unfinished > 0` instead of growing the grid.
+
+    A `SignalEnsemble` carbon turns `co2_kg` into a (..., E) block — the
+    substrate of `Campaign.optimize(robust=...)`.
+
+    `precision="mixed"` runs the per-slot inputs and physics in fp32 with
+    fp64 carried state and kWh/CO2/cost sums (the policy of
+    `compile_plan(precision=...)`); the default keeps exact fp64.
+    `backend=` is the reference's and raises.
+    """
+
+    def __init__(self, case, *, price: Optional[Signal] = None,
+                 slots_per_hour: int = 1, horizon_h: Optional[float] = None,
+                 batch_size: float = 50.0, max_days: int = 120,
+                 precision: str = "fp64", device=None,
+                 backend: Optional[str] = None):
+        reject_unported(backend=backend)
+        if precision not in ("fp64", "mixed"):
+            raise ValueError(f"unknown precision {precision!r}; "
+                             "use 'fp64' or 'mixed'")
+        self.device = resolve_device(device)
+        sph = int(slots_per_hour)
+        self.precision = precision
+        self.case = case
+        self.sph = sph
+        self.n_slots = 24 * sph
+        self.batch_size = float(batch_size)
+        self.has_price = price is not None
+        self._tables = {}
+
+        wl, mach = case.workload, case.machine
+        self._scalars = (float(wl.n_scenarios), float(wl.rate_at_full),
+                         float(wl.batch_overhead_s), float(mach.idle_w),
+                         float(mach.dyn_w), float(mach.alpha),
+                         float(mach.gamma), float(mach.overhead_w_frac))
+
+        carbon = case.carbon or GridCarbonModel()
+        self.ensemble_size = (len(carbon)
+                              if isinstance(carbon, SignalEnsemble) else 0)
+        start = float(case.start_hour)
+        g0 = math.floor(start * sph) / sph
+        bg_day = _bg_table(case.bands, sph)
+        if horizon_h is None:
+            horizon_h = self._default_horizon(bg_day, max_days)
+        self.horizon_h = float(min(horizon_h, max_days * 24.0))
+        T = max(int(math.ceil(self.horizon_h * sph)), 1)
+        slot = np.arange(T)
+        t_abs = g0 + slot / sph
+        s0 = int(round(g0 * sph)) % self.n_slots
+        self.rowidx = ((s0 + slot) % self.n_slots).astype(np.int32)
+        self.bg = bg_day[self.rowidx]
+        if self.ensemble_size:
+            self.cf = carbon.sample(t_abs)           # (E, T)
+        else:
+            self.cf = sample_signal(carbon_signal(carbon), t_abs)
+        self.pr = (sample_signal(price, t_abs) if price is not None
+                   else np.zeros(T))
+        lens = np.full(T, 3600.0 / sph)
+        lens[0] = (g0 + 1.0 / sph - start) * 3600.0
+        self.lens = lens
+        self.hours = t_abs                 # absolute hour of each slot
+
+    def _default_horizon(self, bg_day: np.ndarray, max_days: int) -> float:
+        """Mid-intensity duration estimate, stretched; or the deadline
+        with margin, whichever is larger (deadline-capped optima sit at
+        the cap, so the grid must comfortably cover it)."""
+        n_scen, *_ = self._scalars
+        r = model.campaign_rates(0.35, self.batch_size, float(bg_day.mean()),
+                                 self.case.workload, self.case.machine)
+        dur = n_scen / max(r.scen_per_s, 1e-9) / 3600.0
+        est = dur * 1.6 + 48.0
+        dl = float(getattr(self.case, "deadline_h", 0.0) or 0.0)
+        if dl > 0.0:
+            est = max(est, dl * 1.25 + 24.0)
+        return min(est, max_days * 24.0)
+
+    # ------------------------------------------------------------------
+    def evaluate(self, u_day) -> EvalMetrics:
+        """EvalMetrics for per-slot intensities `u_day` (..., n_slots).
+
+        A tensor stays on its device and in the autograd graph (give it
+        fp64, or the mixed policy's fp32 physics); a NumPy array runs on
+        the objective's device and comes back as NumPy."""
+        if isinstance(u_day, torch.Tensor):
+            return self._evaluate_torch(u_day)
+        return self.evaluate_batch(u_day)
+
+    def evaluate_batch(self, U) -> EvalMetrics:
+        """NumPy EvalMetrics for a NumPy (N, n_slots) population, in one
+        pass on the objective's device."""
+        U = torch.as_tensor(np.asarray(U, dtype=np.float64),
+                            device=self.device)
+        with torch.no_grad():
+            return _to_numpy(self._evaluate_torch(U))
+
+    # ------------------------------------------------------------------
+    def _device_tables(self, device: torch.device) -> tuple:
+        """(rowidx, bg, cf (T, E) or (T,), pr, lens) on `device` in the
+        physics dtype; built once per device."""
+        if device not in self._tables:
+            cdt = (torch.float32 if self.precision == "mixed"
+                   else torch.float64)
+            cf = self.cf.T if self.ensemble_size else self.cf
+            self._tables[device] = (
+                torch.as_tensor(self.rowidx, dtype=torch.long, device=device),
+                *(torch.as_tensor(a, dtype=cdt, device=device)
+                  for a in (self.bg, cf, self.pr, self.lens)))
+        return self._tables[device]
+
+    def _evaluate_torch(self, u_day: torch.Tensor) -> EvalMetrics:
+        (n_scen, rate, oh, idle, dyn, alpha, gamma,
+         ohfrac) = self._scalars
+        rowidx, bg, cf, pr, lens = self._device_tables(u_day.device)
+        shape = u_day.shape[:-1]
+        lead = (1,) * len(shape)
+        # mixed policy: fp32 per-slot inputs and physics, fp64 carried
+        # state and sums (the engine's `_plan_dtypes` split)
+        u_t = u_day.to(bg.dtype)[..., rowidx].movedim(-1, 0)  # (T, ...)
+        r = model.rates(u_t, self.batch_size, bg.reshape(-1, *lead),
+                        rate_at_full=rate, batch_overhead_s=oh, idle_w=idle,
+                        dyn_w=dyn, alpha=alpha, gamma=gamma,
+                        overhead_w_frac=ohfrac, xp=model.TORCH)
+        dt, _, remaining = _work_scan(
+            torch.full(shape, n_scen, dtype=torch.float64,
+                       device=u_day.device), r.scen_per_s, lens)
+        e = r.kwh_per_s * dt
+        if self.ensemble_size:
+            co2 = (e[..., None] * cf.reshape(-1, *lead, cf.shape[-1])).sum(0)
+        else:
+            co2 = (e * cf.reshape(-1, *lead)).sum(0)
+        return EvalMetrics(e.sum(0), co2, dt.sum(0) / 3600.0,
+                           (e * pr.reshape(-1, *lead)).sum(0),
+                           remaining / n_scen)
+
+
+def evaluate_params(params, case, *, u_min: float = 0.05, u_max: float = 1.0,
+                    batch_size: float = 50.0,
+                    price: Optional[Signal] = None, slots_per_hour: int = 1,
+                    horizon_h: Optional[float] = None, device=None,
+                    backend: Optional[str] = None) -> EvalMetrics:
+    """`EvalMetrics` (energy_kwh, co2_kg, runtime_h, cost_usd, unfinished)
+    for `ParametricSchedule` logits `params` on `case`.
+
+    Differentiable: the squash and the scan are both torch, so
+    `torch.autograd.grad(evaluate_params(p, case).co2_kg, p)` just works
+    for a tensor `p` (on its own device); NumPy logits run on `device` and
+    come back as NumPy.  For repeated evaluation (optimization loops) build
+    one `TraceObjective` instead — this convenience resamples the case's
+    signals on every call.
+    """
+    on_tensor = isinstance(params, torch.Tensor)
+    obj = TraceObjective(case, price=price, slots_per_hour=slots_per_hour,
+                         horizon_h=horizon_h, batch_size=batch_size,
+                         device=params.device if on_tensor else device,
+                         backend=backend)
+    if not on_tensor:
+        params = np.asarray(params, dtype=float)
+    return obj.evaluate(ParametricSchedule.u_from_logits(
+        params, u_min, u_max, xp=torch if on_tensor else np))
+
+
+class FleetEvalMetrics(NamedTuple):
+    """Joint outcome of M concurrent campaigns: per-campaign fields carry
+    a trailing (..., M) axis, `site_peak_kw` is the site-level (...,) peak
+    total site draw (office + all campaigns) over the horizon, the
+    quantity a `site_peak_kw <= cap` constraint caps."""
+    energy_kwh: Any          # (..., M)
+    co2_kg: Any              # (..., M)
+    runtime_h: Any           # (..., M)
+    cost_usd: Any            # (..., M)
+    unfinished: Any          # (..., M)
+    site_peak_kw: Any        # (...,)
+
+
+class FleetTraceObjective:
+    """M concurrent campaigns under one site as a pure objective.
+
+    The fleet analogue of `TraceObjective`: construction samples the
+    shared signals over a fixed horizon; `evaluate(u)` maps a joint
+    intensity block of shape (..., M, n_slots) — campaign m's day
+    schedule in row m — to `FleetEvalMetrics` of shape (..., M)/(...,).
+    Each slot applies the one site-coupling definition
+    (`model.site_throttle`): the summed active draw is compared to the
+    site headroom (cap minus office draw, which follows the band
+    background), every campaign's intensity is curtailed by the shared
+    factor, and the physics re-evaluated — what the coupled chunk kernel
+    (K1) and the sequential fleet oracle do, so optimized schedules
+    report identically through the real engine.
+
+    Differentiable end to end under `torch.autograd` (the throttle's
+    clamps and the running site-peak max split their gradient at a tie,
+    as the reference's do), with the same strict finish-branch selection
+    as `TraceObjective`.  `site_cap_kw=None` evaluates the uncoupled fleet
+    while still reporting `site_peak_kw`, so a planner can satisfy a peak
+    cap by *scheduling* around it rather than relying on reactive
+    curtailment.  Carbon ensembles are not taken (fleet robustness
+    composes poorly with joint curtailment; sweep the optimized schedules
+    against an ensemble instead).  A NumPy input runs on `device` (the
+    card by default) and comes back as NumPy; `backend=` raises.
+    """
+
+    def __init__(self, cases: Sequence, *,
+                 site_cap_kw: Optional[float] = None,
+                 office_kw: float = 0.0,
+                 price: Optional[Signal] = None,
+                 slots_per_hour: int = 1,
+                 horizon_h: Optional[float] = None,
+                 batch_size: float = 50.0, max_days: int = 120,
+                 device=None, backend: Optional[str] = None):
+        reject_unported(backend=backend)
+        if not len(cases):
+            raise ValueError("FleetTraceObjective needs at least one case")
+        if len({c.start_hour for c in cases}) > 1:
+            raise ValueError("fleet campaigns share the site clock: all "
+                             "cases must have the same start_hour")
+        if len({c.bands for c in cases}) > 1:
+            raise ValueError("fleet campaigns share the site's TimeBands "
+                             "(one background/office curve); got differing "
+                             "bands across cases")
+        if any(isinstance(c.carbon, SignalEnsemble) for c in cases):
+            raise ValueError("FleetTraceObjective does not take carbon "
+                             "ensembles; optimize against one trace and "
+                             "sweep the result against the ensemble")
+        self.device = resolve_device(device)
+        sph = int(slots_per_hour)
+        self.cases = tuple(cases)
+        self.M = len(cases)
+        self.sph = sph
+        self.n_slots = 24 * sph
+        self.batch_size = float(batch_size)
+        self.site_cap_kw = (float(site_cap_kw) if site_cap_kw is not None
+                            else None)
+        self.office_kw = float(office_kw)
+        self.has_price = price is not None
+        self._tables = {}
+        self._grad_masks = {}   # the last gradient evaluation's mask
+
+        case0 = cases[0]
+        self._scalars = tuple(
+            np.array([getattr(c.workload, wkey) for c in cases])
+            for wkey in ("n_scenarios", "rate_at_full", "batch_overhead_s")
+        ) + tuple(
+            np.array([getattr(c.machine, mkey) for c in cases])
+            for mkey in ("idle_w", "dyn_w", "alpha", "gamma",
+                         "overhead_w_frac"))
+        self.deadlines_h = np.array([float(c.deadline_h) for c in cases])
+
+        carbon = case0.carbon or GridCarbonModel()
+        start = float(case0.start_hour)
+        g0 = math.floor(start * sph) / sph
+        bg_day = _bg_table(case0.bands, sph)
+        if horizon_h is None:
+            horizon_h = self._default_horizon(bg_day, max_days)
+        self.horizon_h = float(min(horizon_h, max_days * 24.0))
+        T = max(int(math.ceil(self.horizon_h * sph)), 1)
+        slot = np.arange(T)
+        t_abs = g0 + slot / sph
+        s0 = int(round(g0 * sph)) % self.n_slots
+        self.rowidx = ((s0 + slot) % self.n_slots).astype(np.int32)
+        self.bg = bg_day[self.rowidx]
+        self.cf = sample_signal(carbon_signal(carbon), t_abs)
+        self.pr = (sample_signal(price, t_abs) if price is not None
+                   else np.zeros(T))
+        lens = np.full(T, 3600.0 / sph)
+        lens[0] = (g0 + 1.0 / sph - start) * 3600.0
+        self.lens = lens
+        self.office = self.office_kw * self.bg          # (T,) kW
+        cap = np.inf if self.site_cap_kw is None else self.site_cap_kw
+        self.headroom = cap - self.office               # (T,) kW
+
+    def _default_horizon(self, bg_day: np.ndarray, max_days: int) -> float:
+        """Slowest standalone campaign at mid intensity, stretched by the
+        demanded-draw vs headroom ratio (a capped fleet runs longer than
+        any member would alone), or the largest deadline with margin."""
+        durs = []
+        draw_kw = 0.0
+        for c in self.cases:
+            r = model.campaign_rates(0.35, self.batch_size,
+                                     float(bg_day.mean()), c.workload,
+                                     c.machine)
+            durs.append(c.workload.n_scenarios
+                        / max(r.scen_per_s, 1e-9) / 3600.0)
+            draw_kw += r.p_avg_w / 1000.0
+        stretch = 1.0
+        if self.site_cap_kw is not None:
+            head = max(self.site_cap_kw - self.office_kw * 0.3, 1e-9)
+            stretch = max(draw_kw / head, 1.0)
+        est = max(durs) * 1.6 * stretch + 48.0
+        dl = float(self.deadlines_h.max(initial=0.0))
+        if dl > 0.0:
+            est = max(est, dl * 1.25 + 24.0)
+        return min(est, max_days * 24.0)
+
+    # ------------------------------------------------------------------
+    def evaluate(self, u) -> FleetEvalMetrics:
+        """`FleetEvalMetrics` for a joint intensity block (..., M,
+        n_slots): differentiable on a tensor, NumPy in and out on an
+        array."""
+        if isinstance(u, torch.Tensor):
+            return self._evaluate_torch(u)
+        return self.evaluate_batch(u)
+
+    def evaluate_batch(self, U) -> FleetEvalMetrics:
+        """NumPy metrics for a NumPy (N, M, n_slots) population, in one
+        pass on the objective's device."""
+        U = torch.as_tensor(np.asarray(U, dtype=np.float64),
+                            device=self.device)
+        with torch.no_grad():
+            return _to_numpy(self._evaluate_torch(U))
+
+    # ------------------------------------------------------------------
+    def _device_tables(self, device: torch.device) -> dict:
+        """The signals (T,) and per-campaign scalars (M,) as fp64 tensors
+        on `device`, built once per device."""
+        if device not in self._tables:
+            f64 = functools.partial(torch.as_tensor, dtype=torch.float64,
+                                    device=device)
+            (n_scen, rate, oh, idle, dyn, alpha, gamma,
+             ohfrac) = (f64(a) for a in self._scalars)
+            bg = f64(self.bg)
+            self._tables[device] = dict(
+                rowidx=torch.as_tensor(self.rowidx, dtype=torch.long,
+                                       device=device),
+                bg=bg, cf=f64(self.cf), pr=f64(self.pr), lens=f64(self.lens),
+                office=f64(self.office), headroom=f64(self.headroom),
+                # each campaign's non-sheddable draw per slot, kW (T, M)
+                base=model.power_w(bg[:, None], idle, dyn, alpha,
+                                   xp=model.TORCH) / 1000.0,
+                n_scen=n_scen, finish=_FINISH_FRAC * n_scen,
+                physics=dict(rate_at_full=rate, batch_overhead_s=oh,
+                             idle_w=idle, dyn_w=dyn, alpha=alpha,
+                             gamma=gamma, overhead_w_frac=ohfrac))
+        return self._tables[device]
+
+    def _evaluate_torch(self, u: torch.Tensor) -> FleetEvalMetrics:
+        """The coupled scan, with the throttle solve of every slot run at
+        once.
+
+        A slot's throttle depends on the carried state only through which
+        campaigns are still active, and a campaign's activity is a prefix
+        of the horizon (its remaining work never grows).  So each pass
+        solves the throttle of all T slots under an assumed (T, ..., M)
+        activity mask, then scans the remaining work slot by slot and
+        records the mask it actually saw.  A pass whose seen mask equals
+        the assumed one computed exactly what the slot-by-slot definition
+        computes (the one mask that can: by induction over the slots);
+        each other pass corrects at least the earliest finish it had
+        wrong, so from all campaigns active throughout the passes stop
+        after at most M + 1, one read back each.  They run without
+        autograd; when the input needs a gradient, the converged mask's
+        pass runs once more with it.  An evaluation that needs a gradient
+        first tries, with autograd, the mask the last such evaluation of
+        its shape converged to (a gradient step's neighbour): when that
+        holds, as it does for most of a gradient search's steps, it is the
+        only pass (PERF.md §6).  Evaluations without a gradient (a CEM
+        population) always start from all active, so their values and
+        cost do not depend on earlier calls; nor does any value.  An
+        uncapped fleet needs no mask for its physics and takes one pass.
+        """
+        tb = self._device_tables(u.device)
+        shape = u.shape[:-1]                                # (..., M)
+        # (T, ..., M) intensities and per-slot signals broadcast to them
+        u_t = u.to(torch.float64)[..., tb["rowidx"]].movedim(-1, 0)
+        lead = (-1,) + (1,) * len(shape)
+        bg = tb["bg"].reshape(lead)
+        r0 = self._rates(u_t, bg, tb)
+        if self.site_cap_kw is None:
+            return self._pass(r0, tb, shape)[0]
+
+        def coupled(active):
+            return self._pass(self._throttle(u_t, bg, r0, active, tb), tb,
+                              shape)
+
+        grad = torch.is_grad_enabled() and u.requires_grad
+        key = (u.device, tuple(u_t.shape))
+        if grad and key in self._grad_masks:
+            out, seen = coupled(self._grad_masks[key])
+            if torch.equal(seen, self._grad_masks[key]):
+                return out
+        with torch.no_grad():
+            active = torch.ones(u_t.shape, dtype=torch.bool, device=u.device)
+            out, seen = coupled(active)
+            while not torch.equal(seen, active):
+                active = seen
+                out, seen = coupled(active)
+        if grad:
+            out = coupled(active)[0]
+            self._grad_masks = {key: active}
+        return out
+
+    def _rates(self, u, bg, tb) -> model.Rates:
+        return model.rates(u, self.batch_size, bg, xp=model.TORCH,
+                           **tb["physics"])
+
+    def _throttle(self, u_t, bg, r, active, tb) -> model.Rates:
+        """Every slot's `SITE_THROTTLE_ITERS` damped curtailment steps
+        over the summed draw of the campaigns `active` marks, and the
+        physics at the final factor ((T, ..., M) fields)."""
+        mid = (1,) * (active.dim() - 2)
+        base = torch.where(active, tb["base"].reshape(-1, *mid,
+                                                      self.M), 0.0).sum(-1)
+        head = tb["headroom"].reshape(-1, *mid)
+        f = torch.ones(base.shape, dtype=torch.float64, device=base.device)
+        for _ in range(model.SITE_THROTTLE_ITERS):
+            fleet_kw = (torch.where(active, r.p_avg_w, 0.0) / 1000.0
+                        ).sum(-1)
+            f = model.site_throttle(fleet_kw, base, head, f, xp=model.TORCH)
+            r = self._rates(u_t * f[..., None], bg, tb)
+        return r
+
+    def _pass(self, r, tb, shape) -> Tuple[FleetEvalMetrics, torch.Tensor]:
+        """The slot-by-slot scan of the remaining work under the physics
+        `r` ((T, ..., M) fields): the metrics, and the (T, ..., M) mask of
+        the campaigns active at the start of each slot."""
+        lead = (-1,) + (1,) * len(shape)
+        dt, active, remaining = _work_scan(
+            tb["n_scen"].expand(shape).clone(), r.scen_per_s, tb["lens"],
+            tb["finish"])
+        e = r.kwh_per_s * dt
+        site_kw = ((torch.where(active, r.p_avg_w, 0.0) / 1000.0).sum(-1)
+                   + tb["office"].reshape(lead[:-1]))
+        # the running peak, slot by slot as the reference takes it (a tie
+        # splits its gradient between the slots)
+        peak = torch.zeros(shape[:-1], dtype=torch.float64,
+                           device=dt.device)
+        for kw in site_kw.unbind(0):
+            peak = model.TORCH.maximum(peak, kw)
+        return FleetEvalMetrics(
+            e.sum(0), (e * tb["cf"].reshape(lead)).sum(0), dt.sum(0) / 3600.0,
+            (e * tb["pr"].reshape(lead)).sum(0), remaining / tb["n_scen"],
+            peak), active
 
 
 def trace_sweep(cases: Sequence, price: Optional[Signal] = None, *,

@@ -508,6 +508,44 @@ class Fleet:
                 site_rollups=[(res.policy, res.site)])
         return res
 
+    # ------------------------------------------------------------------
+    def optimize(self, objective="co2", *, constraints=None,
+                 deadlines=None, carbon_trace=None, device=None, **kwargs):
+        """Synthesize a *joint* schedule for the whole fleet.
+
+        Searches the joint `ParametricSchedule` space — one M x n_slots
+        logit block, campaign m's day schedule in row m — against the
+        coupled fleet objective (`FleetTraceObjective`): site metrics
+        are summed over campaigns and `deadlines` become per-campaign
+        runtime caps.  An active site cap is enforced by the physical
+        curtailment *inside* the objective (no soft constraint is
+        added — idle/office draw cannot be shed, so the reported peak
+        may sit slightly above an unreachable cap); to plan under a
+        peak *budget* without curtailment, drop the cap from the Site
+        and pass `constraints={"site_peak_kw": budget}`.  By default
+        the search warm-starts from the independently-optimized
+        per-campaign schedules (`init="independent"`), so the joint
+        result is never worse than running the members' own optima
+        under the shared cap.
+
+        Returns a `FleetOptimizeResult`: `.schedules` (M drop-in
+        `ParametricSchedule`s), `.results`/`.site` (per-campaign
+        `SimResult`s + rollup, evaluated by the grouped-lane engine),
+        plus the usual optimizer fields.  `device` is where it runs (the
+        card by default); remaining kwargs go to `optimize_fleet`
+        (method, candidates, iterations, steps, lr, u_min/u_max, seed,
+        ...).
+        """
+        from repro_torch.core.optimize import optimize_fleet
+        carbon = self._carbon(carbon_trace, None)
+        dls = self._deadlines(deadlines)
+        cases = self._cases([c.schedule for c in self.campaigns],
+                            carbon=carbon, deadlines=dls, label="fleet")
+        return optimize_fleet(
+            cases, site=self.site, objective=objective,
+            constraints=constraints, price=self.site.price, device=device,
+            **kwargs)
+
 
 __all__ = ["Fleet", "FleetResult", "Site", "SiteRollup", "fleet_sweep",
            "simulate_fleet"]

@@ -21,7 +21,8 @@ expressions broadcast.  Callers:
 
   * ``core/simulator.py``     (both sequential simulators; scalars)
   * ``core/engine.py``        (periodic vectorized engine; torch)
-  * ``core/engine_torch.py``  (trace-grid scan engine; NumPy lowering)
+  * ``core/engine_torch.py``  (trace-grid scan engine; NumPy lowering,
+    and the differentiable objectives; torch)
   * ``kernels/scan_chunk.py``, ``kernels/coupled_chunk.py`` (the plain
     PyTorch versions of the chunk kernels; torch)
   * ``core/energy.py``        (``MachineProfile.power`` delegates here)
@@ -45,24 +46,30 @@ SCALAR = SimpleNamespace(maximum=lambda a, b: a if a > b else b,
                          minimum=lambda a, b: a if a < b else b)
 
 
-def _torch_extremum(pair, clamp, scalar):
+def _torch_extremum(pair, scalar):
     """Elementwise max/min over any mix of tensors and Python numbers:
     `torch.maximum`/`torch.minimum` take tensors only, so a Python bound
-    goes through `clamp_min`/`clamp_max` (exact, NaN-propagating, and the
-    tensor keeps its dtype — as NumPy keeps it for a weak scalar)."""
+    becomes a 0-d tensor of the other operand's dtype (exact,
+    NaN-propagating, and the tensor keeps its dtype — as NumPy keeps it
+    for a weak scalar).  At a tie the gradient splits evenly, as JAX's
+    `jnp.maximum`/`jnp.minimum` split it (`clamp_min`/`clamp_max` would
+    pass all of it)."""
     def op(a, b):
         if isinstance(a, torch.Tensor):
-            return pair(a, b) if isinstance(b, torch.Tensor) else clamp(a, b)
+            if not isinstance(b, torch.Tensor):
+                b = torch.tensor(b, dtype=a.dtype)
+            return pair(a, b)
         if isinstance(b, torch.Tensor):
-            return clamp(b, a)
+            return pair(torch.tensor(a, dtype=b.dtype), b)
         return scalar(a, b)
     return op
 
 
-# Torch namespace: the same expressions on tensors of any device/dtype.
+# Torch namespace: the same expressions on tensors of any device/dtype,
+# differentiable under `torch.autograd`.
 TORCH = SimpleNamespace(
-    maximum=_torch_extremum(torch.maximum, torch.clamp_min, SCALAR.maximum),
-    minimum=_torch_extremum(torch.minimum, torch.clamp_max, SCALAR.minimum))
+    maximum=_torch_extremum(torch.maximum, SCALAR.maximum),
+    minimum=_torch_extremum(torch.minimum, SCALAR.minimum))
 
 # A site-throttled campaign's worker intensity never drops below 5% of
 # its demand (the curtailment sheds worker load, not the whole machine;

@@ -14,6 +14,9 @@ Simulation campaigns (OEMWorkload):
     Campaign(workload).frontier()               -> six-policy Figure-1 table
     Campaign(workload).sweep(schedules)         -> vectorized many-schedule pass
                                                    (on the card by default)
+    Campaign(workload).optimize("co2", deadline_h=200)
+                                                -> synthesized schedule
+                                                   (core/optimize.py)
 
 Training campaigns (TrainingCampaign):
     c = Campaign(training_workload, schedule)
@@ -255,6 +258,87 @@ class Campaign:
         results = sweep(cases, price=self.price, device=device)
         return (frontier_from_sweep(results, base=self.baseline())
                 if deltas else results)
+
+    def optimize(self, objective="co2", *, constraints=None,
+                 deadline_h: float = 0.0, carbon_trace=None,
+                 carbon_ensemble=None, robust: Optional[str] = None,
+                 deltas: bool = False, device=None, **kwargs):
+        """Synthesize a near-optimal schedule for this campaign.
+
+        Searches the `ParametricSchedule` space (per-slot intensities)
+        against the calibrated workload/machine on the trace-grid
+        objective (core/optimize.py): gradient descent through the scan
+        under `torch.autograd` for the smooth family, or a population/CEM
+        search evaluating hundreds of candidates per objective call, on
+        `device` (the card by default).
+
+        `objective` is a metric name ("co2", "energy", "runtime",
+        "cost"), a weights mapping for weighted-sum trade-offs, or an
+        `Objective`; `constraints` maps metrics to caps
+        (ε-constraints).  `deadline_h` is shorthand for a runtime cap —
+        ``optimize("co2", deadline_h=200.0)`` reads *min CO2 subject to
+        finishing in 200 h*.  `carbon_trace` swaps in a non-periodic
+        hourly forecast exactly like `Campaign.sweep`; `carbon_ensemble`
+        swaps in a whole scenario ensemble (`SignalEnsemble`, (E, T)
+        array, or list of traces), and `robust` picks how the
+        per-member CO2 collapses into the loss — ``"mean"`` (expected),
+        ``"cvar"`` (tail mean at `cvar_alpha`, pass via kwargs), or
+        ``"worst"``.  Remaining keyword arguments go to
+        `optimize_schedule` (method, candidates, iterations, steps, lr,
+        n_slots, u_min/u_max, levels, pareto, seed, cvar_alpha, ...).
+
+        Returns an `OptimizeResult`: `.schedule` (a drop-in Schedule),
+        `.result` (a SimResult comparable to sweep/frontier rows —
+        delta columns filled vs the calibrated baseline when
+        `deltas=True`), and `.frontier` (the population's Pareto set,
+        when `pareto=True` with the cem method).
+        """
+        from repro_torch.core.engine import (case_slots_per_hour,
+                                             periodic_decision_profile)
+        from repro_torch.core.optimize import (canonical_metric,
+                                               optimize_schedule)
+        from repro_torch.core.schedule import ParametricSchedule
+        wl, m = self.calibrated()
+        if carbon_trace is not None and carbon_ensemble is not None:
+            raise ValueError("pass either carbon_trace= or "
+                             "carbon_ensemble=, not both")
+        if carbon_ensemble is not None:
+            carbon = as_ensemble(carbon_ensemble, name="carbon-ensemble")
+        elif carbon_trace is not None:
+            carbon = as_trace(carbon_trace, name="carbon-trace")
+        else:
+            carbon = self.carbon
+        if robust is not None:
+            kwargs["robust"] = robust
+        # canonicalize aliases ("runtime", "deadline") BEFORE merging the
+        # deadline_h shorthand, so an explicit user cap always wins and
+        # the runtime cap is found for case.deadline_h below
+        constraints = {canonical_metric(k): float(v)
+                       for k, v in dict(constraints or {}).items()}
+        if deadline_h:
+            constraints.setdefault("runtime_h", float(deadline_h))
+        case = SweepCase(self.schedule, wl, m, self.bands, carbon,
+                         self.start_hour,
+                         deadline_h=float(constraints.get("runtime_h", 0.0)))
+        if "init" not in kwargs:
+            # warm-start from this campaign's own schedule when it has a
+            # closed-form day profile (gradient polish converges much
+            # faster near a sensible incumbent than from a flat table);
+            # sampled at the case's grid resolution so sub-hour band
+            # edges are not aliased away
+            prof = periodic_decision_profile(self.schedule, self.bands,
+                                             case_slots_per_hour(case))
+            if prof is not None:
+                kwargs["init"] = prof[0]
+            elif isinstance(self.schedule, ParametricSchedule):
+                # a previous optimization's result IS a day profile:
+                # refine the incumbent instead of restarting flat
+                kwargs["init"] = self.schedule.intensity_table()
+        out = optimize_schedule(case, objective, constraints,
+                                price=self.price, device=device, **kwargs)
+        if deltas:
+            fill_deltas([out.result] + out.frontier, self.baseline())
+        return out
 
     # ------------------------------------------------------------------
     def as_fleet(self, site=None, **kwargs):

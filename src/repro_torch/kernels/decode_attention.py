@@ -112,6 +112,8 @@ def _check(q, k, v, length, nsplit, block_k):
     if nsplit < 1 or block_k < 1:
         raise ValueError(f"decode_attention takes positive nsplit and "
                          f"block_k, got {nsplit} and {block_k}")
+    if q.requires_grad or k.requires_grad or v.requires_grad:
+        raise RuntimeError("decode_attention is forward only")
     if isinstance(length, torch.Tensor):
         if length.numel() != 1 or length.dtype != torch.int32:
             raise TypeError(f"decode_attention takes a Python int or a "

@@ -69,6 +69,8 @@ def _check(x: torch.Tensor, scale: torch.Tensor):
         raise ValueError("rmsnorm inputs must be on one device")
     if not (x.is_contiguous() and scale.is_contiguous()):
         raise ValueError("rmsnorm inputs must be contiguous")
+    if x.requires_grad or scale.requires_grad:
+        raise RuntimeError("rmsnorm is forward only")
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,

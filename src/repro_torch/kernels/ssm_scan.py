@@ -111,6 +111,8 @@ def _check(a: torch.Tensor, b: torch.Tensor, chunk: int, block_c: int):
     if chunk < 1 or block_c < 1:
         raise ValueError(f"ssm_scan takes positive chunk and block_c, got "
                          f"{chunk} and {block_c}")
+    if a.requires_grad or b.requires_grad:
+        raise RuntimeError("ssm_scan is forward only")
 
 
 def ssm_scan(a: torch.Tensor, b: torch.Tensor, *, chunk: int = 128,

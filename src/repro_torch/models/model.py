@@ -120,7 +120,9 @@ class Model(nn.Module):
         """The training objective on `batch` ({"tokens": (B, S)}, a tensor
         or a numpy array, as `SyntheticLM.batch_at` gives it).  Returns
         (loss, {"nll", "acc", "aux"}), fp32 scalars.  Forward only: call
-        it under `torch.no_grad()` (the kernels refuse grad)."""
+        it under `torch.no_grad()` (K5 `flash_attention`, K6
+        `decode_attention`, K7 `ssm_scan`, K8 `rmsnorm`, K9 `moe_gemm`
+        and K10 `xent` refuse inputs that require grad)."""
         cfg = self.cfg
         if cfg.encdec:
             raise NotImplementedError("the encoder-decoder loss is not "

@@ -1048,6 +1048,47 @@ def test_ssm_scan_wrapper_dispatch_and_checks():
         k7.ssm_scan(a, b, chunk=0)
 
 
+def _forward_only_call(kernel, grad_arg, device):
+    """One call of K6, K7 or K8 with input `grad_arg` requiring grad."""
+    if kernel == "decode_attention":
+        args = list(decode_inputs(1, 4, 2, 16, 8, torch.float32, device))
+        fn = lambda a: k6.decode_attention(*a, 9)  # noqa: E731
+    elif kernel == "ssm_scan":
+        args = list(scan_inputs(1, 6, 4, torch.float32, device))
+        fn = lambda a: k7.ssm_scan(*a)  # noqa: E731
+    else:
+        rng = np.random.default_rng(0)
+        args = [torch.as_tensor(rng.normal(size=shape), dtype=torch.float32,
+                                device=device) for shape in ((3, 64), (64,))]
+        fn = lambda a: k8.rmsnorm(*a)  # noqa: E731
+    args[grad_arg] = args[grad_arg].requires_grad_()
+    return fn(args)
+
+
+_FORWARD_ONLY = [("decode_attention", 0), ("decode_attention", 1),
+                 ("decode_attention", 2), ("ssm_scan", 0), ("ssm_scan", 1),
+                 ("rmsnorm", 0), ("rmsnorm", 1)]
+
+
+@pytest.mark.parametrize("kernel,grad_arg", _FORWARD_ONLY)
+def test_forward_only_kernels_refuse_grad(kernel, grad_arg):
+    """K6, K7 and K8 refuse an input that requires grad before they pick
+    the device, as K5, K9 and K10 do: the CUDA kernels write into fresh
+    tensors and would drop the gradient without a word."""
+    with pytest.raises(RuntimeError, match="forward only"):
+        _forward_only_call(kernel, grad_arg, "cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,grad_arg", _FORWARD_ONLY)
+def test_forward_only_kernels_refuse_grad_on_card(kernel, grad_arg):
+    dev = _card()
+    before = (k6.launches, k7.launches, k8.launches)
+    with pytest.raises(RuntimeError, match="forward only"):
+        _forward_only_call(kernel, grad_arg, dev)
+    assert (k6.launches, k7.launches, k8.launches) == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,hkv,sk,d,length,nsplit,block_k", [
