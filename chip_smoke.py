@@ -29,19 +29,34 @@ the answers against the repo's own oracles:
      (both against the same sweep on the CPU and the fleet against the
      sequential oracle), `scan_stats()` kernel dispatches, and the OEM
      case 1 baseline (180.30 h / 48.67 kWh); then the schedule
-     optimizer (`phase_optimize`): `TraceObjective` at the benchmark's
-     shape (OEM case 1, T = 280 slots, populations of 256 and 1,024)
-     against `device="cpu"` (fp64 1e-9 per field, mixed 1e-6 of fp64),
-     the gradient of one scalarized loss (1e-9 in norm), ms per
-     evaluate and per gradient step, launches and idle share from one
-     trace each; the README's `Campaign(OEM_CASE_1).optimize("energy",
-     deadline_h=214, ...)` over the week trace (it must beat the six
-     policies' best energy within the deadline, its row equal the CPU
-     `trace_sweep`'s to 1e-9, K2 must launch); and the README's capped
-     two-OEM `Fleet.optimize("co2", deadlines=[300, 480])` (steps cut to
-     `OPT_FLEET_STEPS`; joint site CO2 at most the independent optima's
+     optimizer (`phase_optimize`): K3 (`objective_scan`, the
+     `TraceObjective` scan, forward and backward kernels behind a
+     `torch.autograd.Function`) at the benchmark's shape (OEM case 1,
+     T = 280 slots, populations of 256 and 1,024, fp64 and mixed, and an
+     E = 4 `SignalEnsemble`) against its plain version on the card (fp64
+     1e-9 per field, `unfinished` 1e-9 absolute; mixed 1e-6 of the plain
+     mixed result and of fp64) and `device="cpu"`; the gradient of one
+     scalarized loss against autograd of the plain version on the card
+     (fp64 1e-9 in norm, 1e-8 per component above 1e-12 of the norm, and
+     1e-9 against the CPU; mixed 1e-5 in norm); K4 (`fleet_objective`,
+     the `FleetTraceObjective` scan) the same way at N = 192, M = 2,
+     T = 624 under the README's 0.45 kW and uncapped; one forward launch
+     per `evaluate_batch` and one forward plus one backward per gradient
+     step; each kernel's ms against its bound and the launch floor, the
+     wall, launches and idle share of an evaluate and of a step, and
+     `ptxas -v` registers; then the kernels' main path: the README's
+     `Campaign(OEM_CASE_1).optimize("energy", deadline_h=214, ...)` over
+     the week trace (it must beat the six policies' best energy within
+     the deadline, its row equal the CPU `trace_sweep`'s to 1e-9, K2 must
+     launch; K3 432 forward and 400 backward launches) and the README's
+     capped two-OEM `Fleet.optimize("co2", deadlines=[300, 480])` at its
+     default 500 steps (joint site CO2 at most the independent optima's
      under the cap, rows equal the CPU `fleet_sweep`'s to 1e-9, K1 must
-     launch);
+     launch; K4 532 forward and 500 backward launches, K3 1,064 and
+     1,000 for the two independent optima), and the first and the last
+     K3 and K4 launch of each population size on that path (T = 292 and
+     624), forward and backward, against its plain version on the same
+     inputs at the same bars;
   4a. K6 (`decode_attention`) through `kernels.ops.decode_attention`,
      as the reference reaches it: TinyLlama-1.1B's decode (q (4, 32, 64)
      over a (4, 2048, 4, 64) cache at length 1,000 and 2,048) and a 32k
@@ -113,7 +128,8 @@ the answers against the repo's own oracles:
      to 1e-5 of max |out|; K9 is also timed in fp32 at the same shapes,
      and the `ptxas -v` registers and shared memory of its kernels are
      printed;
-  9. one JSON line of per-kernel numbers, then the result line.
+  9. one JSON line of per-kernel numbers (K2, K1, K3 and K4 forward and
+     backward, K6, K7, K5, K8, K10, K9), then the result line.
 
 Every kernel time is by CUDA events (`cuda_ms`).  The profiler serves
 only the traced windows, and a window is used only when its trace shows
@@ -591,14 +607,16 @@ def phase_end_to_end(torch, carina, et, dev):
 
 
 # --------------------------------------------------------------------------
-# the schedule optimizer: TraceObjective, Campaign.optimize, Fleet.optimize
+# the schedule optimizer: K3 / K4, Campaign.optimize, Fleet.optimize
 # --------------------------------------------------------------------------
 OPT_FIELDS = ("energy_kwh", "co2_kg", "runtime_h", "cost_usd", "unfinished")
-# Fleet.optimize's gradient steps in this run (the default is 500), cut so
-# the phase stays within about a minute: a joint step is ~15,000 eager
-# launches, ~0.35 s on the card (tools/time_fleet_optimize.py times the
-# default)
-OPT_FLEET_STEPS = 60
+# fp64 operations a member-slot (a `pow` counted as one): K3's forward is
+# K2's physics and state; its backward recomputes the physics, takes its
+# derivative (two more powers) and the adjoint chain; K4's forward is
+# K1's (five operating points a capped slot), its backward recomputes
+# them and reverses each (uncapped: K3's counts)
+K3_OPS = {"fwd": (31, 7), "bwd": (70, 12)}     # (physics, state)
+K4_OPS = {"fwd": (160, 8), "bwd": (520, 16)}
 
 
 @contextlib.contextmanager
@@ -620,21 +638,22 @@ def timed(mod, name, store):
         setattr(mod, name, fn)
 
 
-def objective_bound(lane_slots, ops, bytes_, passes=1):
-    """Least ms for an objective call doing `passes` x `ops` fp64
-    operations a lane-slot over `lane_slots` lane-slots (the scan runs
-    every slot of the horizon) and moving `bytes_` (intensities, per-slot
-    signals and outputs, each once): the bound K3 / K4 will be held to."""
-    ms, by = bound_ms(bytes_, 0, passes * ops * lane_slots, "float64")
-    return f"bound {ms:.7f} ms ({by})"
-
-
 def metrics_err(got, ref):
     """Max relative error over an objective's fields (`unfinished`, a
     fraction of the workload, against 1)."""
     return max(rel_err(getattr(got, f), getattr(ref, f),
                        1.0 if f == "unfinished" else None)
                for f in got._fields)
+
+
+def grad_err(got, ref):
+    """(relative error in norm, max relative error of the components
+    above 1e-12 of the norm) of a gradient against its reference."""
+    got, ref = got.detach().cpu().double(), ref.detach().cpu().double()
+    norm = float(ref.norm())
+    big = ref.abs() > 1e-12 * norm
+    comp = float(((got - ref).abs()[big] / ref.abs()[big]).max())
+    return float((got - ref).norm()) / norm, comp
 
 
 def rows_err(got, ref):
@@ -645,9 +664,8 @@ def rows_err(got, ref):
 
 def call_times(torch, fn, reps):
     """Wall ms per synchronised call of `fn`, ms per call by CUDA events
-    around `reps` queued calls (`cuda_ms`: for a function of thousands of
-    small launches the launch queue fills, so this too is host-paced),
-    and one traced call's launches, device-busy ms and idle share."""
+    around `reps` queued calls (`cuda_ms`), and one traced call's
+    launches, device-busy ms and idle share."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -658,21 +676,175 @@ def call_times(torch, fn, reps):
     ev = cuda_ms(torch, fn, reps)
     win = profile_window(torch, fn, {})
     if isinstance(win, str):
-        return (f"{wall:.2f} ms wall, {ev:.3f} ms by CUDA events; trace "
+        return (f"{wall:.3f} ms wall, {ev:.4f} ms by CUDA events; trace "
                 f"not used: {win}")
     t_wall, busy, launches, _, _ = win
-    return (f"{wall:.2f} ms wall, {ev:.3f} ms by CUDA events; traced: "
-            f"{launches} launches, device busy {busy * 1e3:.3f} ms of "
-            f"{t_wall * 1e3:.2f}, idle {1 - busy / t_wall:.3f}")
+    return (f"{wall:.3f} ms wall, {ev:.4f} ms by CUDA events; traced: "
+            f"{launches} launches, device busy {busy * 1e3:.4f} ms of "
+            f"{t_wall * 1e3:.3f}, idle {1 - busy / t_wall:.3f}")
 
 
-def phase_optimize(torch, carina, et, dev):
-    """The schedule optimizer on the card: `TraceObjective` and
-    `FleetTraceObjective` at the benchmark's shapes against the CPU,
-    then the README's `Campaign.optimize` and capped two-OEM
-    `Fleet.optimize` end to end."""
+def entry_registers(build, source, labels):
+    """`ptxas -v` registers (and spills) of each instance of the named
+    kernels of one source (templates or not), from this run's build
+    log."""
+    log = build.BUILD_LOG.get(source)
+    if log is None:
+        return "not built in this run"
+    parts, name, spill = [], None, ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif name and "Used" in ln and "registers" in ln:
+            for label in labels:
+                m = re.search(label + r"(?:I(\w+?)E+v|E)", name)
+                if m:
+                    args = m.group(1) or ""  # e.g. "dLi4": double, 4
+                    targs = ({"d": ["fp64"], "f": ["fp32"]}.get(args[:1], [])
+                             + re.findall(r"Li(\d+)", args))
+                    regs = ln.split("Used", 1)[1].split(",")[0].strip()
+                    tmpl = f"<{', '.join(targs)}>" if targs else ""
+                    parts.append(f"{label}{tmpl} {regs} ({spill})")
+            name = None
+    return "; ".join(parts) or "no such kernel in the log"
+
+
+def k3_bound(torch, args, outs, bwd=False):
+    """Least ms of a K3 launch on these inputs: `u`, the series, the
+    outputs (and for the backward the checkpoint, the gradients in and
+    d/du out), each once; operations a member-slot over the slots each
+    member ran (its work ends when it finishes)."""
+    u, rowidx, bg, cf, pr, lens = args[:6]
+    N, S = u.shape
+    T = rowidx.shape[0]
+    EC = 1 if cf.dim() == 1 else cf.shape[1]
+    t = bg.element_size()
+    n = int(slots_run(torch, torch.zeros_like(outs[2]), outs[2] * 3600.0,
+                      lens).sum())
+    bytes_ = N * S * 8 + T * (4 + (3 + EC) * t) + N * (4 + EC) * 8
+    if bwd:
+        bytes_ += T * N * 8 + N * (4 + EC) * 8 + N * S * 8
+    phys, state = K3_OPS["bwd" if bwd else "fwd"]
+    return bound_ms(bytes_, n * phys, n * (state + 2 * EC),
+                    str(bg.dtype).split(".")[1])
+
+
+def k4_bound(torch, args, outs, bwd=False):
+    """Least ms of a K4 launch: `u`, the series, base and campaign
+    scalars, the outputs (backward: the checkpoints, the gradients in and
+    d/du out), each once; operations a campaign-slot over the slots each
+    campaign ran (K3's counts when uncapped)."""
+    u, rowidx, tabs, base, camp, _, capped = args[:7]
+    N, M, S = u.shape
+    T = rowidx.shape[0]
+    n = int(slots_run(torch, torch.zeros_like(outs[2]), outs[2] * 3600.0,
+                      tabs[3]).sum())
+    bytes_ = (u.numel() + tabs.numel() + base.numel() + camp.numel()
+              + 6 * N * M) * 8 + T * 4
+    if bwd:
+        bytes_ += (T * N * (M + 1) + 6 * N * M + u.numel()) * 8
+    phys, state = (K4_OPS if capped else K3_OPS)["bwd" if bwd else "fwd"]
+    return bound_ms(bytes_, 0, n * (phys + state + 2), "float64")
+
+
+def launch_err(kind, out_k, out_p, n_fields, n_scen):
+    """Error of one launch against its plain version on the same inputs.
+    Forward: the largest relative error over the `n_fields` outputs per
+    element (`unfinished`, a fraction of the workload, against 1) and the
+    checkpoints (each slot's starting remaining against the workload
+    `n_scen`, K4's peak before each slot against itself).  Backward:
+    `grad_err` (in norm, per component)."""
+    if kind == "bwd":
+        return grad_err(out_k, out_p)
+    cpu = [[None if x is None else x.detach().cpu().numpy() for x in o]
+           for o in (out_k, out_p)]
+    errs = [rel_err(a, b, 1.0 if i == 4 else None)
+            for i, (a, b) in enumerate(zip(cpu[0][:n_fields],
+                                           cpu[1][:n_fields]))]
+    hist = cpu[1][n_fields:]
+    if hist[0] is not None:
+        errs.append(rel_err(cpu[0][n_fields], hist[0], n_scen))
+        errs += [rel_err(a, b) for a, b in zip(cpu[0][n_fields + 1:],
+                                               hist[1:])]
+    return max(errs), None
+
+
+def pair_rows(torch, mod, prefix, rec, timed_calls, launches, bound,
+              replaces, source, n_fields, n_scen):
+    """The JSON rows of a forward/backward kernel pair.  Every launch the
+    main path recorded (`rec[kind]`: the first and the last of each
+    population size) is held to its plain version on the same inputs:
+    fp64 forward 1e-9 per field, backward 1e-9 in norm and 1e-8 per
+    component; mixed (fp32 series) forward 1e-6, backward 1e-5 in norm.
+    `timed_calls[kind]` is timed (`cuda_ms`) beside its plain version and
+    its bound.  `n_scen(args)` is the launch's workload (the checkpoints'
+    scale)."""
+    rows = []
+    for kind in ("fwd", "bwd"):
+        fn = getattr(mod, f"{prefix}_{kind}")
+        plain = getattr(mod, f"{prefix}_{kind}_plain")
+        abs_err = 0.0
+        for size, calls in rec[kind].items():
+            for i, (args, kw) in enumerate(calls[:1] if calls[0] is calls[1]
+                                           else calls):
+                with torch.no_grad():
+                    out_k, out_p = fn(*args, **kw), plain(*args, **kw)
+                torch.cuda.synchronize()
+                e, e_comp = launch_err(kind, out_k, out_p, n_fields,
+                                       n_scen(args))
+                mixed = args[2].dtype == torch.float32
+                bar = (1e-6 if kind == "fwd" else 1e-5) if mixed else 1e-9
+                where = (f"{prefix}_{kind} at the main path's N = {size} "
+                         f"({'first' if i == 0 else 'last'} launch)")
+                check(e <= bar, f"{where} vs its plain version: {e:.3e} "
+                      f"(bar {bar:g})")
+                if e_comp is not None and not mixed:
+                    check(e_comp <= 1e-8, f"{where} gradient component "
+                          f"error {e_comp:.3e} > 1e-8")
+                print(f"{where} vs its plain version: {e:.3e} (bar "
+                      f"{bar:g})" + ("" if e_comp is None else
+                                     f", components {e_comp:.3e}"),
+                      flush=True)
+                pairs = ([(out_k, out_p)] if kind == "bwd" else
+                         [(a, b) for a, b in zip(out_k, out_p)
+                          if a is not None])
+                abs_err = max(abs_err, max_abs(torch, *zip(*pairs)))
+        args, kw = timed_calls[kind]
+        fwd_outs = (getattr(mod, f"{prefix}_fwd")(*args[:7]) if kind == "bwd"
+                    else fn(*args, **kw))
+        b_ms, b_by = bound(torch, args, fwd_outs, kind == "bwd")
+        rows.append({"name": f"{prefix}_{kind}", "route": "cuda",
+                     "source": source, "replaces": replaces,
+                     "launches": launches[kind], "max_abs_err": abs_err,
+                     "ms": cuda_ms(torch, lambda: fn(*args, **kw), 20),
+                     "plain_ms": cuda_ms(torch, lambda: plain(*args, **kw),
+                                         2),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": None})
+    return rows
+
+
+def by_size(args):
+    """Record key: the population size of a K3/K4 launch."""
+    return args[0].shape[0]
+
+
+def phase_optimize(torch, carina, et, k3, k4, build, dev, floor):
+    """The schedule optimizer on the card: K3 (`TraceObjective`) and K4
+    (`FleetTraceObjective`) forward and backward at the benchmark's
+    shapes against their plain versions on the card and the CPU, then
+    the README's `Campaign.optimize` and capped two-OEM `Fleet.optimize`
+    end to end (the kernels' main path).  Returns the four kernels' JSON
+    rows."""
     from repro_torch.core import optimize as opt
     PS = carina.ParametricSchedule
+    print("K3 ptxas: " + entry_registers(build, "objective_scan", (
+        "trace_fwd_kernel", "trace_bwd_kernel")), flush=True)
+    print("K4 ptxas: " + entry_registers(build, "fleet_objective", (
+        "fleet_fwd_kernel", "fleet_bwd_kernel", "fleet_fwd_stream",
+        "fleet_bwd_stream")), flush=True)
 
     def loss_grad(to, p, scalarize):
         p = p.clone().requires_grad_()
@@ -680,19 +852,90 @@ def phase_optimize(torch, carina, et, dev):
         val = scalarize(to.evaluate(u))
         return val, torch.autograd.grad(val, p)[0]
 
-    def hold_grad(obj_card, obj_cpu, p0, scalarize, label):
-        v_cpu, g_cpu = loss_grad(obj_cpu, p0, scalarize)
-        v_card, g_card = loss_grad(obj_card, p0.to(dev), scalarize)
-        err = float(torch.linalg.vector_norm(g_card.cpu() - g_cpu)
-                    / torch.linalg.vector_norm(g_cpu))
-        check(err <= 1e-9, f"{label} gradient card vs CPU: {err:.3e}")
-        check(abs(v_card.item() / v_cpu.item() - 1) <= 1e-9,
-              f"{label} loss card vs CPU")
+    def hold_grad(mod, entry, obj_card, obj_cpu, p0, scalarize, label,
+                  bar=1e-9):
+        """The gradient of one scalarized loss through the kernels,
+        against autograd of the plain version on the card (and, fp64, on
+        the CPU); one forward and one backward launch; the step's
+        times."""
         pd = p0.to(dev)
-        return err, call_times(
+        before = (mod.fwd_launches, mod.bwd_launches)
+        v_card, g_card = loss_grad(obj_card, pd, scalarize)
+        torch.cuda.synchronize()
+        n_launch = (mod.fwd_launches - before[0],
+                    mod.bwd_launches - before[1])
+        check(n_launch == (1, 1), f"{label} gradient step launched "
+              f"{n_launch} (forward, backward) kernels, not (1, 1)")
+        with plain_versions((mod, entry)):
+            v_plain, g_plain = loss_grad(obj_card, pd, scalarize)
+        e_norm, e_comp = grad_err(g_card, g_plain)
+        check(e_norm <= bar, f"{label} gradient kernels vs plain on the "
+              f"card: {e_norm:.3e} in norm (bar {bar:g})")
+        text = (f"kernels vs plain on the card {e_norm:.3e} in norm (bar "
+                f"{bar:g}), components {e_comp:.3e}")
+        if bar <= 1e-9:
+            check(e_comp <= 1e-8, f"{label} gradient component error "
+                  f"{e_comp:.3e} > 1e-8")
+            v_cpu, g_cpu = loss_grad(obj_cpu, p0, scalarize)
+            e_cpu, _ = grad_err(g_card, g_cpu)
+            check(e_cpu <= 1e-9, f"{label} gradient card vs CPU: "
+                  f"{e_cpu:.3e}")
+            check(abs(v_card.item() / v_cpu.item() - 1) <= 1e-9,
+                  f"{label} loss card vs CPU")
+            text += f"; card vs CPU {e_cpu:.3e}"
+        return text + "; step " + call_times(
             torch, lambda: loss_grad(obj_card, pd, scalarize)[0].item(), 5)
 
-    # 1. TraceObjective at benchmarks/run.py:285-297's shape
+    def hold_eval(mod, entry, obj_card, U, ref, bars, label):
+        """One population evaluate through the kernel (one forward
+        launch) against the plain version on the card (bars[0]) and the
+        reference `ref` (bars[1])."""
+        before = mod.fwd_launches
+        got = obj_card.evaluate_batch(U)
+        check(mod.fwd_launches == before + 1, f"{label} evaluate_batch "
+              f"launched {mod.fwd_launches - before} forward kernels")
+        with plain_versions((mod, entry)):
+            plain = obj_card.evaluate_batch(U)
+        e_plain, e_ref = metrics_err(got, plain), metrics_err(got, ref)
+        check(e_plain <= bars[0], f"{label} kernel vs plain on the card: "
+              f"{e_plain:.3e} (bar {bars[0]:g})")
+        check(e_ref <= bars[1], f"{label} vs the reference: {e_ref:.3e} "
+              f"(bar {bars[1]:g})")
+        return got, (f"kernel vs plain on the card {e_plain:.3e} (bar "
+                     f"{bars[0]:g}), vs the reference {e_ref:.3e} (bar "
+                     f"{bars[1]:g}); evaluate_batch "
+                     + call_times(torch, lambda: obj_card.evaluate_batch(U),
+                                  3))
+
+    def kernel_ms(mod, prefix, obj, U, keep_grad_n=1):
+        """The forward kernel at this population, the backward at one
+        member's gradient: ms by CUDA events, bound, launch floor."""
+        *tables, scal = (k3.scan_inputs(obj, dev) if mod is k3 else
+                         (*k4.scan_inputs(obj, dev), obj.batch_size,
+                          obj.site_cap_kw is not None))
+        u = torch.as_tensor(U, device=dev).reshape(
+            (U.shape[0], -1) if mod is k3 else U.shape).contiguous()
+        args = (u, *tables, scal)
+        fwd = getattr(mod, f"{prefix}_fwd")
+        bwd = getattr(mod, f"{prefix}_bwd")
+        bound = k3_bound if mod is k3 else k4_bound
+        outs = fwd(*args)
+        f_ms = cuda_ms(torch, lambda: fwd(*args), 20)
+        fb, _ = bound(torch, args, outs)
+        u1 = u[:keep_grad_n].contiguous()
+        a1 = (u1, *tables, scal)
+        o1 = fwd(*a1, keep=True)
+        grads = tuple(torch.ones_like(x) for x in o1[:-2 if mod is k4
+                                                    else -1])
+        b_args = a1 + tuple(x for x in o1[len(grads):]) + (grads,)
+        b_ms = cuda_ms(torch, lambda: bwd(*b_args), 20)
+        bb, _ = bound(torch, b_args, o1, True)
+        return (f"{prefix}_fwd {f_ms:.4f} ms (bound {fb:.7f}, launch floor "
+                f"{floor:.4f}); {prefix}_bwd at N = {keep_grad_n} "
+                f"{b_ms:.4f} ms (bound {bb:.7f})")
+
+    # 1. K3 at benchmarks/run.py:285-297's shape: T = 280, populations
+    # of 256 and 1,024, fp64 and mixed; an E = 4 ensemble
     wl, m = carina.calibrate_workload(carina.OEM_CASE_1,
                                       carina.MachineProfile())
     case = carina.SweepCase(carina.parametric_schedule(24), wl, m,
@@ -706,38 +949,49 @@ def phase_optimize(torch, carina, et, dev):
     T = len(obj["fp64", "card"].lens)
     for n, U in pops.items():
         ref = obj["fp64", "cpu"].evaluate_batch(U)
+        got64 = None
         for prec in ("fp64", "mixed"):
-            to = obj[prec, "card"]
-            err = metrics_err(to.evaluate_batch(U), ref)
-            bar = 1e-9 if prec == "fp64" else 1e-6
-            check(err <= bar, f"TraceObjective {prec} N={n} card vs CPU "
-                  f"fp64: {err:.3e} (bar {bar:g})")
-            sig = (4 * T + to.n_slots) * 8 + T * 8       # + rowidx
-            bound = objective_bound(
-                n * T, sum(K2_OPS.values()),
-                U.nbytes + sig + 5 * n * 8)
-            print(f"TraceObjective N={n} T={T} {prec}: card vs CPU fp64 "
-                  f"{err:.3e} (bar {bar:g}); {bound}; evaluate_batch "
-                  + call_times(torch, lambda: to.evaluate_batch(U), 3),
+            label = f"K3 {prec} N={n}"
+            if prec == "fp64":
+                got64, text = hold_eval(k3, "trace_objective",
+                                        obj[prec, "card"], U, ref,
+                                        (1e-9, 1e-9), label)
+            else:
+                _, text = hold_eval(k3, "trace_objective", obj[prec, "card"],
+                                    U, got64, (1e-6, 1e-6), label)
+            print(f"{label} T={T}: {text}; "
+                  + kernel_ms(k3, "trace_scan", obj[prec, "card"], U),
                   flush=True)
+    rng = np.random.RandomState(11)
+    base = np.asarray(week_trace(carina).values)
+    ens = carina.as_ensemble(base[None, :] * (1.0 + 0.15 * rng.randn(4, 168)),
+                             name="ens4")
+    ecase = dataclasses.replace(case, carbon=ens)
+    eobj = {d: carina.TraceObjective(ecase, horizon_h=280.0, device=d)
+            for d in (dev, "cpu")}
+    U = pops[256]
+    got, text = hold_eval(k3, "trace_objective", eobj[dev], U,
+                          eobj["cpu"].evaluate_batch(U), (1e-9, 1e-9),
+                          "K3 E=4")
+    check(got.co2_kg.shape == (256, 4), f"K3 E=4 co2 {got.co2_kg.shape}")
+    print(f"K3 SignalEnsemble E=4 N=256 T={T}: {text}", flush=True)
     objective = opt.Objective.coerce("energy", {"runtime_h": 220.0})
     ref0 = obj["fp64", "cpu"].evaluate_batch(np.full((1, 24), 0.6))
     scales = {k: max(abs(float(getattr(ref0, k)[0])), 1e-9)
               for k in opt.METRIC_KEYS}
-    err, times = hold_grad(
-        obj["fp64", "card"], obj["fp64", "cpu"],
-        torch.as_tensor(np.random.RandomState(1).randn(24) * 0.5),
-        lambda mt: opt.scalarize(mt, objective, scales, xp=torch),
-        "TraceObjective")
-    bound = objective_bound(T, sum(K2_OPS.values()),
-                            2 * 24 * 8 + 5 * T * 8 + 8, passes=3)
-    print(f"TraceObjective gradient step (energy, runtime <= 220 h, "
-          f"T={T}; forward, backward, one read back): card vs CPU "
-          f"{err:.3e} in norm (bar 1e-9); {bound}, the backward counted "
-          f"as twice the forward; " + times, flush=True)
+    p0 = torch.as_tensor(np.random.RandomState(1).randn(24) * 0.5)
+    for prec, bar in (("fp64", 1e-9), ("mixed", 1e-5)):
+        text = hold_grad(k3, "trace_objective", obj[prec, "card"],
+                         obj[prec, "cpu"], p0,
+                         lambda mt: opt.scalarize(mt, objective, scales,
+                                                  xp=torch),
+                         f"K3 {prec}", bar)
+        print(f"K3 {prec} gradient step (energy, runtime <= 220 h, "
+              f"T={T}; one forward and one backward launch): {text}",
+              flush=True)
 
-    # 1b. FleetTraceObjective at the README fleet's shape: the two OEMs
-    # under Site(0.45, 0.12), deadlines 300 / 480 h (T = 624), the CEM
+    # 1b. K4 at the README fleet's shape: the two OEMs under Site(0.45,
+    # 0.12) and uncapped, deadlines 300 / 480 h (T = 624), the CEM
     # population of optimize_fleet (192)
     dls = [300.0, 480.0]
     fcases = []
@@ -745,52 +999,78 @@ def phase_optimize(torch, carina, et, dev):
         w, mm = carina.calibrate_workload(wl0, carina.MachineProfile())
         fcases.append(carina.SweepCase(carina.parametric_schedule(24), w,
                                        mm, deadline_h=dl))
-    fobj = {d: carina.FleetTraceObjective(
-        fcases, site_cap_kw=0.45, office_kw=0.12, horizon_h=624.0,
-        device=d) for d in (dev, "cpu")}
     U = 0.05 + 0.90 * np.random.RandomState(0).rand(192, 2, 24)
-    err = metrics_err(fobj[dev].evaluate_batch(U),
-                      fobj["cpu"].evaluate_batch(U))
-    check(err <= 1e-9, f"FleetTraceObjective card vs CPU: {err:.3e}")
-    fT = len(fobj[dev].lens)
-    print(f"FleetTraceObjective N=192 M=2 T={fT} under 0.45 kW: card vs "
-          f"CPU {err:.3e} (bar 1e-9); "
-          + objective_bound(192 * 2 * fT, sum(K1_OPS.values()),
-                            U.nbytes + 7 * fT * 8 + 11 * 192 * 8)
-          + "; evaluate_batch "
-          + call_times(torch, lambda: fobj[dev].evaluate_batch(U), 3),
-          flush=True)
     fobjective = opt.Objective.coerce("co2")
-    ref0 = fobj["cpu"].evaluate_batch(np.full((1, 2, 24), 0.6))
-    fscales = {k: max(abs(float(np.asarray(getattr(ref0, k)).sum())), 1e-9)
-               for k in opt.METRIC_KEYS}
-    fscales["site_peak_kw"] = float(ref0.site_peak_kw[0])
-    err, times = hold_grad(
-        fobj[dev], fobj["cpu"],
-        torch.as_tensor(np.random.RandomState(2).randn(2, 24) * 0.5),
-        lambda mt: opt.scalarize_fleet(mt, fobjective, fscales, dls,
-                                       xp=torch), "FleetTraceObjective")
-    print(f"FleetTraceObjective gradient step (co2, deadlines {dls}; "
-          f"the same logits each call, so the gradient mask hint holds): "
-          f"card vs CPU {err:.3e} in norm (bar 1e-9); "
-          + objective_bound(2 * fT, sum(K1_OPS.values()),
-                            2 * 2 * 24 * 8 + 7 * fT * 8 + 8, passes=3)
-          + "; " + times, flush=True)
+    for cap in (0.45, None):
+        fobj = {d: carina.FleetTraceObjective(
+            fcases, site_cap_kw=cap, office_kw=0.12, horizon_h=624.0,
+            device=d) for d in (dev, "cpu")}
+        fT = len(fobj[dev].lens)
+        label = f"K4 {'capped ' + str(cap) + ' kW' if cap else 'uncapped'}"
+        _, text = hold_eval(k4, "fleet_objective", fobj[dev], U,
+                            fobj["cpu"].evaluate_batch(U), (1e-9, 1e-9),
+                            label)
+        print(f"{label} N=192 M=2 T={fT}: {text}; "
+              + kernel_ms(k4, "fleet_scan", fobj[dev], U), flush=True)
+        ref0 = fobj["cpu"].evaluate_batch(np.full((1, 2, 24), 0.6))
+        fscales = {k: max(abs(float(np.asarray(getattr(ref0, k)).sum())),
+                          1e-9) for k in opt.METRIC_KEYS}
+        fscales["site_peak_kw"] = float(ref0.site_peak_kw[0])
+        text = hold_grad(
+            k4, "fleet_objective", fobj[dev], fobj["cpu"],
+            torch.as_tensor(np.random.RandomState(2).randn(2, 24) * 0.5),
+            lambda mt: opt.scalarize_fleet(mt, fobjective, fscales, dls,
+                                           xp=torch), label)
+        print(f"{label} gradient step (co2, deadlines {dls}; one forward "
+              f"and one backward launch): {text}", flush=True)
 
-    # 2. the README's Campaign.optimize (benchmarks/run.py:299-303)
+    # 1c. K4 past its register tiles (128 campaigns a member): 300
+    # campaigns of both OEMs at 20-50 % of their workloads under a 70 kW
+    # cap (it binds: 94 kW uncapped) over a day, the streaming kernels
+    big = [dataclasses.replace(fcases[i % 2], workload=dataclasses.replace(
+        fcases[i % 2].workload, name=f"c{i}",
+        n_scenarios=int(fcases[i % 2].workload.n_scenarios
+                        * (0.2 + 0.05 * (i % 7))))) for i in range(300)]
+    bobj = {d: carina.FleetTraceObjective(big, site_cap_kw=70.0,
+                                          office_kw=0.12, horizon_h=24.0,
+                                          device=d) for d in (dev, "cpu")}
+    U = 0.2 + 0.8 * np.random.RandomState(4).rand(8, 300, 24)
+    _, text = hold_eval(k4, "fleet_objective", bobj[dev], U,
+                        bobj["cpu"].evaluate_batch(U), (1e-9, 1e-9),
+                        "K4 M=300")
+    print(f"K4 M=300 N=8 T={len(bobj[dev].lens)} (streaming kernels): "
+          f"{text}; " + kernel_ms(k4, "fleet_scan", bobj[dev], U),
+          flush=True)
+    text = hold_grad(
+        k4, "fleet_objective", bobj[dev], bobj["cpu"],
+        torch.as_tensor(np.random.RandomState(5).randn(300, 24) * 0.5),
+        lambda mt: mt.co2_kg.sum() / 10.0 + mt.site_peak_kw.sum(), "K4 M=300")
+    print(f"K4 M=300 gradient step (CO2 and site peak): {text}", flush=True)
+
+    # 2. the README's Campaign.optimize (benchmarks/run.py:299-303): K3's
+    # main path, counts zeroed just before and read just after
     week = week_trace(carina)
     c = carina.Campaign(carina.OEM_CASE_1)
     six = c.sweep(list(carina.POLICIES.values()), carbon_trace=week)
     best_six = min(r.energy_kwh for r in six if r.runtime_h <= 214.0)
     cem_s, grad_s = [], []
+    rec3 = {"fwd": {}, "bwd": {}}
     et.reset_scan_stats()
+    k3.reset_launches()
     with timed(opt, "_cem_search", cem_s), timed(opt, "_grad_search",
-                                                 grad_s):
+                                                 grad_s), \
+            recording(k3, "trace_scan_fwd", rec3["fwd"], key=by_size), \
+            recording(k3, "trace_scan_bwd", rec3["bwd"], key=by_size):
         t0 = time.perf_counter()
         res = c.optimize("energy", deadline_h=214.0, carbon_trace=week,
                          candidates=256, iterations=30, steps=400)
         wall = time.perf_counter() - t0
+    n3 = {"fwd": k3.fwd_launches, "bwd": k3.bwd_launches}
     st = et.scan_stats()
+    check(n3["bwd"] == 400 and n3["fwd"] == 400 + 30 + 2,
+          f"Campaign.optimize launched K3 {n3} (want 432 forward: 30 CEM "
+          f"evaluates, 400 steps, the reference and the best; 400 "
+          f"backward)")
     check(st.kernel_dispatches["scan_chunk"] > 0,
           "Campaign.optimize's report launched no scan_chunk kernel")
     r = res.result
@@ -808,26 +1088,41 @@ def phase_optimize(torch, carina, et, dev):
     check(e_row <= 1e-9, f"Campaign.optimize row vs CPU: {e_row:.3e}")
     check(e_met <= 1e-9, f"optimizer metrics vs its row: {e_met:.3e}")
     print(f"Campaign(OEM_CASE_1).optimize('energy', deadline_h=214, week "
-          f"trace, 256 x 30 + 400 steps): {res.method}, wall {wall:.2f} s, "
-          f"CEM {sum(cem_s):.2f} s, grad {sum(grad_s):.2f} s = "
-          f"{sum(grad_s) / 400 * 1e3:.2f} ms a step; {r.runtime_h:.2f} h / "
-          f"{r.energy_kwh:.4f} kWh against the six policies' best "
-          f"{best_six:.4f} kWh; row vs CPU trace_sweep {e_row:.3e}, "
-          f"metrics vs row {e_met:.3e}; kernel dispatches "
+          f"trace, 256 x 30 + 400 steps): {res.method}, wall {wall:.3f} s, "
+          f"CEM {sum(cem_s):.3f} s, grad {sum(grad_s):.3f} s = "
+          f"{sum(grad_s) / 400 * 1e3:.3f} ms a step; K3 launches {n3}; "
+          f"{r.runtime_h:.2f} h / {r.energy_kwh:.4f} kWh against the six "
+          f"policies' best {best_six:.4f} kWh; row vs CPU trace_sweep "
+          f"{e_row:.3e}, metrics vs row {e_met:.3e}; kernel dispatches "
           f"{st.kernel_dispatches}", flush=True)
 
-    # 3. the README's capped two-OEM fleet, joint
+    # 3. the README's capped two-OEM fleet, joint, at its default 500
+    # gradient steps: K4's main path (and K3's, the independent optima)
     site = carina.Site(power_cap_kw=0.45, office_kw=0.12)
     fleet = carina.Fleet([carina.Campaign(carina.OEM_CASE_1),
                           carina.Campaign(carina.OEM_CASE_2)], site)
     cem_s, grad_s = [], []
+    rec4 = {"fwd": {}, "bwd": {}}
     et.reset_scan_stats()
+    k3.reset_launches()
+    k4.reset_launches()
     with timed(opt, "_cem_search", cem_s), timed(opt, "_grad_search",
-                                                 grad_s):
+                                                 grad_s), \
+            recording(k4, "fleet_scan_fwd", rec4["fwd"], key=by_size), \
+            recording(k4, "fleet_scan_bwd", rec4["bwd"], key=by_size):
         t0 = time.perf_counter()
-        fres = fleet.optimize("co2", deadlines=dls, steps=OPT_FLEET_STEPS)
+        fres = fleet.optimize("co2", deadlines=dls)
         wall = time.perf_counter() - t0
+    n4 = {"fwd": k4.fwd_launches, "bwd": k4.bwd_launches}
+    n3f = {"fwd": k3.fwd_launches, "bwd": k3.bwd_launches}
     st = et.scan_stats()
+    check(n4["bwd"] == 500 and n4["fwd"] == 500 + 30 + 2,
+          f"Fleet.optimize launched K4 {n4} (want 532 forward: the "
+          f"reference, 30 CEM evaluates, 500 steps, the best; 500 "
+          f"backward)")
+    check(n3f == {"fwd": 2 * 532, "bwd": 2 * 500}, f"Fleet.optimize's "
+          f"independent optima launched K3 {n3f} (want 1,064 forward, "
+          f"1,000 backward)")
     check(st.kernel_dispatches["coupled_chunk"] > 0,
           "Fleet.optimize's report launched no coupled_chunk kernel")
     carbon = fleet._carbon(None, None)
@@ -846,16 +1141,38 @@ def phase_optimize(torch, carina, et, dev):
     check(float(np.max(fres.metrics.unfinished)) < 1e-6,
           "Fleet.optimize left work unfinished")
     print(f"Fleet([OEM 1, OEM 2], Site(0.45, 0.12)).optimize('co2', "
-          f"deadlines {dls}, 192 x 30 candidates, steps cut 500 -> "
-          f"{OPT_FLEET_STEPS}): wall {wall:.2f} s; CEM "
-          f"{', '.join(f'{s:.2f}' for s in cem_s)} s and grad "
-          f"{', '.join(f'{s / OPT_FLEET_STEPS * 1e3:.2f}' for s in grad_s)}"
-          f" ms a step (independent 1, independent 2, joint); site CO2 "
-          f"{fres.site.co2_kg:.6f} kg joint vs {ind.site.co2_kg:.6f} "
-          f"independent, peak {fres.site.peak_kw:.4f} kW, runtimes "
+          f"deadlines {dls}, 192 x 30 candidates, 500 steps): wall "
+          f"{wall:.3f} s; CEM {', '.join(f'{s:.3f}' for s in cem_s)} s and "
+          f"grad {', '.join(f'{s / 500 * 1e3:.3f}' for s in grad_s)} ms a "
+          f"step (independent 1, independent 2, joint); K4 launches {n4}, "
+          f"K3 {n3f}; site CO2 {fres.site.co2_kg:.6f} kg joint vs "
+          f"{ind.site.co2_kg:.6f} independent, peak "
+          f"{fres.site.peak_kw:.4f} kW, runtimes "
           f"{[round(x.runtime_h, 2) for x in fres.results]} h; rows vs CPU "
           f"fleet_sweep {e_row:.3e}; kernel dispatches "
           f"{st.kernel_dispatches}", flush=True)
+
+    # the JSON rows: the main path's launches, its population forward
+    # (CEM) and a gradient step's backward
+    launches3 = {k: n3[k] + n3f[k] for k in n3}
+    rows = pair_rows(torch, k3, "trace_scan", rec3, {
+        "fwd": rec3["fwd"][256][0], "bwd": rec3["bwd"][1][-1]}, launches3,
+        k3_bound,
+        "src/repro/core/engine_jax.py:2572",
+        "src/repro_torch/csrc/objective_scan.cu", 5, lambda a: a[6][0])
+    rows += pair_rows(torch, k4, "fleet_scan", rec4, {
+        "fwd": rec4["fwd"][192][0], "bwd": rec4["bwd"][1][-1]}, n4,
+        k4_bound,
+        "src/repro/core/engine_jax.py:2833",
+        "src/repro_torch/csrc/fleet_objective.cu", 6,
+        lambda a: a[4][0].cpu().numpy())
+    for row in rows:
+        print(f"{row['name']} on the main path's inputs: "
+              f"{row['ms']:.4f} ms (plain {row['plain_ms']:.3f}, bound "
+              f"{row['bound_ms']:.7f} {row['bound_by']}), kernel vs plain "
+              f"max abs {row['max_abs_err']:.3e}, launches "
+              f"{row['launches']}", flush=True)
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -2502,8 +2819,10 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import coupled_chunk as k1
     from repro_torch.kernels import decode_attention as k6
+    from repro_torch.kernels import fleet_objective as k4
     from repro_torch.kernels import flash_attention as k5
     from repro_torch.kernels import moe_gemm as k9
+    from repro_torch.kernels import objective_scan as k3
     from repro_torch.kernels import rmsnorm as k8
     from repro_torch.kernels import ops
     from repro_torch.kernels import scan_chunk as k2
@@ -2540,7 +2859,7 @@ def main() -> int:
     kernels = [phase_scan_chunk(torch, carina, et, k2, k1, _build, dev),
                phase_coupled_chunk(torch, carina, et, k2, k1, _build, dev)]
     phase_end_to_end(torch, carina, et, dev)
-    phase_optimize(torch, carina, et, dev)
+    kernels += phase_optimize(torch, carina, et, k3, k4, _build, dev, floor)
     kernels += [phase_decode_attention(torch, k6, ops, _build, dev),
                 phase_ssm_scan(torch, k7, ops, _build, dev)]
     gc.collect()                    # K6's caches and K7's scans

@@ -34,8 +34,11 @@ fleets whose campaigns couple through one power envelope.
 
   * **objectives** (`TraceObjective`, `FleetTraceObjective`) are the same
     physics as a differentiable function of a day schedule's per-slot
-    intensities, the substrate of `core/optimize.py`: plain PyTorch scans
-    on the tensors' device, differentiated by `torch.autograd`.
+    intensities, the substrate of `core/optimize.py`: on the card one
+    launch of a hand-written scan kernel forward and one backward
+    (`kernels/objective_scan.py` K3, `kernels/fleet_objective.py` K4,
+    each a `torch.autograd.Function`), on the CPU their plain PyTorch
+    versions differentiated by `torch.autograd`.
 
 Entry points run on the card (`device="cuda"`) unless the caller names
 another device; with no card and no device given they raise instead of
@@ -66,6 +69,8 @@ from repro_torch.core.signal import (Signal, SignalEnsemble, TraceSignal,
                                      carbon_signal, sample_signal)
 from repro_torch.core.simulator import SimResult, ensemble_stats
 from repro_torch.kernels import coupled_chunk as _k1
+from repro_torch.kernels import fleet_objective as _k4
+from repro_torch.kernels import objective_scan as _k3
 from repro_torch.kernels import scan_chunk as _k2
 
 _PROBE_PROGRESS = (0.0, 1.0 / 3.0, 2.0 / 3.0, 0.999)
@@ -1325,12 +1330,13 @@ def summarize_plan(plan: SweepPlan, state: _ScanState) -> List[SimResult]:
 # that depends on the case (signals, background, slot lengths, machine
 # scalars) is precomputed once, and what remains is a function
 #     per-slot intensities (..., n_slots)  ->  EvalMetrics
-# of torch tensors, so `torch.autograd` flows through the scan and one call
-# evaluates a whole population.  The per-slot physics does not depend on
-# the carried state, so it runs for all T slots at once; the slot loop
-# carries only the remaining work and reads nothing back to the host
-# (a capped fleet reads one mask comparison a pass, see
-# `FleetTraceObjective._evaluate_torch`).
+# of torch tensors, differentiable, and one call evaluates a whole
+# population.  On a CUDA tensor the scan is one launch of a hand-written
+# kernel and its gradient one launch of another, behind a
+# `torch.autograd.Function` (`kernels/objective_scan.py` K3 for
+# `TraceObjective`, `kernels/fleet_objective.py` K4 for
+# `FleetTraceObjective`); on a CPU tensor it is their plain PyTorch
+# versions, differentiated by `torch.autograd`.
 # ---------------------------------------------------------------------------
 class EvalMetrics(NamedTuple):
     """Campaign outcome as a tuple of floats, arrays or tensors.
@@ -1358,39 +1364,6 @@ def _to_numpy(metrics):
     return type(metrics)(*(x.detach().cpu().numpy() for x in metrics))
 
 
-def _work_scan(remaining: torch.Tensor, scen_per_s: torch.Tensor,
-               lens: torch.Tensor, finish: Optional[torch.Tensor] = None):
-    """The slot-by-slot scan of the remaining work, the objectives' one
-    sequential part: from `remaining` (...), under the per-slot rates
-    `scen_per_s` (T, ...) and slot lengths `lens` (T,), the seconds each
-    slot ran (T, ...), the mask `remaining > finish` at each slot's start
-    (T, ...) when `finish` is given (else None), and the final remaining.
-    """
-    scen = model.TORCH.maximum(scen_per_s, 1e-30)
-    work = scen * lens.reshape((-1,) + (1,) * (scen.dim() - 1))
-    zero = remaining.new_zeros(())
-    dts, seen = [], []
-    # per-slot views by `unbind`: one autograd node for all T slots
-    # (indexing slot by slot adds T, each a full-size zero tensor in the
-    # backward); the slot lengths as 0-d tensors, since a Python number in
-    # `where` costs a launch a slot to make its tensor on the card
-    for ln, w_t, s_t, sps_t in zip(lens.unbind(0), work.unbind(0),
-                                   scen.unbind(0), scen_per_s.unbind(0)):
-        if finish is not None:
-            seen.append(remaining > finish)
-        # strict branch selection, NOT a minimum(ln, remaining/scen): when
-        # the campaign finishes exactly on a slot boundary, the minimum's
-        # tie splits its gradient across both branches and the analytic
-        # cancellation d(remaining - scen*dt)/du == 0 of the finish branch
-        # is lost.  The tie takes the finish branch.
-        dt = torch.where(remaining > w_t, ln, remaining / s_t)
-        dt = torch.where(remaining > 0.0, dt, zero)
-        remaining = remaining - sps_t * dt
-        dts.append(dt)
-    return (torch.stack(dts), torch.stack(seen) if seen else None,
-            remaining)
-
-
 class TraceObjective:
     """One sweep case as a pure objective over day schedules.
 
@@ -1399,9 +1372,11 @@ class TraceObjective:
     the case deadline) — there is no retry-doubling or probe
     classification afterwards.  `evaluate(u_day)` maps per-slot
     intensities of shape (..., n_slots) to `EvalMetrics` of shape (...,):
-    on a tensor it is the differentiable scan on the tensor's device; on a
-    NumPy array it runs the same scan on the objective's `device` (the
-    card by default) and returns NumPy.
+    on a tensor it is the differentiable scan on the tensor's device (a
+    CUDA tensor: K3's forward kernel, and its backward kernel under
+    `torch.autograd`; a CPU tensor: the plain version,
+    `kernels/objective_scan.py`); on a NumPy array it runs the same scan
+    on the objective's `device` (the card by default) and returns NumPy.
 
     A schedule that finishes inside the horizon gets exactly the numbers
     `trace_sweep` would produce for the equivalent `ParametricSchedule`
@@ -1490,7 +1465,7 @@ class TraceObjective:
         fp64, or the mixed policy's fp32 physics); a NumPy array runs on
         the objective's device and comes back as NumPy."""
         if isinstance(u_day, torch.Tensor):
-            return self._evaluate_torch(u_day)
+            return _k3.trace_objective(self, u_day)
         return self.evaluate_batch(u_day)
 
     def evaluate_batch(self, U) -> EvalMetrics:
@@ -1499,7 +1474,7 @@ class TraceObjective:
         U = torch.as_tensor(np.asarray(U, dtype=np.float64),
                             device=self.device)
         with torch.no_grad():
-            return _to_numpy(self._evaluate_torch(U))
+            return _to_numpy(_k3.trace_objective(self, U))
 
     # ------------------------------------------------------------------
     def _device_tables(self, device: torch.device) -> tuple:
@@ -1514,31 +1489,6 @@ class TraceObjective:
                 *(torch.as_tensor(a, dtype=cdt, device=device)
                   for a in (self.bg, cf, self.pr, self.lens)))
         return self._tables[device]
-
-    def _evaluate_torch(self, u_day: torch.Tensor) -> EvalMetrics:
-        (n_scen, rate, oh, idle, dyn, alpha, gamma,
-         ohfrac) = self._scalars
-        rowidx, bg, cf, pr, lens = self._device_tables(u_day.device)
-        shape = u_day.shape[:-1]
-        lead = (1,) * len(shape)
-        # mixed policy: fp32 per-slot inputs and physics, fp64 carried
-        # state and sums (the engine's `_plan_dtypes` split)
-        u_t = u_day.to(bg.dtype)[..., rowidx].movedim(-1, 0)  # (T, ...)
-        r = model.rates(u_t, self.batch_size, bg.reshape(-1, *lead),
-                        rate_at_full=rate, batch_overhead_s=oh, idle_w=idle,
-                        dyn_w=dyn, alpha=alpha, gamma=gamma,
-                        overhead_w_frac=ohfrac, xp=model.TORCH)
-        dt, _, remaining = _work_scan(
-            torch.full(shape, n_scen, dtype=torch.float64,
-                       device=u_day.device), r.scen_per_s, lens)
-        e = r.kwh_per_s * dt
-        if self.ensemble_size:
-            co2 = (e[..., None] * cf.reshape(-1, *lead, cf.shape[-1])).sum(0)
-        else:
-            co2 = (e * cf.reshape(-1, *lead)).sum(0)
-        return EvalMetrics(e.sum(0), co2, dt.sum(0) / 3600.0,
-                           (e * pr.reshape(-1, *lead)).sum(0),
-                           remaining / n_scen)
 
 
 def evaluate_params(params, case, *, u_min: float = 0.05, u_max: float = 1.0,
@@ -1595,10 +1545,13 @@ class FleetTraceObjective:
     (K1) and the sequential fleet oracle do, so optimized schedules
     report identically through the real engine.
 
-    Differentiable end to end under `torch.autograd` (the throttle's
-    clamps and the running site-peak max split their gradient at a tie,
-    as the reference's do), with the same strict finish-branch selection
-    as `TraceObjective`.  `site_cap_kw=None` evaluates the uncoupled fleet
+    Differentiable end to end (the throttle's clamps and the running
+    site-peak max split their gradient at a tie, as the reference's do),
+    with the same strict finish-branch selection as `TraceObjective`: on
+    a CUDA tensor through K4's forward and backward kernels, which run
+    the slots in order (the activity mask is exact, no passes); on a CPU
+    tensor through the plain version's mask passes
+    (`kernels/fleet_objective.py`).  `site_cap_kw=None` evaluates the uncoupled fleet
     while still reporting `site_peak_kw`, so a planner can satisfy a peak
     cap by *scheduling* around it rather than relying on reactive
     curtailment.  Carbon ensembles are not taken (fleet robustness
@@ -1705,7 +1658,7 @@ class FleetTraceObjective:
         n_slots): differentiable on a tensor, NumPy in and out on an
         array."""
         if isinstance(u, torch.Tensor):
-            return self._evaluate_torch(u)
+            return _k4.fleet_objective(self, u)
         return self.evaluate_batch(u)
 
     def evaluate_batch(self, U) -> FleetEvalMetrics:
@@ -1714,7 +1667,7 @@ class FleetTraceObjective:
         U = torch.as_tensor(np.asarray(U, dtype=np.float64),
                             device=self.device)
         with torch.no_grad():
-            return _to_numpy(self._evaluate_torch(U))
+            return _to_numpy(_k4.fleet_objective(self, U))
 
     # ------------------------------------------------------------------
     def _device_tables(self, device: torch.device) -> dict:
@@ -1740,103 +1693,13 @@ class FleetTraceObjective:
                              gamma=gamma, overhead_w_frac=ohfrac))
         return self._tables[device]
 
-    def _evaluate_torch(self, u: torch.Tensor) -> FleetEvalMetrics:
-        """The coupled scan, with the throttle solve of every slot run at
-        once.
-
-        A slot's throttle depends on the carried state only through which
-        campaigns are still active, and a campaign's activity is a prefix
-        of the horizon (its remaining work never grows).  So each pass
-        solves the throttle of all T slots under an assumed (T, ..., M)
-        activity mask, then scans the remaining work slot by slot and
-        records the mask it actually saw.  A pass whose seen mask equals
-        the assumed one computed exactly what the slot-by-slot definition
-        computes (the one mask that can: by induction over the slots);
-        each other pass corrects at least the earliest finish it had
-        wrong, so from all campaigns active throughout the passes stop
-        after at most M + 1, one read back each.  They run without
-        autograd; when the input needs a gradient, the converged mask's
-        pass runs once more with it.  An evaluation that needs a gradient
-        first tries, with autograd, the mask the last such evaluation of
-        its shape converged to (a gradient step's neighbour): when that
-        holds, as it does for most of a gradient search's steps, it is the
-        only pass (PERF.md §6).  Evaluations without a gradient (a CEM
-        population) always start from all active, so their values and
-        cost do not depend on earlier calls; nor does any value.  An
-        uncapped fleet needs no mask for its physics and takes one pass.
-        """
-        tb = self._device_tables(u.device)
-        shape = u.shape[:-1]                                # (..., M)
-        # (T, ..., M) intensities and per-slot signals broadcast to them
-        u_t = u.to(torch.float64)[..., tb["rowidx"]].movedim(-1, 0)
-        lead = (-1,) + (1,) * len(shape)
-        bg = tb["bg"].reshape(lead)
-        r0 = self._rates(u_t, bg, tb)
-        if self.site_cap_kw is None:
-            return self._pass(r0, tb, shape)[0]
-
-        def coupled(active):
-            return self._pass(self._throttle(u_t, bg, r0, active, tb), tb,
-                              shape)
-
-        grad = torch.is_grad_enabled() and u.requires_grad
-        key = (u.device, tuple(u_t.shape))
-        if grad and key in self._grad_masks:
-            out, seen = coupled(self._grad_masks[key])
-            if torch.equal(seen, self._grad_masks[key]):
-                return out
-        with torch.no_grad():
-            active = torch.ones(u_t.shape, dtype=torch.bool, device=u.device)
-            out, seen = coupled(active)
-            while not torch.equal(seen, active):
-                active = seen
-                out, seen = coupled(active)
-        if grad:
-            out = coupled(active)[0]
-            self._grad_masks = {key: active}
-        return out
-
     def _rates(self, u, bg, tb) -> model.Rates:
         return model.rates(u, self.batch_size, bg, xp=model.TORCH,
                            **tb["physics"])
 
-    def _throttle(self, u_t, bg, r, active, tb) -> model.Rates:
-        """Every slot's `SITE_THROTTLE_ITERS` damped curtailment steps
-        over the summed draw of the campaigns `active` marks, and the
-        physics at the final factor ((T, ..., M) fields)."""
-        mid = (1,) * (active.dim() - 2)
-        base = torch.where(active, tb["base"].reshape(-1, *mid,
-                                                      self.M), 0.0).sum(-1)
-        head = tb["headroom"].reshape(-1, *mid)
-        f = torch.ones(base.shape, dtype=torch.float64, device=base.device)
-        for _ in range(model.SITE_THROTTLE_ITERS):
-            fleet_kw = (torch.where(active, r.p_avg_w, 0.0) / 1000.0
-                        ).sum(-1)
-            f = model.site_throttle(fleet_kw, base, head, f, xp=model.TORCH)
-            r = self._rates(u_t * f[..., None], bg, tb)
-        return r
-
     def _pass(self, r, tb, shape) -> Tuple[FleetEvalMetrics, torch.Tensor]:
-        """The slot-by-slot scan of the remaining work under the physics
-        `r` ((T, ..., M) fields): the metrics, and the (T, ..., M) mask of
-        the campaigns active at the start of each slot."""
-        lead = (-1,) + (1,) * len(shape)
-        dt, active, remaining = _work_scan(
-            tb["n_scen"].expand(shape).clone(), r.scen_per_s, tb["lens"],
-            tb["finish"])
-        e = r.kwh_per_s * dt
-        site_kw = ((torch.where(active, r.p_avg_w, 0.0) / 1000.0).sum(-1)
-                   + tb["office"].reshape(lead[:-1]))
-        # the running peak, slot by slot as the reference takes it (a tie
-        # splits its gradient between the slots)
-        peak = torch.zeros(shape[:-1], dtype=torch.float64,
-                           device=dt.device)
-        for kw in site_kw.unbind(0):
-            peak = model.TORCH.maximum(peak, kw)
-        return FleetEvalMetrics(
-            e.sum(0), (e * tb["cf"].reshape(lead)).sum(0), dt.sum(0) / 3600.0,
-            (e * tb["pr"].reshape(lead)).sum(0), remaining / tb["n_scen"],
-            peak), active
+        """The plain version's scan pass (`_k4.pass_plain`)."""
+        return _k4.pass_plain(r, tb, shape)
 
 
 def trace_sweep(cases: Sequence, price: Optional[Signal] = None, *,

@@ -11,7 +11,9 @@ module answers it by treating the trace-grid engine as an objective:
     a feasible schedule (`core/schedule.py`);
   * the objective is `TraceObjective` (`core/engine_torch.py`) — the
     campaign scan as a function of the intensity table, batched over
-    candidates and differentiable under `torch.autograd`;
+    candidates and differentiable (on the card one forward and one
+    backward launch of the K3 kernels, `kernels/objective_scan.py`; the
+    fleet's `FleetTraceObjective` likewise through K4);
   * two search modes share one scalarization: **grad** (Adam through the
     scan — exact gradients of energy/CO2/runtime w.r.t. every slot) for
     the smooth family, and **cem** (a cross-entropy population search,
@@ -31,8 +33,9 @@ The session-level entry points are `Campaign.optimize(...)`
 (`core/session.py`) and `Fleet.optimize(...)` (`core/fleet.py`); this
 module is the engine room.  The objectives run on `device` (the card by
 default): the population's sampling and refits stay on the host in
-NumPy, and only the objective's scans and the gradient steps' Adam
-updates run on the device.  The reference's `backend=` raises.
+NumPy, and only the objective's scans (one kernel launch a population
+evaluate, one forward and one backward a gradient step) and the
+gradient steps' Adam updates run on the device.  The reference's `backend=` raises.
 """
 from __future__ import annotations
 
@@ -288,8 +291,10 @@ def _result_from_metrics(name: str, m: EvalMetrics,
 # ---------------------------------------------------------------------------
 def _grad_search(loss, p0, steps: int, lr: float, device
                  ) -> Tuple[np.ndarray, List[float], int]:
-    """Adam on the logits, gradients through the scan by `torch.autograd`,
-    in fp64 on `device`.  `loss` maps a parameter tensor on `device` to the
+    """Adam on the logits, in fp64 on `device`; the gradient of `loss` by
+    `torch.autograd`, whose step through the objective's scan is the
+    scan's hand-written backward kernel on the card (K3 / K4) and
+    autograd of the plain scan on the CPU.  `loss` maps a parameter tensor on `device` to the
     scalar objective — the single-campaign and joint-fleet searches differ
     only in that closure.  Each step reads the loss back once (one sync a
     step); the clip and the Adam update stay on the device.  Returns the

@@ -1,6 +1,7 @@
-"""The port's kernels K1 (`coupled_chunk`), K2 (`scan_chunk`), K5
-(`flash_attention`), K6 (`decode_attention`), K7 (`ssm_scan`), K8
-(`rmsnorm`), K9 (`moe_gemm`) and K10 (`xent`):
+"""The port's kernels K1 (`coupled_chunk`), K2 (`scan_chunk`), K3
+(`objective_scan`), K4 (`fleet_objective`), K5 (`flash_attention`), K6
+(`decode_attention`), K7 (`ssm_scan`), K8 (`rmsnorm`), K9 (`moe_gemm`) and
+K10 (`xent`):
 their wrappers' dispatch and input checks, and — on a machine with an NVIDIA GPU — each CUDA kernel
 against its plain PyTorch version.
 
@@ -11,8 +12,11 @@ machine with PyTorch alone:
 
 Here on the CPU the card tests skip.  The input builders are shared with
 tests/test_torch_engine.py and tests/test_torch_fleet.py, which hold the
-plain versions against the JAX package (tests/test_torch_serving.py does
-so for K5 and K8, tests/test_torch_moe.py for K9, tests/test_torch_loss.py
+plain versions against the JAX package (tests/test_torch_optimize.py does
+so for the objectives whose scans K3 and K4 are, and
+tests/test_torch_objective_kernels.py holds their autograd Functions to
+autograd of the plain versions on the CPU; tests/test_torch_serving.py
+does so for K5 and K8, tests/test_torch_moe.py for K9, tests/test_torch_loss.py
 for K10, tests/test_torch_ops.py for K6 and K7).
 """
 import numpy as np
@@ -25,8 +29,10 @@ import repro_torch.carina as P  # noqa: E402
 from repro_torch.core import model  # noqa: E402
 from repro_torch.kernels import coupled_chunk as k1  # noqa: E402
 from repro_torch.kernels import decode_attention as k6  # noqa: E402
+from repro_torch.kernels import fleet_objective as k4  # noqa: E402
 from repro_torch.kernels import flash_attention as k5  # noqa: E402
 from repro_torch.kernels import moe_gemm as k9  # noqa: E402
+from repro_torch.kernels import objective_scan as k3  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import rmsnorm as k8  # noqa: E402
 from repro_torch.kernels import scan_chunk as k2  # noqa: E402
@@ -125,6 +131,185 @@ def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+# ---------------------------------------------------------------------------
+# K3 / K4 inputs: objectives of the optimizer and seeded populations
+# ---------------------------------------------------------------------------
+def _week(mod=P):
+    rng = np.random.RandomState(7)
+    h = np.arange(168)
+    return mod.TraceSignal(tuple(
+        0.448 * (1.0 + 0.30 * np.sin(2 * np.pi * h / 24.0)
+                 + 0.05 * rng.randn(168))), name="week")
+
+
+def _quiet_bands():
+    class QuietBands(P.TimeBands):
+        """No background load: the slot physics is the same every slot."""
+
+        def background(self, band: str) -> float:
+            return 0.0
+    return QuietBands()
+
+
+def _boundary_case():
+    """A campaign that finishes exactly on a slot boundary: u = 0.5 gives
+    scen_per_s = 5 exactly (no background, no overhead), so 10 full hours
+    of 18,000 scenarios leave remaining == scen * len at the start of the
+    tenth, which takes the finish branch with dt == len."""
+    m = P.MachineProfile(idle_w=0.0, dyn_w=200.0, alpha=2.0, gamma=0.0)
+    wl = P.OEMWorkload("boundary", 180_000, rate_at_full=10.0,
+                       batch_overhead_s=0.0)
+    return P.SweepCase(P.parametric_schedule(24), wl, m, _quiet_bands(),
+                       P.HourlySignal(tuple([1.0] * 12 + [0.2] * 12),
+                                      name="two-band"), start_hour=0.0)
+
+
+#: name -> (TraceObjective kwargs, what the case exercises)
+OBJECTIVE_CASES = {
+    "week": dict(),                                  # E = 0, fp64
+    "mixed": dict(precision="mixed"),
+    "ensemble4": dict(ensemble=True),                 # E = 4
+    "sph2_price": dict(slots_per_hour=2, price=True),  # bins repeat, cost
+    "unfinished": dict(horizon_h=90.0),
+    "boundary": dict(boundary=True, horizon_h=30.0),
+}
+
+
+def objective_case(name, device="cpu", n=6, seed=0):
+    """A `TraceObjective` on `device` and a seeded (n, n_slots) NumPy
+    population (the boundary case: member 0 at u = 0.5 throughout)."""
+    kw = dict(OBJECTIVE_CASES[name])
+    wl, m = P.calibrate_workload(P.OEM_CASE_1, P.MachineProfile())
+    carbon = _week()
+    if kw.pop("ensemble", False):
+        base = np.asarray(carbon.values)
+        rng = np.random.RandomState(11)
+        carbon = P.as_ensemble(base[None, :168]
+                               * (1.0 + 0.15 * rng.randn(4, 168)),
+                               name="ens4")
+    if kw.pop("price", False):
+        kw["price"] = P.TOU_PRICE
+    if kw.pop("boundary", False):
+        case = _boundary_case()
+    else:
+        case = P.SweepCase(P.parametric_schedule(24), wl, m, carbon=carbon,
+                           deadline_h=220.0)
+    obj = P.TraceObjective(case, device=device, **kw)
+    U = np.random.RandomState(seed).uniform(0.05, 1.0, (n, obj.n_slots))
+    if name == "boundary":
+        U[0] = 0.5
+    return obj, U
+
+
+def _fleet_cases(M, quiet=False):
+    import dataclasses
+    out = []
+    bands = _quiet_bands()           # one site: one TimeBands for all
+    calibrated = [P.calibrate_workload(wl0, P.MachineProfile())
+                  for wl0 in (P.OEM_CASE_1, P.OEM_CASE_2)[:M]]
+    for i in range(M):
+        wl, m = calibrated[i % 2]
+        wl = dataclasses.replace(wl, name=f"c{i}", n_scenarios=int(
+            wl.n_scenarios * (1.0 if M <= 2 else 0.2 + 0.05 * (i % 7))))
+        extra = (bands, None, 0.0) if quiet else ()
+        out.append(P.SweepCase(P.parametric_schedule(24), wl, m, *extra,
+                               deadline_h=300.0 + 10.0 * i))
+    return out
+
+
+#: name -> (campaigns, site cap kW (None: uncapped; "exact": the
+#: unthrottled draw), office kW, horizon h, quiet bands)
+FLEET_CASES = {
+    "capped": (2, 0.40, 0.12, 320.0, False),
+    "uncapped": (2, None, 0.12, 320.0, False),
+    "m1": (1, 0.20, 0.05, 150.0, False),
+    "m3_unfinished": (3, 0.60, 0.12, 60.0, False),
+    "m40": (40, 4.0, 0.12, 48.0, False),
+    "m300": (300, 70.0, 0.12, 24.0, False),     # past the register tiles
+    "exact_cap": (2, "exact", 0.0, 60.0, True),
+}
+
+
+def fleet_case(name, device="cpu", n=4, seed=1, entry=None):
+    """A `FleetTraceObjective` on `device` and a seeded (n, M, n_slots)
+    NumPy population.  "exact_cap" runs constant intensities on quiet
+    bands (every slot's site draw equal: the running peak ties each slot)
+    under a cap equal to member 0's draw, so each of its throttle steps
+    has a ratio of exactly 1 (`minimum(ratio, 1)` ties).  That draw is
+    the one `entry` computes with the cap off (the plain version by
+    default; the kernels' on the card round it their own way, so each
+    implementation is put on its own cap)."""
+    M, cap, office, horizon, quiet = FLEET_CASES[name]
+    cases = _fleet_cases(M, quiet)
+    rng = np.random.RandomState(seed)
+    if cap == "exact":
+        U = np.broadcast_to(rng.uniform(0.3, 0.9, (n, M, 1)),
+                            (n, M, 24)).copy()
+        free = P.FleetTraceObjective(cases, office_kw=office,
+                                     horizon_h=horizon, device=device)
+        with torch.no_grad():
+            cap = float((entry or k4.fleet_objective_plain)(
+                free, torch.tensor(U[:1], device=device)).site_peak_kw[0])
+    else:
+        U = rng.uniform(0.2, 1.0, (n, M, 24))
+    obj = P.FleetTraceObjective(cases, site_cap_kw=cap, office_kw=office,
+                                horizon_h=horizon, device=device)
+    return obj, U
+
+
+def fleet_pair(name, dev, n=4):
+    """(objective for the kernels, objective for the plain version, U) on
+    the card: one objective, but for "exact_cap" each on its own cap."""
+    obj, U = fleet_case(name, dev, n=n)
+    if name != "exact_cap":
+        return obj, obj, U
+    return fleet_case(name, dev, n=n, entry=k4.fleet_objective)[0], obj, U
+
+
+def weighted_loss(outs, keep, seed=3):
+    """A scalar of the objective's outputs: each kept field (by index)
+    summed per member, scaled to order one, weighted by seeded numbers;
+    the fields not kept get no gradient."""
+    rng = np.random.RandomState(seed)
+    total = 0.0
+    for i in keep:
+        x = outs[i].reshape(outs[i].shape[0], -1).sum(-1) \
+            if outs[i].dim() else outs[i].reshape(1)
+        w = torch.as_tensor(rng.uniform(0.5, 1.5, x.shape), dtype=x.dtype,
+                            device=x.device)
+        scale = x.detach().abs().mean().clamp_min(1.0)
+        total = total + (w * x / scale).sum()
+    return total
+
+
+def grads_close(got, ref, rtol, components=True):
+    """Within `rtol` of the reference in norm, and (`components`) each
+    component within max(10 rtol, 1e-8) of itself plus `rtol` of the
+    norm (rounding leaves ~1e-17 of the norm on components that cancel);
+    a zero reference (no kept output moves with u) is matched exactly.
+    Mixed precision is held in norm only: its plain version sums each
+    component in fp32."""
+    got, ref = got.detach().cpu().double(), ref.detach().cpu().double()
+    norm = float(torch.linalg.vector_norm(ref))
+    if norm == 0.0:
+        assert not got.any()
+        return
+    err = float(torch.linalg.vector_norm(got - ref))
+    assert err <= rtol * norm, err / norm
+    if not components:
+        return
+    ctol = max(10 * rtol, 1e-8)
+    assert ((got - ref).abs() <= ctol * ref.abs() + rtol * norm).all()
+
+
+def fields_close(got, ref, rtol, unfinished=4):
+    """Per field within `rtol` of |ref| (`unfinished`, a fraction of the
+    workload, within `rtol` absolute)."""
+    for i, (g, r) in enumerate(zip(got, ref)):
+        close(g.detach().cpu(), r.detach().cpu(), rtol,
+              scale=1.0 if i == unfinished else None)
 
 
 def test_scan_chunk_wrapper_dispatch():
@@ -1223,3 +1408,166 @@ def test_ssm_scan_kernel_matches_plain_on_card(b, t, c, edge, dtype):
     bar = 1e-5 * float(phs.abs().max())
     assert float((hs - phs).abs().max()) <= bar
     assert float((hf - phf).abs().max()) <= bar
+
+
+# ---------------------------------------------------------------------------
+# K3 and K4 on the card: kernels against their plain versions
+# ---------------------------------------------------------------------------
+_K3_BARS = {"mixed": (1e-6, 1e-5)}          # (values, gradient in norm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keep", [(0, 1, 2, 3, 4), (1, 4)])
+@pytest.mark.parametrize("name", list(OBJECTIVE_CASES))
+def test_objective_scan_kernels_match_plain_on_card(name, keep):
+    """K3 forward and backward through `TraceScan` against autograd of the
+    plain objective on the card: values per field and the gradient of a
+    loss of all outputs, or of two (the others reach the backward as no
+    gradient); one launch of each kernel."""
+    dev = _card()
+    obj, U = objective_case(name, dev)
+    rtol, gtol = _K3_BARS.get(name, (RTOL, RTOL))
+    u_k = torch.tensor(U, device=dev, requires_grad=True)
+    u_p = torch.tensor(U, device=dev, requires_grad=True)
+    before = (k3.fwd_launches, k3.bwd_launches)
+    got = k3.trace_objective(obj, u_k)
+    (g_k,) = torch.autograd.grad(weighted_loss(got, keep), u_k)
+    torch.cuda.synchronize()
+    assert (k3.fwd_launches, k3.bwd_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    ref = k3.trace_objective_plain(obj, u_p)
+    (g_p,) = torch.autograd.grad(weighted_loss(ref, keep), u_p)
+    fields_close(got, ref, rtol)
+    grads_close(g_k, g_p, gtol, components=name != "mixed")
+    if name == "unfinished":
+        assert (got.unfinished > 0.1).all()
+    if name == "ensemble4":
+        assert got.co2_kg.shape == (U.shape[0], 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["week", "mixed", "ensemble4", "boundary"])
+def test_objective_scan_launches_match_plain_versions_on_card(name):
+    """Each K3 launch against its own plain version at the same inputs:
+    outputs and the checkpoint of each slot's starting remaining; the
+    backward's d/du for every output weighted."""
+    dev = _card()
+    obj, U = objective_case(name, dev, n=37)
+    rtol = _K3_BARS.get(name, (RTOL, RTOL))
+    *tables, scal = k3.scan_inputs(obj, dev)
+    u = torch.tensor(U, device=dev)
+    got = k3.trace_scan_fwd(u, *tables, scal, keep=True)
+    ref = k3.trace_scan_fwd_plain(u, *tables, scal, keep=True)
+    fields_close(got[:5], ref[:5], rtol[0])
+    close(got[5].cpu(), ref[5].cpu(), rtol[0], scale=scal[0])
+    rng = np.random.default_rng(5)
+    grads = [torch.as_tensor(rng.normal(size=tuple(x.shape)), device=dev)
+             for x in ref[:5]]
+    g = k3.trace_scan_bwd(u, *tables, scal, ref[5], grads)
+    g_ref = k3.trace_scan_bwd_plain(u, *tables, scal, ref[5], grads)
+    grads_close(g, g_ref, rtol[1], components=name != "mixed")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keep", [(0, 1, 2, 3, 4, 5), (1, 5)])
+@pytest.mark.parametrize("name", list(FLEET_CASES))
+def test_fleet_objective_kernels_match_plain_on_card(name, keep):
+    """K4 forward and backward through `FleetScan` against autograd of the
+    plain objective (its mask passes) on the card; one launch of each
+    kernel."""
+    dev = _card()
+    obj, obj_p, U = fleet_pair(name, dev)
+    u_k = torch.tensor(U, device=dev, requires_grad=True)
+    u_p = torch.tensor(U, device=dev, requires_grad=True)
+    before = (k4.fwd_launches, k4.bwd_launches)
+    got = k4.fleet_objective(obj, u_k)
+    (g_k,) = torch.autograd.grad(weighted_loss(got, keep), u_k)
+    torch.cuda.synchronize()
+    assert (k4.fwd_launches, k4.bwd_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    ref = k4.fleet_objective_plain(obj_p, u_p)
+    (g_p,) = torch.autograd.grad(weighted_loss(ref, keep), u_p)
+    fields_close(got, ref, RTOL)
+    grads_close(g_k, g_p, RTOL)
+    if name == "m3_unfinished":
+        assert (got.unfinished > 0.0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["capped", "uncapped", "m40", "m300",
+                                  "exact_cap"])
+def test_fleet_objective_launches_match_plain_versions_on_card(name):
+    """Each K4 launch against its own plain version at the same inputs,
+    the checkpoints included."""
+    dev = _card()
+    obj, obj_p, U = fleet_pair(name, dev, n=5)
+    args, args_p = (k4.scan_inputs(o, dev) + (o.batch_size,
+                                              o.site_cap_kw is not None)
+                    for o in (obj, obj_p))
+    u = torch.tensor(U, device=dev)
+    got = k4.fleet_scan_fwd(u, *args, keep=True)
+    ref = k4.fleet_scan_fwd_plain(u, *args_p, keep=True)
+    fields_close(got[:6], ref[:6], RTOL)
+    close(got[6].cpu(), ref[6].cpu(), RTOL,
+          scale=float(args[3][0].max()))
+    close(got[7].cpu(), ref[7].cpu(), RTOL)
+    rng = np.random.default_rng(6)
+    grads = [torch.as_tensor(rng.normal(size=tuple(x.shape)), device=dev)
+             for x in ref[:6]]
+    g = k4.fleet_scan_bwd(u, *args, got[6], got[7], grads)
+    g_ref = k4.fleet_scan_bwd_plain(u, *args_p, ref[6], ref[7], grads)
+    grads_close(g, g_ref, RTOL)
+
+
+@pytest.mark.cuda
+def test_objective_scan_gradient_at_an_exact_cap_on_card():
+    """A runtime cap exactly at the campaign's runtime: the loss's hinge
+    `maximum(runtime / cap - 1, 0)` ties and splits its gradient.  The
+    kernels and the plain version, each on its own cap (where its own
+    runtime ties the hinge), give the same gradient, between the
+    one-sided ones.  On the card `runtime / cap` is a multiply by the
+    reciprocal, which reaches exactly 1 only for some runtimes: the
+    first seeded schedule whose runtime has such a cap, within 8 floats
+    of it, in both implementations is the one tested."""
+    from repro_torch.core import optimize as PO
+    dev = _card()
+    obj, _ = objective_case("week", dev)
+    scales = dict(energy_kwh=40.0, co2_kg=20.0, runtime_h=200.0,
+                  cost_usd=5.0)
+
+    def grad(entry, p0, cap):
+        p = p0.clone().requires_grad_()
+        u = P.ParametricSchedule.u_from_logits(p, 0.05, 1.0, xp=torch)
+        o = PO.Objective.coerce("co2", {"runtime_h": cap})
+        val = PO.scalarize(entry(obj, u), o, scales, xp=torch)
+        return torch.autograd.grad(val, p)[0]
+
+    def exact_cap(entry, p0):
+        """A cap at which this implementation's hinge ties, or None."""
+        u0 = P.ParametricSchedule.u_from_logits(p0, 0.05, 1.0, xp=torch)
+        with torch.no_grad():
+            rt = entry(obj, u0).runtime_h
+        up = down = float(rt)
+        for _ in range(9):
+            for c in (up, down):
+                if float(rt / c - 1.0) == 0.0:
+                    return c
+            up, down = np.nextafter(up, np.inf), np.nextafter(down, 0.0)
+        return None
+
+    for seed in range(5, 45):
+        p0 = torch.as_tensor(np.random.RandomState(seed).randn(24) * 0.5,
+                             device=dev)
+        cap_k = exact_cap(k3.trace_objective, p0)
+        cap_p = exact_cap(k3.trace_objective_plain, p0)
+        if cap_k is not None and cap_p is not None:
+            break
+    else:
+        raise AssertionError("no seeded schedule ties the hinge on the card")
+    g = grad(k3.trace_objective, p0, cap_k)
+    grads_close(g, grad(k3.trace_objective_plain, p0, cap_p), RTOL)
+    over = grad(k3.trace_objective, p0, cap_k * 0.999)
+    under = grad(k3.trace_objective, p0, cap_k * 1.001)
+    assert float((over - under).norm()) > 0.1 * float(g.norm())
+    assert float((g - 0.5 * (over + under)).norm()) <= 2e-2 * float(
+        g.norm())

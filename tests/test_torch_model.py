@@ -131,7 +131,9 @@ def test_package_imports_neither_jax_nor_repro():
             "'repro_torch.data.pipeline', 'repro_torch.kernels.moe_gemm', "
             "'repro_torch.models.moe', 'repro_torch.kernels.ssm_scan', "
             "'repro_torch.kernels.decode_attention', "
-            "'repro_torch.core.optimize'} <= set(mods), mods;"
+            "'repro_torch.core.optimize', "
+            "'repro_torch.kernels.objective_scan', "
+            "'repro_torch.kernels.fleet_objective'} <= set(mods), mods;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')];"
             "print(len(mods), bad); sys.exit(1 if bad else 0)")

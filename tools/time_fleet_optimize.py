@@ -10,10 +10,13 @@ card.  Each run first takes a short warm-up optimize (the kernels' build
 and first launches), then times `Fleet([OEM 1, OEM 2], Site(0.45,
 0.12)).optimize("co2", deadlines=[300, 480], steps=...)` (the README's
 call at its default 500 steps unless `--steps` says otherwise): its
-wall, the seconds of each CEM and gradient search, and the coupled
-objective's throttle passes (`FleetTraceObjective._pass`) in each
-search, with and without autograd.  Prints the card's name and power
-limit, then one JSON line a run; needs a card.
+wall, the seconds of each CEM and gradient search, and in each search
+the objective kernels' launches (K3 `objective_scan`, K4
+`fleet_objective`: forward and backward) and the plain capped fleet's
+throttle passes (`FleetTraceObjective._pass`, with and without
+autograd; a tree whose objectives run the kernels on the card takes
+none).  Prints the card's name and power limit, then one JSON line a
+run; needs a card.
 """
 from __future__ import annotations
 
@@ -37,6 +40,12 @@ def one_run(steps: int) -> dict:
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
+    try:
+        from repro_torch.kernels import fleet_objective as k4
+        from repro_torch.kernels import objective_scan as k3
+        kernels = {"k3": k3, "k4": k4}
+    except ImportError:             # a tree before the objective kernels
+        kernels = {}
     passes = {"grad": 0, "no_grad": 0}
     searches = []
     inner = et.FleetTraceObjective._pass
@@ -45,20 +54,28 @@ def one_run(steps: int) -> dict:
         passes["grad" if torch.is_grad_enabled() else "no_grad"] += 1
         return inner(self, *args)
 
+    def counts():
+        out = dict(passes)
+        for key, mod in kernels.items():
+            out[f"{key}_fwd"] = mod.fwd_launches
+            out[f"{key}_bwd"] = mod.bwd_launches
+        return out
+
     def timed(name):
         fn = getattr(opt, name)
 
         def run(*args, **kwargs):
-            p0 = dict(passes)
+            c0 = counts()
             t0 = time.perf_counter()
             try:
                 return fn(*args, **kwargs)
             finally:
                 torch.cuda.synchronize()
+                c1 = counts()
                 searches.append(dict(
                     search=name.strip("_").split("_")[0],
                     s=time.perf_counter() - t0,
-                    passes={k: passes[k] - p0[k] for k in passes}))
+                    counts={k: c1[k] - c0[k] for k in c1}))
         return fn, run
 
     site = carina.Site(power_cap_kw=0.45, office_kw=0.12)
