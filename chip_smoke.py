@@ -43,12 +43,15 @@ the answers against the repo's own oracles:
      T = 624 under the README's 0.45 kW and uncapped; one forward launch
      per `evaluate_batch` and one forward plus one backward per gradient
      step; each kernel's ms against its bound and the launch floor, the
-     wall, launches and idle share of an evaluate and of a step, and
-     `ptxas -v` registers; then the kernels' main path: the README's
-     `Campaign(OEM_CASE_1).optimize("energy", deadline_h=214, ...)` over
-     the week trace (it must beat the six policies' best energy within
-     the deadline, its row equal the CPU `trace_sweep`'s to 1e-9, K2 must
-     launch; K3 432 forward and 400 backward launches) and the README's
+     wall, launches and idle share of an evaluate and of a step,
+     `ptxas -v` registers and spills of every entry, and the launch plans
+     (`launch_plan` beside the C launchers' `device_plan`: threads, slots
+     a tile, shared bytes, blocks an SM); then the kernels' main path:
+     the README's `Campaign(OEM_CASE_1).optimize("energy",
+     deadline_h=214, ...)` over the week trace (it must beat the six
+     policies' best energy within the deadline, its row equal the CPU
+     `trace_sweep`'s to 1e-9, K2 must launch; K3 432 forward and 400
+     backward launches) and the README's
      capped two-OEM `Fleet.optimize("co2", deadlines=[300, 480])` at its
      default 500 steps (joint site CO2 at most the independent optima's
      under the cap, rows equal the CPU `fleet_sweep`'s to 1e-9, K1 must
@@ -56,7 +59,9 @@ the answers against the repo's own oracles:
      1,000 for the two independent optima), and the first and the last
      K3 and K4 launch of each population size on that path (T = 292 and
      624), forward and backward, against its plain version on the same
-     inputs at the same bars;
+     inputs at the same bars; K4's repair rounds at the path's first CEM
+     evaluate (from that launch's checkpoints and the plan's tiles), and
+     each kernel row's ms beside its first design's;
   4a. K6 (`decode_attention`) through `kernels.ops.decode_attention`,
      as the reference reaches it: TinyLlama-1.1B's decode (q (4, 32, 64)
      over a (4, 2048, 4, 64) cache at length 1,000 and 2,048) and a 32k
@@ -617,6 +622,11 @@ OPT_FIELDS = ("energy_kwh", "co2_kg", "runtime_h", "cost_usd", "unfinished")
 # them and reverses each (uncapped: K3's counts)
 K3_OPS = {"fwd": (31, 7), "bwd": (70, 12)}     # (physics, state)
 K4_OPS = {"fwd": (160, 8), "bwd": (520, 16)}
+# ms of the four kernel rows in their first design (a thread or a warp a
+# candidate over the slots in order), at the same main-path inputs, by
+# this script on an H100 80GB HBM3 at 700.00 W (PERF.md section 6)
+FIRST_DESIGN_MS = {"trace_scan_fwd": 0.1771, "trace_scan_bwd": 0.4352,
+                   "fleet_scan_fwd": 2.2404, "fleet_scan_bwd": 8.3158}
 
 
 @contextlib.contextmanager
@@ -831,6 +841,51 @@ def by_size(args):
     return args[0].shape[0]
 
 
+def plans_text(torch, k3, k4):
+    """K3's and K4's launch plans at the main path's shapes, each beside
+    the blocks an SM the C launcher's plan holds on this card."""
+    parts = []
+    for N, T in ((256, 280), (1024, 280), (256, 292), (1, 292)):
+        p = k3.launch_plan(N, T)
+        occ = [k3.device_plan(T, bwd, dt)["blocks_per_sm"]
+               for bwd in (False, True)
+               for dt in (torch.float64, torch.float32)]
+        parts.append(f"K3 N={N} T={T}: {p['blocks']} blocks of "
+                     f"{p['threads']} ({p['tiles']} tiles), shared "
+                     f"{p['smem_fwd']} / {p['smem_bwd']} B, blocks an SM "
+                     f"fwd {occ[0]} / {occ[1]} (fp64 / fp32), bwd {occ[2]} "
+                     f"/ {occ[3]}")
+    for N, M, T in ((192, 2, 624), (1, 2, 624), (4, 40, 48)):
+        p = k4.launch_plan(N, M, T)
+        occ = [k4.device_plan(M, T, bwd)["blocks_per_sm"]
+               for bwd in (False, True)]
+        parts.append(f"K4 N={N} M={M} T={T}: {p['blocks']} blocks of "
+                     f"{p['threads']}, a slot to {p['group']} thread(s), "
+                     f"{p['tiles']} tiles of {p['slots']}, shared "
+                     f"{p['smem_fwd']} / {p['smem_bwd']} B, blocks an SM "
+                     f"{occ[0]} / {occ[1]}")
+    return "launch plans: " + "; ".join(parts)
+
+
+def k4_repairs(torch, k4, args):
+    """The forward tile kernel's repair rounds on these inputs: per
+    member, the slots off a tile's start at which some campaign's
+    activity turns off (capped; from the launch's own checkpoints and the
+    plan's tiles).  Returns (rounds in all, most of one member, members,
+    slots a tile)."""
+    out = k4.fleet_scan_fwd(*args[:7], keep=True)
+    hist, camp, capped = out[6], args[4], args[6]
+    T, N, M = hist.shape
+    W = k4.launch_plan(N, M, T)["slots"]
+    if not capped:
+        return 0, 0, N, W
+    act = hist > camp[1]
+    turn = (act[:-1] & ~act[1:]).any(-1)                    # (T - 1, N)
+    t = torch.arange(1, T, device=hist.device)
+    rounds = (turn & (t % W != 0)[:, None]).sum(0)
+    return int(rounds.sum()), int(rounds.max()), N, W
+
+
 def phase_optimize(torch, carina, et, k3, k4, build, dev, floor):
     """The schedule optimizer on the card: K3 (`TraceObjective`) and K4
     (`FleetTraceObjective`) forward and backward at the benchmark's
@@ -841,10 +896,11 @@ def phase_optimize(torch, carina, et, k3, k4, build, dev, floor):
     from repro_torch.core import optimize as opt
     PS = carina.ParametricSchedule
     print("K3 ptxas: " + entry_registers(build, "objective_scan", (
-        "trace_fwd_kernel", "trace_bwd_kernel")), flush=True)
+        "trace_fwd_tiles", "trace_bwd_tiles")), flush=True)
     print("K4 ptxas: " + entry_registers(build, "fleet_objective", (
-        "fleet_fwd_kernel", "fleet_bwd_kernel", "fleet_fwd_stream",
+        "fleet_fwd_tiles", "fleet_bwd_tiles", "fleet_fwd_stream",
         "fleet_bwd_stream")), flush=True)
+    print(plans_text(torch, k3, k4), flush=True)
 
     def loss_grad(to, p, scalarize):
         p = p.clone().requires_grad_()
@@ -1152,6 +1208,11 @@ def phase_optimize(torch, carina, et, k3, k4, build, dev, floor):
           f"fleet_sweep {e_row:.3e}; kernel dispatches "
           f"{st.kernel_dispatches}", flush=True)
 
+    rounds, most, n_cem, W = k4_repairs(torch, k4, rec4["fwd"][192][0][0])
+    print(f"K4 repair rounds at the main path's first CEM evaluate (N = "
+          f"{n_cem}, tiles of {W} slots): {rounds} in all, at most {most} "
+          f"a member", flush=True)
+
     # the JSON rows: the main path's launches, its population forward
     # (CEM) and a gradient step's backward
     launches3 = {k: n3[k] + n3f[k] for k in n3}
@@ -1168,7 +1229,9 @@ def phase_optimize(torch, carina, et, k3, k4, build, dev, floor):
         lambda a: a[4][0].cpu().numpy())
     for row in rows:
         print(f"{row['name']} on the main path's inputs: "
-              f"{row['ms']:.4f} ms (plain {row['plain_ms']:.3f}, bound "
+              f"{row['ms']:.4f} ms (first design: "
+              f"{FIRST_DESIGN_MS[row['name']]}; plain "
+              f"{row['plain_ms']:.3f}, bound "
               f"{row['bound_ms']:.7f} {row['bound_by']}), kernel vs plain "
               f"max abs {row['max_abs_err']:.3e}, launches "
               f"{row['launches']}", flush=True)

@@ -11,12 +11,17 @@ jits it as one `jax.lax.scan` over `FleetTraceObjective._step`
 
 * on a CUDA tensor it runs `FleetScan`, a `torch.autograd.Function` whose
   forward is one launch of the hand-written forward kernel
-  (csrc/fleet_objective.cu, `fleet_scan_fwd`: a warp a member, its lanes
-  over the campaigns, any number of them, the slots in order, so the
-  activity mask is exact)
+  (csrc/fleet_objective.cu, `fleet_scan_fwd`: up to 128 campaigns a block
+  a member, the horizon in tiles of slots (`launch_plan`), every slot's
+  throttle solve in parallel under the activity mask at the tile's
+  start, then the tile's chain in slot order, which reruns the solve from
+  a slot where a capped campaign's activity turns off, so the mask is
+  exact; past 128 campaigns a warp a member over the slots in order)
   and whose backward is one launch of the backward kernel
-  (`fleet_scan_bwd`: the slots in reverse from the forward's checkpoints
-  of each slot's starting remaining work and site peak);
+  (`fleet_scan_bwd`: the tiles in reverse from the forward's checkpoints
+  of each slot's starting remaining work and site peak, the adjoints of
+  remaining and of the peak carried back through each tile between two
+  parallel passes over its slots);
 * on a CPU tensor it runs `fleet_objective_plain`: the throttle solve of
   every slot at once under an assumed activity mask (`throttle_plain`),
   a slot loop over the remaining work (`pass_plain`), repeated until the
@@ -49,6 +54,54 @@ bwd_launches = 0
 def reset_launches() -> None:
     global fwd_launches, bwd_launches
     fwd_launches = bwd_launches = 0
+
+
+#: campaigns a member of the tile kernels (past that the streaming ones)
+M_TILES = 128
+
+
+def launch_plan(N: int, M: int, T: int) -> dict:
+    """The tile kernels' launch for N members of M campaigns (1..128)
+    over T slots, the rule of csrc/fleet_objective.cu::plan: a block a
+    member; a group of `group` threads a slot of a tile, the campaigns
+    inside the thread (M <= 2: a thread a slot, tiles of at most 256
+    slots, whole warps) or on a warp's lanes (8 warps, tiles of at most 64
+    slots, in multiples of 8); the tiles as even as that rounding leaves
+    them.  Group g of a tile takes its slots g, g + threads / group, ...
+    Dynamic shared bytes: the nine campaign scalars (the backward also
+    the four output gradients) a campaign; the forward's four series and
+    site draw a slot, three rates and an activity flag a slot and
+    campaign, its mask and stop slot; the backward's twelve doubles of
+    the throttle solve, the site draw and the peak a slot, a day bin
+    (int32) and an event flag a slot, and two doubles and a finish flag a
+    slot and campaign."""
+    if not 1 <= M <= M_TILES:
+        raise ValueError(f"the tile kernels take 1 to {M_TILES} campaigns, "
+                         f"not {M}")
+    T1 = max(T, 1)
+    group = 1 if M <= 2 else 32
+    cap, rnd = (256, 32) if group == 1 else (64, 8)
+    tiles = -(-T1 // cap)
+    W = -(-(-(-T1 // tiles)) // rnd) * rnd
+    return dict(blocks=N, threads=W if group == 1 else 256, slots=W,
+                group=group, tiles=-(-T // W),
+                smem_fwd=(8 * (9 * M + 5 * W + 3 * W * M) + -(-W * M // 8) * 8
+                          + -(-M // 8) * 8 + 8),
+                smem_bwd=(8 * (13 * M + 12 * W + 2 * W * M) + 4 * W
+                          + -(-W * M // 8) * 8 + -(-W // 8) * 8))
+
+
+def device_plan(M: int, T: int, bwd: bool) -> dict:
+    """The launch the forward (or backward) tile kernel takes on the
+    current card: threads a block, slots a tile, threads a slot's group,
+    dynamic shared bytes, and the blocks an SM holds (CUDA's occupancy
+    API)."""
+    out = (ctypes.c_int * 5)()
+    err = _library().fleet_scan_plan(M, T, int(bwd), out)
+    if err:
+        raise RuntimeError(f"fleet_scan_plan failed: CUDA error {err}")
+    return dict(zip(("threads", "slots", "group", "smem", "blocks_per_sm"),
+                    out))
 
 
 # ---------------------------------------------------------------------------
@@ -391,7 +444,9 @@ def _library() -> ctypes.CDLL:
                                    + [vp])
     lib.fleet_scan_bwd.argtypes = ([vp] * 5 + [d, i] + [vp] * 10 + [i] * 4
                                    + [vp])
-    for fn in (lib.fleet_scan_fwd, lib.fleet_scan_bwd, lib.fleet_scan_iters):
+    lib.fleet_scan_plan.argtypes = [i] * 3 + [vp]
+    for fn in (lib.fleet_scan_fwd, lib.fleet_scan_bwd, lib.fleet_scan_iters,
+               lib.fleet_scan_plan):
         fn.restype = ctypes.c_int
     lib.fleet_scan_iters.argtypes = []
     if lib.fleet_scan_iters() != model.SITE_THROTTLE_ITERS:

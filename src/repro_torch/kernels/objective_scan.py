@@ -10,10 +10,13 @@ src/repro/core/engine_jax.py) and differentiates it with `jax.grad`.
 
 * on a CUDA tensor it runs `TraceScan`, a `torch.autograd.Function` whose
   forward is one launch of the hand-written forward kernel
-  (csrc/objective_scan.cu, `trace_scan_fwd`: a thread a member, the slot
-  loop inside) and whose backward is one launch of the backward kernel
-  (`trace_scan_bwd`: the slots in reverse from the forward's checkpoint
-  of each slot's starting remaining work);
+  (csrc/objective_scan.cu, `trace_scan_fwd`: a block a member, the
+  horizon in tiles of slots (`launch_plan`), every slot's physics in
+  parallel, then the tile's chain in slot order) and whose backward is
+  one launch of the backward kernel (`trace_scan_bwd`: the tiles in
+  reverse from the forward's checkpoint of each slot's starting remaining
+  work, the adjoint of remaining carried back through each tile between
+  two parallel passes over its slots);
 * on a CPU tensor it runs `trace_objective_plain`, the objective as plain
   tensor ops (`trace_scan_fwd_plain`: the per-slot physics of all T slots
   at once, then `work_scan`'s slot loop over the remaining work),
@@ -49,6 +52,25 @@ bwd_launches = 0
 def reset_launches() -> None:
     global fwd_launches, bwd_launches
     fwd_launches = bwd_launches = 0
+
+
+#: most slots a tile (threads a block) of both kernels
+TILE_MAX = 256
+
+
+def launch_plan(N: int, T: int) -> dict:
+    """The kernels' launch for N members over T slots, the rule of
+    csrc/objective_scan.cu::plan: a block a member, a thread a slot of a
+    tile, tiles of at most `TILE_MAX` slots made as even as whole warps
+    leave them (so T = 280 runs as two tiles of 160 slots, not 256 and
+    24).  Dynamic shared bytes: the forward's six doubles a slot, the
+    backward's three doubles, a day bin (int32) and a finish flag a
+    slot."""
+    T1 = max(T, 1)
+    tiles = -(-T1 // TILE_MAX)
+    W = -(-(-(-T1 // tiles)) // 32) * 32
+    return dict(blocks=N, threads=W, slots=W, tiles=-(-T // W),
+                smem_fwd=48 * W, smem_bwd=29 * W)
 
 
 # ---------------------------------------------------------------------------
@@ -321,6 +343,18 @@ def trace_scan_bwd(u, rowidx, bg, cf, pr, lens, scal, hist, grads):
     return g_u
 
 
+def device_plan(T: int, bwd: bool, dtype: torch.dtype) -> dict:
+    """The launch the forward (or backward) kernel takes on the current
+    card over T slots with `dtype` physics: threads a block, dynamic shared
+    bytes, and the blocks an SM holds (CUDA's occupancy API)."""
+    out = (ctypes.c_int * 3)()
+    err = _library().trace_scan_plan(T, int(bwd), int(dtype == torch.float64),
+                                     out)
+    if err:
+        raise RuntimeError(f"trace_scan_plan failed: CUDA error {err}")
+    return dict(zip(("threads", "smem", "blocks_per_sm"), out))
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.library("objective_scan")
     dbl = ctypes.POINTER(ctypes.c_double)
@@ -332,4 +366,6 @@ def _library() -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_void_p] * 6 + [dbl] + [ctypes.c_void_p] * 7
                        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    lib.trace_scan_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.trace_scan_plan.restype = ctypes.c_int
     return lib

@@ -166,7 +166,8 @@ def _boundary_case():
                                       name="two-band"), start_hour=0.0)
 
 
-#: name -> (TraceObjective kwargs, what the case exercises)
+#: name -> (TraceObjective kwargs, what the case exercises); `members`
+#: fixes the population's size
 OBJECTIVE_CASES = {
     "week": dict(),                                  # E = 0, fp64
     "mixed": dict(precision="mixed"),
@@ -174,6 +175,10 @@ OBJECTIVE_CASES = {
     "sph2_price": dict(slots_per_hour=2, price=True),  # bins repeat, cost
     "unfinished": dict(horizon_h=90.0),
     "boundary": dict(boundary=True, horizon_h=30.0),
+    # T off the kernels' tiles (two of 160 slots): a gradient step's one
+    # member, and a population of 1,024
+    "n1_t280": dict(members=1, horizon_h=280.0),
+    "n1024_t292": dict(members=1024, horizon_h=292.0),
 }
 
 
@@ -181,6 +186,7 @@ def objective_case(name, device="cpu", n=6, seed=0):
     """A `TraceObjective` on `device` and a seeded (n, n_slots) NumPy
     population (the boundary case: member 0 at u = 0.5 throughout)."""
     kw = dict(OBJECTIVE_CASES[name])
+    n = kw.pop("members", n)
     wl, m = P.calibrate_workload(P.OEM_CASE_1, P.MachineProfile())
     carbon = _week()
     if kw.pop("ensemble", False):
@@ -219,31 +225,63 @@ def _fleet_cases(M, quiet=False):
     return out
 
 
+def _pair_cases(scales):
+    """Campaigns of OEM case 1 in identical pairs, pair k at `scales[k]`
+    of its workload."""
+    import dataclasses
+    wl, m = P.calibrate_workload(P.OEM_CASE_1, P.MachineProfile())
+    return [P.SweepCase(P.parametric_schedule(24), dataclasses.replace(
+        wl, name=f"c{i}", n_scenarios=int(wl.n_scenarios * scales[i // 2])),
+        m, deadline_h=300.0) for i in range(2 * len(scales))]
+
+
 #: name -> (campaigns, site cap kW (None: uncapped; "exact": the
-#: unthrottled draw), office kW, horizon h, quiet bands)
+#: unthrottled draw), office kW, horizon h, quiet bands, spread: None, or
+#: (members, the workload scales of identical campaign pairs, or None for
+#: the usual campaigns))
 FLEET_CASES = {
-    "capped": (2, 0.40, 0.12, 320.0, False),
-    "uncapped": (2, None, 0.12, 320.0, False),
-    "m1": (1, 0.20, 0.05, 150.0, False),
-    "m3_unfinished": (3, 0.60, 0.12, 60.0, False),
-    "m40": (40, 4.0, 0.12, 48.0, False),
-    "m300": (300, 70.0, 0.12, 24.0, False),     # past the register tiles
-    "exact_cap": (2, "exact", 0.0, 60.0, True),
+    "capped": (2, 0.40, 0.12, 320.0, False, None),
+    "uncapped": (2, None, 0.12, 320.0, False, None),
+    "m1": (1, 0.20, 0.05, 150.0, False, None),
+    "m3_unfinished": (3, 0.60, 0.12, 60.0, False, None),
+    "m40": (40, 4.0, 0.12, 48.0, False, None),
+    "m300": (300, 70.0, 0.12, 24.0, False, None),  # past the tile kernels
+    "exact_cap": (2, "exact", 0.0, 60.0, True, None),
+    # campaigns that turn inactive at many distinct slots under a binding
+    # cap (`test_fleet_finish_cases_cover_the_tiles`): inside the tiles and
+    # on their first and last slots, a pair in one slot, all of a member's
+    # in the first tile; M = 2 (a thread a slot, T = 300 in two tiles of
+    # 160) and M = 6 (a warp a slot, T = 100 in two tiles of 56)
+    "finishes": (2, 0.40, 0.12, 300.0, False, (48, (0.5,))),
+    "finishes_m6": (6, 1.2, 0.12, 100.0, False, (48, (0.15, 0.2, 0.25))),
+    # a gradient step's one member over the README fleet's 624 slots
+    # (three tiles of 224)
+    "n1_t624": (2, 0.45, 0.12, 624.0, False, (1, None)),
 }
 
 
 def fleet_case(name, device="cpu", n=4, seed=1, entry=None):
     """A `FleetTraceObjective` on `device` and a seeded (n, M, n_slots)
-    NumPy population.  "exact_cap" runs constant intensities on quiet
-    bands (every slot's site draw equal: the running peak ties each slot)
-    under a cap equal to member 0's draw, so each of its throttle steps
-    has a ratio of exactly 1 (`minimum(ratio, 1)` ties).  That draw is
-    the one `entry` computes with the cap off (the plain version by
-    default; the kernels' on the card round it their own way, so each
-    implementation is put on its own cap)."""
-    M, cap, office, horizon, quiet = FLEET_CASES[name]
-    cases = _fleet_cases(M, quiet)
+    NumPy population (a spread case's own size).  "exact_cap" runs
+    constant intensities on quiet bands (every slot's site draw equal:
+    the running peak ties each slot) under a cap equal to member 0's
+    draw, so each of its throttle steps has a ratio of exactly 1
+    (`minimum(ratio, 1)` ties).  That draw is the one `entry` computes
+    with the cap off (the plain version by default; the kernels' on the
+    card round it their own way, so each implementation is put on its
+    own cap).  The pair cases draw intensities over 0.3-1, every fourth
+    member near full (it finishes early) and every third running each
+    pair on one row (the pair finishes in one slot)."""
+    M, cap, office, horizon, quiet, spread = FLEET_CASES[name]
+    n, scales = spread or (n, None)
+    cases = _fleet_cases(M, quiet) if scales is None else _pair_cases(scales)
     rng = np.random.RandomState(seed)
+    if scales is not None:
+        U = rng.uniform(0.3, 1.0, (n, M, 24))
+        U[1::4] = 0.85 + 0.15 * U[1::4]
+        U[::3, 1::2] = U[::3, 0::2]
+        return P.FleetTraceObjective(cases, site_cap_kw=cap, office_kw=office,
+                                     horizon_h=horizon, device=device), U
     if cap == "exact":
         U = np.broadcast_to(rng.uniform(0.3, 0.9, (n, M, 1)),
                             (n, M, 24)).copy()
@@ -1446,7 +1484,8 @@ def test_objective_scan_kernels_match_plain_on_card(name, keep):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["week", "mixed", "ensemble4", "boundary"])
+@pytest.mark.parametrize("name", ["week", "mixed", "ensemble4", "boundary",
+                                  "n1_t280", "n1024_t292"])
 def test_objective_scan_launches_match_plain_versions_on_card(name):
     """Each K3 launch against its own plain version at the same inputs:
     outputs and the checkpoint of each slot's starting remaining; the
@@ -1495,7 +1534,8 @@ def test_fleet_objective_kernels_match_plain_on_card(name, keep):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["capped", "uncapped", "m40", "m300",
-                                  "exact_cap"])
+                                  "exact_cap", "finishes", "finishes_m6",
+                                  "n1_t624"])
 def test_fleet_objective_launches_match_plain_versions_on_card(name):
     """Each K4 launch against its own plain version at the same inputs,
     the checkpoints included."""
@@ -1517,6 +1557,68 @@ def test_fleet_objective_launches_match_plain_versions_on_card(name):
     g = k4.fleet_scan_bwd(u, *args, got[6], got[7], grads)
     g_ref = k4.fleet_scan_bwd_plain(u, *args_p, ref[6], ref[7], grads)
     grads_close(g, g_ref, RTOL)
+
+
+def _launch_args(kind, name, dev):
+    """(module, prefix, the forward launch's arguments) of a K3 or K4
+    case on the card."""
+    if kind == "k3":
+        obj, U = objective_case(name, dev)
+        *tables, scal = k3.scan_inputs(obj, dev)
+        return k3, "trace_scan", (torch.tensor(U, device=dev), *tables, scal)
+    obj, U = fleet_case(name, dev)
+    return k4, "fleet_scan", (torch.tensor(U, device=dev),
+                              *k4.scan_inputs(obj, dev), obj.batch_size,
+                              obj.site_cap_kw is not None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,name", [
+    ("k3", "week"), ("k3", "mixed"), ("k3", "ensemble4"),
+    ("k3", "n1024_t292"), ("k4", "capped"), ("k4", "uncapped"),
+    ("k4", "finishes"), ("k4", "finishes_m6"), ("k4", "n1_t624")])
+def test_objective_kernels_are_deterministic_on_card(kind, name):
+    """Two launches of each kernel on the same inputs give the same bits:
+    the forward's outputs and checkpoints, and the backward's d/du (its
+    day bins summed in slot order, no atomics)."""
+    dev = _card()
+    mod, prefix, args = _launch_args(kind, name, dev)
+    fwd = getattr(mod, f"{prefix}_fwd")
+    bwd = getattr(mod, f"{prefix}_bwd")
+    a, b = fwd(*args, keep=True), fwd(*args, keep=True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    n_out = 6 if mod is k4 else 5
+    rng = np.random.default_rng(8)
+    grads = [torch.as_tensor(rng.normal(size=tuple(x.shape)), device=dev)
+             for x in a[:n_out]]
+    g1 = bwd(*args, *a[n_out:], grads)
+    g2 = bwd(*args, *a[n_out:], grads)
+    torch.cuda.synchronize()
+    assert g1.abs().sum() > 0 and torch.equal(g1, g2)
+
+
+@pytest.mark.cuda
+def test_objective_launch_plans_match_the_kernels_on_card():
+    """The Python launch plans of K3 and K4 are the rules the C launchers
+    apply, and every plan launches (at least a block an SM)."""
+    _card()
+    for T in (1, 24, 280, 292, 624):
+        want = k3.launch_plan(1, T)
+        for bwd in (False, True):
+            for dtype in (torch.float64, torch.float32):
+                got = k3.device_plan(T, bwd, dtype)
+                assert (got["threads"], got["smem"]) == (
+                    want["threads"], want["smem_bwd" if bwd else "smem_fwd"])
+                assert got["blocks_per_sm"] >= 1
+        for M in (1, 2, 3, 40, 64, 65, 128):
+            want = k4.launch_plan(1, M, T)
+            for bwd in (False, True):
+                got = k4.device_plan(M, T, bwd)
+                assert (got["threads"], got["slots"], got["group"],
+                        got["smem"]) == (
+                    want["threads"], want["slots"], want["group"],
+                    want["smem_bwd" if bwd else "smem_fwd"])
+                assert got["blocks_per_sm"] >= 1
 
 
 @pytest.mark.cuda

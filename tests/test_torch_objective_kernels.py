@@ -158,6 +158,84 @@ def test_fleet_scan_takes_any_number_of_campaigns():
     assert out[0].shape == (2, 300) and out[5].shape == (2,)
 
 
+@pytest.mark.parametrize("name", ["finishes", "finishes_m6"])
+def test_fleet_finish_cases_cover_the_tiles(name):
+    """The spread cases hold the forward kernel's repair rounds to the
+    edges: their campaigns turn inactive (remaining at the finish
+    fraction) inside a tile, on a tile's first slot (the next tile starts
+    from the new mask) and on its last (a repair of one slot), two of one
+    member in one slot, all of some member's in the first tile; T is not
+    a multiple of the tile, and the cap binds."""
+    obj, U = fleet_case(name)
+    tables = k4.scan_inputs(obj, torch.device("cpu"))
+    u = torch.tensor(U)
+    out = k4.fleet_scan_fwd_plain(u, *tables, obj.batch_size, True,
+                                  keep=True)
+    act = (out[6] > tables[3][1]).numpy()       # (T, N, M) at slot starts
+    T, N, M = act.shape
+    W = k4.launch_plan(N, M, T)["slots"]
+    assert T % W != 0
+    t, n, m = np.nonzero(act[:-1] & ~act[1:])
+    off = np.full((N, M), -1)
+    off[n, m] = t + 1                           # the first slot inactive
+    assert (off > 0).all() and act[0].all()
+    at = off % W
+    assert (at == 0).any() and (at == W - 1).any()
+    assert ((at != 0) & (at != W - 1)).any()
+    assert any(len(set(row)) < M for row in off)
+    assert (off < W).all(1).any()
+    free = k4.fleet_scan_fwd_plain(u, *tables, obj.batch_size, False)
+    assert not torch.equal(free[0], out[0])
+
+
+@pytest.mark.parametrize("T", [1, 24, 280, 292, 624])
+@pytest.mark.parametrize("N", [1, 192, 256, 1024])
+def test_objective_scan_launch_plan_covers_the_slots(N, T):
+    """K3's plan: a block a member, a thread a slot of each tile (whole
+    warps, at most 256), every slot once, tiles as even as the warps
+    leave them, shared memory within a block's 232,448 bytes."""
+    p = k3.launch_plan(N, T)
+    W = p["slots"]
+    assert p["blocks"] == N and p["threads"] == W
+    assert W % 32 == 0 and W <= 256
+    seen = [t0 + i for t0 in range(0, p["tiles"] * W, W)
+            for i in range(p["threads"]) if t0 + i < T]
+    assert sorted(seen) == list(range(T))
+    assert p["tiles"] * W - T < 32 * p["tiles"]
+    assert max(p["smem_fwd"], p["smem_bwd"]) <= 232_448
+    if T == 280:
+        assert (W, p["tiles"]) == (160, 2)
+
+
+@pytest.mark.parametrize("T", [1, 24, 280, 292, 624])
+@pytest.mark.parametrize("M", [1, 2, 40, 128])
+@pytest.mark.parametrize("N", [1, 192, 256, 1024])
+def test_fleet_objective_launch_plan_covers_the_slots(N, M, T):
+    """K4's plan: a block a member, a slot to a thread (M <= 2) or to a
+    warp of 8, group g of a tile taking slots g, g + groups, ...: every
+    slot once, whole warps, shared memory within a block's 232,448 bytes;
+    the README fleet (M = 2, T = 624) in three tiles of 224."""
+    p = k4.launch_plan(N, M, T)
+    G, W, threads = p["group"], p["slots"], p["threads"]
+    assert p["blocks"] == N and G == (1 if M <= 2 else 32)
+    assert threads % 32 == 0 and threads <= 256
+    assert threads == (W if G == 1 else 256)
+    groups = threads // G
+    seen = [t0 + s for t0 in range(0, p["tiles"] * W, W)
+            for g in range(groups) for s in range(g, W, groups) if t0 + s < T]
+    assert sorted(seen) == list(range(T))
+    assert max(p["smem_fwd"], p["smem_bwd"]) <= 232_448
+    if (M, T) == (2, 624):
+        assert (W, p["tiles"]) == (224, 3)
+
+
+def test_fleet_objective_launch_plan_takes_the_tile_kernels_campaigns():
+    """Past 128 campaigns the streaming kernels run: no tile plan."""
+    for M in (0, 129):
+        with pytest.raises(ValueError, match="campaigns"):
+            k4.launch_plan(1, M, 24)
+
+
 @pytest.mark.parametrize("which", ["trace", "fleet"])
 def test_objectives_refuse_other_devices(which):
     """Neither the objectives nor the launch wrappers take a device that
