@@ -17,8 +17,12 @@ kernels' plain PyTorch versions.  `ServingSession` is the live-mode
 adapter of the decode-serving engine (`repro_torch.serving.engine`); its
 windowed mode is not ported yet.  `Campaign.optimize` and
 `Fleet.optimize` search schedules with gradients under `torch.autograd`
-(core/optimize.py).  Not ported yet: MPC, grid-data ingestion and
-calibration, the plan cache and `delta_sweep` (see ROADMAP.md).
+(core/optimize.py); `Campaign.run_mpc` and `Fleet.run_mpc` re-plan them
+in flight under receding-horizon MPC (core/mpc.py).  `cache_dir=` (or
+``CARINA_PLAN_CACHE``) keeps compiled plans on disk across processes
+(core/plancache.py), and `delta_sweep` re-scans only the cases a
+recurring batch changed.  Not ported yet: grid-data ingestion and
+calibration, and the windowed serving mode (see ROADMAP.md).
 """
 from repro_torch.core.carbon import (DTE_FACTOR, MIDWEST_HOURLY,  # noqa: F401
                                      GridCarbonModel)
@@ -31,24 +35,30 @@ from repro_torch.core.energy import (ChipProfile, EnergyModel,  # noqa: F401
 from repro_torch.core.engine import (SweepCase,  # noqa: F401
                                      frontier_from_sweep, hourly_profile,
                                      sweep)
-from repro_torch.core.engine_torch import (EvalMetrics,  # noqa: F401
-                                           FleetEvalMetrics,
-                                           FleetTraceObjective, PlanCursor,
+from repro_torch.core.engine_torch import (DeltaSweepResult,  # noqa: F401
+                                           EvalMetrics, FleetEvalMetrics,
+                                           FleetTraceObjective,
+                                           PlanCacheInfo, PlanCursor,
                                            ScanStats, SweepPlan,
-                                           TraceObjective, compile_plan,
+                                           TraceObjective, clear_plan_cache,
+                                           compile_plan, delta_sweep,
                                            evaluate_params, execute_interval,
                                            execute_plan, new_cursor,
-                                           plan_from_numpy, reset_scan_stats,
+                                           plan_cache_info, plan_from_numpy,
+                                           replace_tables, reset_scan_stats,
                                            scan_stats, summarize_plan,
                                            trace_sweep)
 from repro_torch.core.fleet import (Fleet, FleetResult, Site,  # noqa: F401
                                     SiteRollup, fleet_sweep, simulate_fleet)
 from repro_torch.core.model import site_throttle  # noqa: F401
+from repro_torch.core.mpc import (FleetMPCSession, MPCResult,  # noqa: F401
+                                  MPCSession, ReplanRecord, run_mpc)
 from repro_torch.core.optimize import (ROBUST_MODES,  # noqa: F401
                                        FleetOptimizeResult, Objective,
                                        OptimizeResult, optimize_fleet,
                                        optimize_schedule, pareto_front,
                                        reduce_ensemble, scalarize_fleet)
+from repro_torch.core.plancache import PlanCache  # noqa: F401
 from repro_torch.core.policy import (BANDS, BASELINE,  # noqa: F401
                                      LARGE_BATCHES, LOW_PRIORITY_ONLY,
                                      PEAK_AWARE_AGGRESSIVE,

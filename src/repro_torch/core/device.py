@@ -34,11 +34,10 @@ def exact_fp32() -> None:
 
 
 def reject_unported(*, devices: Optional[int] = None,
-                    backend: Optional[str] = None,
-                    cache_dir: Optional[str] = None) -> None:
+                    backend: Optional[str] = None) -> None:
     """Raise for reference knobs this package does not implement yet:
-    lane sharding over several cards (`devices` > 1), the NumPy backend
-    (`backend=`) and the persistent plan cache (`cache_dir`)."""
+    lane sharding over several cards (`devices` > 1) and the NumPy
+    backend (`backend=`)."""
     if devices is not None:
         n = int(devices)
         if n < 1:
@@ -51,6 +50,3 @@ def reject_unported(*, devices: Optional[int] = None,
         raise NotImplementedError(
             f"backend={backend!r} is not ported: the engine runs PyTorch on "
             "the given device")
-    if cache_dir is not None:
-        raise NotImplementedError(
-            "cache_dir (the persistent plan cache) is not ported yet")

@@ -271,10 +271,12 @@ def sweep(cases: Sequence[SweepCase],
     tune the trace path, as does `precision` ("fp64" exact / "mixed"
     fp32 dynamics with fp64 accumulators).  `device` is where both
     paths run: the card by default, `"cpu"` for the plain PyTorch
-    versions of the kernels.  `backend`, `devices` > 1 and `cache_dir`
-    are the reference's knobs that are not ported yet and raise.
+    versions of the kernels.  `cache_dir` points trace-path compilation
+    at a persistent on-disk plan cache (see
+    `engine_torch.compile_plan`).  `backend` and `devices` > 1 are the
+    reference's knobs that are not ported yet and raise.
     """
-    reject_unported(devices=devices, backend=backend, cache_dir=cache_dir)
+    reject_unported(devices=devices, backend=backend)
     dev = resolve_device(device)
     if not len(cases):
         return []
@@ -308,7 +310,7 @@ def sweep(cases: Sequence[SweepCase],
         res = trace_sweep(sub, price=price, slots_per_hour=sph,
                           progress_buckets=progress_buckets,
                           max_days=max_days, precision=precision,
-                          device=dev)
+                          device=dev, cache_dir=cache_dir)
         for i, r in zip(trace_idx, res):
             out[i] = r
     return out  # type: ignore[return-value]

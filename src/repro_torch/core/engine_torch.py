@@ -32,6 +32,14 @@ fleets whose campaigns couple through one power envelope.
     `SimResult`s; ensemble cases get mean CO2 plus per-member
     `EnsembleStats`.
 
+  * **recurrence**: `compile_plan(cache_dir=...)` adds a persistent
+    layer under the in-process memo (core/plancache.py), so a fresh
+    process re-compiling the same batch reads it off disk;
+    `replace_tables` swaps decision tables (or carbon signals) into an
+    in-flight plan, the re-plan step of receding-horizon MPC
+    (core/mpc.py); `delta_sweep` re-scans only the cases a delta
+    changed and splices last cycle's results for the rest.
+
   * **objectives** (`TraceObjective`, `FleetTraceObjective`) are the same
     physics as a differentiable function of a day schedule's per-slot
     intensities, the substrate of `core/optimize.py`: on the card one
@@ -44,9 +52,8 @@ Entry points run on the card (`device="cuda"`) unless the caller names
 another device; with no card and no device given they raise instead of
 falling back to the CPU.  `precision="mixed"` runs the per-slot physics
 in float32 with float64 carried state and sums.  Not in this package
-yet: lane sharding over several cards (`devices` > 1), the persistent
-plan cache (`cache_dir`), the NumPy backend (`backend=`) and
-`replace_tables`/`delta_sweep`.
+yet: lane sharding over several cards (`devices` > 1) and the NumPy
+backend (`backend=`).
 """
 from __future__ import annotations
 
@@ -60,7 +67,7 @@ from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
 import numpy as np
 import torch
 
-from repro_torch.core import model
+from repro_torch.core import model, plancache
 from repro_torch.core.carbon import GridCarbonModel
 from repro_torch.core.device import reject_unported, resolve_device
 from repro_torch.core.schedule import (ParametricSchedule, SchedulingContext,
@@ -115,13 +122,31 @@ class ScanStats:
     `kernel_dispatches` holds the launches of each hand-written CUDA
     kernel, read from the wrappers: `scan_chunk` (K2) and
     `coupled_chunk` (K1); both stay 0 when the chunks ran the plain
-    PyTorch versions on the CPU.  `reset_scan_stats()` zeroes all of it.
+    PyTorch versions on the CPU.
+    MPC observability: `replans` counts `replace_tables` calls (one per
+    mid-flight re-plan) and `slots_reused` the lane x slot units of
+    already-executed state carried across those re-plans — work a
+    plan-from-scratch loop would have recomputed and the resumable
+    executor did not.
+    Recurrence observability: `disk_hits`/`disk_misses` count per-case
+    compile artifacts served from (or absent from) the persistent plan
+    cache (core/plancache.py; a fresh-process warm start of an S-case
+    sweep shows `disk_hits == S` with `plan_misses == 0`), and
+    `lanes_recomputed`/`lanes_spliced` partition a `delta_sweep`'s
+    lanes into re-scanned and result-spliced.
+    `reset_scan_stats()` zeroes all of it.
     """
     slot_work: int = 0            # lane x slot units executed
     chunks: int = 0               # chunk executions
     grouped_lanes: int = 0        # lane x chunk units in coupled groups
     plan_hits: int = 0            # per-case compile memo hits
     plan_misses: int = 0
+    replans: int = 0              # replace_tables calls (mid-flight re-plans)
+    slots_reused: int = 0         # lane x slot units carried across re-plans
+    disk_hits: int = 0            # compile artifacts loaded from disk
+    disk_misses: int = 0          # disk lookups that fell through to compile
+    lanes_recomputed: int = 0     # delta_sweep lanes re-scanned
+    lanes_spliced: int = 0        # delta_sweep lanes served from prev results
     precision_mode: str = ""      # dtype policy of the last executed plan
     device: str = ""              # device of the last executed plan
     copy_bytes: int = 0           # host<->device bytes around the chunks
@@ -490,20 +515,93 @@ def _fingerprint(case, price, sph: int, B: int, max_days: int,
         return None
 
 
+def clear_plan_cache() -> None:
+    """Empty the in-process compile memo and zero every cache counter
+    (`plan_hits`/`plan_misses`, the disk `disk_hits`/`disk_misses`, and
+    the delta-sweep `lanes_recomputed`/`lanes_spliced`) so hit-rate
+    measurements restart clean.  Disk entries are left in place — use
+    `plancache.get_cache(dir).clear()` to empty a store."""
+    _PLAN_CACHE.clear()
+    _STATS.plan_hits = 0
+    _STATS.plan_misses = 0
+    _STATS.disk_hits = 0
+    _STATS.disk_misses = 0
+    _STATS.lanes_recomputed = 0
+    _STATS.lanes_spliced = 0
+
+
+def _comp_nbytes(comp: _CaseCompiled) -> int:
+    n = 256                               # flags, floats, tuple overhead
+    for pair in (comp.prof, comp.table):
+        if pair is not None:
+            n += int(pair[0].nbytes) + int(pair[1].nbytes)
+    if comp.probe is not None:
+        n += 24 * len(comp.probe.samples)
+    return n
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanCacheInfo:
+    """One dashboard row over both plan-cache layers: the in-process
+    memo (`mem_*`) and the persistent disk store (`disk_*`, zero when
+    caching is off).  `hits`/`misses` aggregate since the last
+    `clear_plan_cache()`/`reset_scan_stats()`: a hit is a compile
+    avoided by either layer, a miss is an actual `_compile_case` run."""
+    mem_entries: int
+    mem_bytes: int
+    disk_entries: int
+    disk_bytes: int
+    hits: int
+    misses: int
+
+    @property
+    def hit_rate(self) -> float:
+        """Fraction of case lookups served without compiling (0.0 when
+        nothing has been looked up yet)."""
+        total = self.hits + self.misses
+        return self.hits / total if total else 0.0
+
+
+def plan_cache_info(cache_dir: Optional[str] = None) -> PlanCacheInfo:
+    """Entries, bytes, and hit rate of the plan cache (memo + disk).
+
+    `cache_dir` resolves like everywhere else (explicit dir, else the
+    ``CARINA_PLAN_CACHE`` env default, else no disk layer)."""
+    cache = plancache.get_cache(cache_dir)
+    disk_entries, disk_bytes = cache.info() if cache is not None else (0, 0)
+    return PlanCacheInfo(
+        mem_entries=len(_PLAN_CACHE),
+        mem_bytes=sum(_comp_nbytes(c) for c in _PLAN_CACHE.values()),
+        disk_entries=disk_entries, disk_bytes=disk_bytes,
+        hits=_STATS.plan_hits + _STATS.disk_hits,
+        misses=_STATS.plan_misses)
+
 
 def _obtain_case(case, dec_sig, price, sph: int, B: int, max_hours: float,
-                 key: Optional[tuple]) -> _CaseCompiled:
-    """One case's compile artifact through the in-process memo, compiling
-    on a miss.  Opaque-fingerprint cases (key None) bypass the memo, so a
-    closure-bearing schedule can never poison it."""
+                 key: Optional[tuple],
+                 cache: Optional[plancache.PlanCache]) -> _CaseCompiled:
+    """One case's compile artifact through the layered cache: in-memory
+    memo, then the disk store, then `_compile_case` (write-through to
+    both layers).  Opaque-fingerprint cases (key None) bypass both
+    layers entirely — no entry is ever stored for them, so a
+    closure-bearing schedule can never poison the cache."""
     comp = _memo_get(key) if key is not None else None
     if comp is not None:
         _STATS.plan_hits += 1
         return comp
+    if cache is not None and key is not None:
+        comp = cache.get_case(key)
+        if comp is not None:
+            _STATS.disk_hits += 1
+            _memo_put(key, comp)
+            return comp
+        _STATS.disk_misses += 1
     comp = _compile_case(case, dec_sig, price, sph, B, max_hours)
     _STATS.plan_misses += 1
     if key is not None:
         _memo_put(key, comp)
+        if cache is not None:
+            cache.put_case(key, comp)
     return comp
 
 
@@ -646,9 +744,10 @@ class PlanCursor:
     `state` holds full-length (L,) accumulators — finished lanes keep
     their final values; `t0` is the next global grid slot to scan and
     `active` the lane indices still unfinished.  A cursor is what
-    `execute_interval` returns and accepts: a caller executes one
-    interval and resumes from the same cursor — no already-executed
-    slot is ever recomputed.  Cursors are immutable in practice: `execute_interval` copies the
+    `execute_interval` returns and accepts: the MPC loop executes one
+    control interval, re-plans (`replace_tables`), and resumes from the
+    same cursor — no already-executed slot is ever recomputed.
+    Cursors are immutable in practice: `execute_interval` copies the
     state arrays, so earlier cursors stay valid snapshots.
     """
     state: _ScanState
@@ -684,9 +783,15 @@ def compile_plan(cases: Sequence, price: Optional[Signal] = None, *,
 
     Per-case classification (closed-form profile / probe / decide_grid)
     is memoized by case fingerprint across calls, so re-sweeping the
-    same cases skips the Python probing entirely.  `cache_dir` (the
-    reference's persistent plan cache) is not ported yet and raises
-    unless None.
+    same cases skips the Python probing entirely.  `cache_dir` (default:
+    the ``CARINA_PLAN_CACHE`` environment variable; caching off when
+    both are unset) adds the persistent layer: compile artifacts are
+    also served from / written through to a disk-backed
+    content-addressed store (core/plancache.py), so a *fresh process*
+    re-compiling the same batch does zero classification/probing/
+    lowering work — one whole-batch entry read (accounted as
+    `scan_stats().disk_hits`) replaces the S-case compile,
+    bitwise-identically.
 
     `group_sizes` partitions the case sequence into fleet *groups* of
     adjacent cases (the M campaigns of one fleet case); `group_caps_kw`
@@ -705,7 +810,6 @@ def compile_plan(cases: Sequence, price: Optional[Signal] = None, *,
     state and the kWh/CO2/cost sums stay fp64 — kWh/CO2 totals stay
     within ~1e-6 relative of fp64 (pinned by tests).
     """
-    reject_unported(cache_dir=cache_dir)
     if precision not in ("fp64", "mixed"):
         raise ValueError(f"unknown precision {precision!r}; "
                          "use 'fp64' or 'mixed'")
@@ -776,14 +880,35 @@ def compile_plan(cases: Sequence, price: Optional[Signal] = None, *,
                       else default_sig)
                 for c, ens in zip(cases, ensembles)]
 
+    cache = plancache.get_cache(cache_dir)
     memo: dict = {}
     keys = [_fingerprint(c, price, sph, B, max_days, memo) for c in cases]
     compiled: List[Optional[_CaseCompiled]] = [
         _memo_get(k) if k is not None else None for k in keys]
     _STATS.plan_hits += sum(c is not None for c in compiled)
-    for i in [i for i, c in enumerate(compiled) if c is None]:
+    missing = [i for i, c in enumerate(compiled) if c is None]
+    batch_digest = (cache.batch_digest(keys)
+                    if cache is not None and len(cases)
+                    and all(k is not None for k in keys) else None)
+    batch_missed = False
+    if missing and batch_digest is not None:
+        # whole-batch warm start: one entry read replaces up to S
+        # per-case reads (the common recurrence shape — the same batch,
+        # verbatim, next cycle in a fresh process)
+        batch = cache.get_batch(batch_digest, len(cases))
+        if batch is not None:
+            for i in missing:
+                compiled[i] = batch[i]
+                _memo_put(keys[i], batch[i])
+            _STATS.disk_hits += len(missing)
+            missing = []
+        else:
+            batch_missed = True
+    for i in missing:
         compiled[i] = _obtain_case(cases[i], dec_sigs[i], price, sph, B,
-                                   max_hours, keys[i])
+                                   max_hours, keys[i], cache)
+    if batch_missed:
+        cache.put_batch(batch_digest, compiled)
     for c, comp in zip(cases, compiled):
         if comp.stalled:
             raise RuntimeError(
@@ -895,6 +1020,369 @@ def compile_plan(cases: Sequence, price: Optional[Signal] = None, *,
         group_sizes=group_sizes, case_group=case_group,
         lane_group=np.asarray(lane_group, dtype=int),
         group_cap_kw=caps, group_office_kw=office)
+
+
+def _normalize_replace_maps(plan: SweepPlan, schedules, carbon
+                            ) -> Tuple[Dict[int, object], Dict[int, object]]:
+    """Normalize `replace_tables`/`delta_sweep` deltas to index maps:
+    `schedules` may be a mapping {case index -> schedule}, a per-case
+    sequence (None = keep), or — for 1-case plans — a bare schedule;
+    `carbon` a mapping {case index -> signal}, one signal applied to
+    every case, or a per-case sequence."""
+    n = len(plan.cases)
+    sched_map: Dict[int, object] = {}
+    if schedules is not None:
+        if hasattr(schedules, "items"):
+            sched_map = {int(i): s for i, s in schedules.items()}
+        elif callable(getattr(schedules, "decide", None)) or \
+                callable(getattr(schedules, "decide_grid", None)):
+            if n != 1:
+                raise ValueError(
+                    f"a bare schedule is ambiguous for a {n}-case plan; "
+                    "pass a mapping {case index: schedule} or a per-case "
+                    "sequence")
+            sched_map = {0: schedules}
+        else:
+            seq = list(schedules)
+            if len(seq) != n:
+                raise ValueError(
+                    f"schedules sequence needs one entry per case ({n}), "
+                    f"got {len(seq)}")
+            sched_map = {i: s for i, s in enumerate(seq) if s is not None}
+    carbon_map: Dict[int, object] = {}
+    if carbon is not None:
+        if hasattr(carbon, "items") and not callable(
+                getattr(carbon, "at", None)):
+            carbon_map = {int(i): c for i, c in carbon.items()}
+        elif isinstance(carbon, (list, tuple)) and not callable(
+                getattr(carbon, "at", None)):
+            if len(carbon) != n:
+                raise ValueError(
+                    f"carbon sequence needs one entry per case ({n}), "
+                    f"got {len(carbon)}")
+            carbon_map = {i: c for i, c in enumerate(carbon)
+                          if c is not None}
+        else:
+            carbon_map = {i: carbon for i in range(n)}
+    for i in list(sched_map) + list(carbon_map):
+        if not 0 <= i < n:
+            raise ValueError(f"case index {i} out of range for a "
+                             f"{n}-case plan")
+    return sched_map, carbon_map
+
+
+def replace_tables(plan: SweepPlan, cursor: Optional[PlanCursor] = None, *,
+                   schedules=None, carbon=None,
+                   cache_dir: Optional[str] = None) -> SweepPlan:
+    """Swap decision tables and/or carbon signals on an in-flight plan.
+
+    The MPC re-plan primitive: given a plan paused at `cursor`, return a
+    new `SweepPlan` whose changed cases carry fresh decision tables (and
+    optionally new carbon signals) while every *unchanged* lane keeps its
+    compiled tables, builders, and incrementally-sampled signal grids —
+    nothing already classified, lowered, or executed is redone.  Resume
+    with `execute_interval(new_plan, cursor)`: the carried state is valid
+    because the lane layout is preserved (enforced below).
+
+    `schedules` is a mapping {case index -> schedule} or a sequence with
+    one entry per case (None = keep); `carbon` is one signal applied to
+    every changed-carbon case or a per-case sequence (None = keep).  A
+    case's ensemble width and lane expansion must not change — an
+    in-flight lane is a scan row with carried state and cannot be split
+    or merged mid-campaign.
+
+    Changed cases are re-classified through the layered plan cache
+    (`plan_hits`/`plan_misses`/`disk_hits` account it; `cache_dir`
+    resolves like `compile_plan`'s); `scan_stats().replans` counts
+    each call and `slots_reused` accumulates `cursor.t0 * n_lanes` — the
+    lane x slot units of executed state carried forward instead of
+    recomputed.
+    """
+    sched_map, carbon_map = _normalize_replace_maps(plan, schedules, carbon)
+    changed = sorted(set(sched_map) | set(carbon_map))
+    _STATS.replans += 1
+    if cursor is not None:
+        if len(cursor.state.remaining) != plan.n_lanes:
+            raise ValueError(
+                f"cursor carries {len(cursor.state.remaining)} lanes but "
+                f"the plan has {plan.n_lanes}")
+        _STATS.slots_reused += int(cursor.t0) * plan.n_lanes
+    if not changed:
+        return plan
+
+    H = 24 * plan.sph
+    max_hours = float(plan.max_days) * 24.0
+    new_cases = list(plan.cases)
+    ensembles = list(plan.case_ensemble)
+    lane_table = list(plan.lane_table)
+    lane_builder = list(plan.lane_builder)
+    lane_periodic = plan.lane_periodic.copy()
+    lane_co2 = list(plan.lane_co2_sigs)
+    est_h = plan.est_h
+    cache = plancache.get_cache(cache_dir)
+    memo: dict = {}
+    for i in changed:
+        case = plan.cases[i]
+        lanes = np.flatnonzero(plan.lane_case == i)
+        new_carb = carbon_map.get(i, case.carbon)
+        if i in carbon_map:
+            ens_new = (new_carb if isinstance(new_carb, SignalEnsemble)
+                       else None)
+            old_e = len(ensembles[i]) if ensembles[i] is not None else 1
+            new_e = len(ens_new) if ens_new is not None else 1
+            if (ens_new is None) != (ensembles[i] is None) or old_e != new_e:
+                raise ValueError(
+                    f"case {case.name()!r}: replacing a "
+                    f"{old_e}-member carbon with a {new_e}-member one "
+                    "would change the plan's lane/ensemble layout; "
+                    "re-plans must keep the ensemble width")
+            ensembles[i] = ens_new
+        ens = ensembles[i]
+        new_case = dataclasses.replace(
+            case, schedule=sched_map.get(i, case.schedule), carbon=new_carb)
+        new_cases[i] = new_case
+        sched = as_schedule(new_case.schedule)
+        if ens is not None:
+            dec_sig = carbon_signal(ens.member(0))
+        elif new_case.carbon is not None:
+            dec_sig = carbon_signal(new_case.carbon)
+        else:
+            # default-grid case: keep the plan's existing shared signal
+            dec_sig = lane_co2[int(lanes[0])][0]
+        key = _fingerprint(new_case, plan.price, plan.sph, plan.B,
+                           plan.max_days, memo)
+        comp = _obtain_case(new_case, dec_sig, plan.price, plan.sph,
+                            plan.B, max_hours, key, cache)
+        if comp.stalled:
+            raise RuntimeError(
+                f"case {new_case.name()!r}: the replacement schedule is "
+                "stalled at zero intensity (one full day completes a "
+                "negligible fraction of the workload)")
+        expand = ens is not None and comp.carbon_dep
+        if expand != plan.case_expanded[i]:
+            raise ValueError(
+                f"case {new_case.name()!r}: the replacement schedule "
+                f"{'consults' if expand else 'ignores'} the carbon signal "
+                "under an ensemble, which would "
+                f"{'expand' if expand else 'collapse'} its lanes; "
+                "re-plans must keep the lane layout")
+        est_h = max(est_h, comp.est_h)
+        for lane in lanes:
+            lane = int(lane)
+            e = int(plan.lane_member[lane])
+            if expand:
+                sig_e = carbon_signal(ens.member(e))
+                if comp.periodic:
+                    lane_table[lane] = (
+                        comp.table if comp.prof is not None else
+                        _day_table(new_case, sched, comp.probe, sig_e,
+                                   plan.price, plan.sph, plan.B))
+                    lane_builder[lane] = None
+                else:
+                    lane_table[lane] = None
+                    lane_builder[lane] = _chunk_table_builder(
+                        new_case, sched, comp.probe, sig_e, plan.price,
+                        plan.sph, plan.B)
+                lane_co2[lane] = tuple(carbon_signal(ens.member(e))
+                                       for _ in range(plan.E))
+            else:
+                if comp.periodic:
+                    lane_table[lane] = comp.table
+                    lane_builder[lane] = None
+                else:
+                    lane_table[lane] = None
+                    lane_builder[lane] = _chunk_table_builder(
+                        new_case, sched, comp.probe, dec_sig, plan.price,
+                        plan.sph, plan.B)
+                if ens is not None:
+                    lane_co2[lane] = tuple(carbon_signal(ens.member(e2))
+                                           for e2 in range(plan.E))
+                else:
+                    lane_co2[lane] = tuple(dec_sig
+                                           for _ in range(plan.E))
+            lane_periodic[lane] = comp.periodic
+
+    # restack the periodic tables (cheap NumPy; no classification)
+    L = plan.n_lanes
+    B_t = max((t[0].shape[1] for t in lane_table if t is not None),
+              default=1)
+    tab_u = np.zeros((L, H, B_t))
+    tab_b = np.ones((L, H, B_t))
+    for lane, t in enumerate(lane_table):
+        if t is not None:
+            u_r, b_r = t
+            tab_u[lane] = u_r if u_r.shape[1] == B_t \
+                else np.broadcast_to(u_r, (H, B_t))
+            tab_b[lane] = b_r if b_r.shape[1] == B_t \
+                else np.broadcast_to(b_r, (H, B_t))
+    # grids dict is shared by reference: unchanged signals keep their
+    # incrementally-sampled prefixes, so resuming re-samples nothing
+    return dataclasses.replace(
+        plan, cases=tuple(new_cases), case_ensemble=ensembles,
+        lane_table=lane_table, lane_builder=lane_builder,
+        lane_periodic=lane_periodic, tab_u=tab_u, tab_b=tab_b,
+        tab_buckets=B_t, lane_co2_sigs=lane_co2, est_h=est_h)
+
+
+def _value_changed(old, new) -> bool:
+    """True unless `new` provably carries the same value identity as
+    `old` (same object, or equal `_freeze` fingerprints).  Opaque
+    components (closures) are always treated as changed — correctness
+    over splicing."""
+    if old is new:
+        return False
+    try:
+        return _freeze(old) != _freeze(new)
+    except _Opaque:
+        return True
+
+
+def _subset_plan(plan: SweepPlan, case_idx: Sequence[int]) -> SweepPlan:
+    """A `SweepPlan` over a case subset, sliced — not recompiled — from
+    `plan`: tables, builders, physics scalars, and the incrementally
+    sampled signal `grids` (shared by reference) all carry over, so
+    building the subset does zero classification or lowering work.
+    Coupled groups must be included whole (their lanes interact through
+    the site cap every slot); per-lane scan results are unchanged by
+    the subsetting, exactly as with finished-lane compaction."""
+    idx = np.asarray(sorted(int(i) for i in case_idx), dtype=int)
+    keep = np.zeros(len(plan.cases), dtype=bool)
+    keep[idx] = True
+    for g in sorted({int(plan.case_group[i]) for i in idx}):
+        if np.isfinite(plan.group_cap_kw[g]):
+            members = np.flatnonzero(plan.case_group == g)
+            if not keep[members].all():
+                raise ValueError(
+                    f"coupled group {g} must be subset whole: its lanes "
+                    "share the site cap every slot")
+    case_pos = {int(i): j for j, i in enumerate(idx)}
+    lanes = np.flatnonzero(np.isin(plan.lane_case, idx))
+    old_groups = sorted({int(plan.case_group[i]) for i in idx})
+    gmap = {g: k for k, g in enumerate(old_groups)}
+    ga = np.asarray(old_groups, dtype=int)
+    return dataclasses.replace(
+        plan,
+        cases=tuple(plan.cases[i] for i in idx),
+        case_ensemble=[plan.case_ensemble[i] for i in idx],
+        case_expanded=[plan.case_expanded[i] for i in idx],
+        lane_case=np.array([case_pos[int(c)]
+                            for c in plan.lane_case[lanes]], dtype=int),
+        lane_member=plan.lane_member[lanes],
+        lane_table=[plan.lane_table[int(ln)] for ln in lanes],
+        lane_builder=[plan.lane_builder[int(ln)] for ln in lanes],
+        lane_periodic=plan.lane_periodic[lanes],
+        tab_u=plan.tab_u[lanes], tab_b=plan.tab_b[lanes],
+        lane_co2_sigs=[plan.lane_co2_sigs[int(ln)] for ln in lanes],
+        n_scen=plan.n_scen[lanes], rate=plan.rate[lanes],
+        oh=plan.oh[lanes], idle=plan.idle[lanes], dyn=plan.dyn[lanes],
+        alpha=plan.alpha[lanes], gamma=plan.gamma[lanes],
+        ohfrac=plan.ohfrac[lanes], start=plan.start[lanes],
+        g0=plan.g0[lanes], s0=plan.s0[lanes], bg_day=plan.bg_day[lanes],
+        group_sizes=tuple(
+            int(np.isin(np.flatnonzero(plan.case_group == g), idx).sum())
+            for g in old_groups),
+        case_group=np.array([gmap[int(plan.case_group[i])] for i in idx],
+                            dtype=int),
+        lane_group=np.array([gmap[int(g)] for g in plan.lane_group[lanes]],
+                            dtype=int),
+        group_cap_kw=plan.group_cap_kw[ga],
+        group_office_kw=plan.group_office_kw[ga],
+        grids=plan.grids)
+
+
+@dataclasses.dataclass
+class DeltaSweepResult:
+    """One incremental re-sweep: per-case `SimResult`s for the whole
+    batch (`results`, order preserved), the updated plan to delta
+    against next cycle (`plan`), and the case-index partition into
+    re-scanned (`recomputed`) vs prev-result-spliced (`spliced`)."""
+    results: List[SimResult]
+    plan: SweepPlan
+    recomputed: Tuple[int, ...]
+    spliced: Tuple[int, ...]
+
+
+def delta_sweep(prev_plan: SweepPlan, prev_results: Sequence[SimResult], *,
+                schedules=None, carbon=None,
+                backend: Optional[str] = None,
+                chunk_days: Optional[int] = None,
+                devices: Optional[int] = None,
+                cache_dir: Optional[str] = None,
+                device=None) -> DeltaSweepResult:
+    """Re-sweep a recurring batch incrementally: re-scan only the cases
+    a delta actually affects and splice last cycle's `SimResult`s for
+    the rest.
+
+    The recurrence primitive: given last cycle's compiled plan and its
+    results, plus this cycle's delta — `schedules` (mapping {case index
+    -> schedule} or per-case sequence, None = keep) and/or `carbon`
+    (one signal for every case or a per-case sequence) — return the
+    full result list as if the whole batch had been re-swept.  Deltas
+    are screened by value: a "changed" schedule or carbon signal that
+    fingerprints identically to the incumbent is a no-op (its lanes are
+    spliced, not re-scanned).  Changed cases re-lower through
+    `replace_tables` — the ensemble width and lane expansion of every
+    case must be preserved, exactly as for an in-flight re-plan — and
+    re-execute from slot 0 as a fresh cycle on a sliced subplan;
+    results for them are bitwise-identical to a full re-sweep (lanes
+    do not interact across groups, so subsetting is equivalent to the
+    executor's finished-lane compaction).  A changed case inside a
+    site-capped fleet group drags its whole group into the re-scan
+    (coupled lanes share the cap every slot — splicing a member of a
+    changed group would be wrong, not just stale).
+
+    `scan_stats().lanes_recomputed`/`lanes_spliced` account the lane
+    partition; with K changed schedules out of S the re-scanned slot
+    work is ~K/S of a full re-sweep.  `cache_dir` resolves like
+    `compile_plan`'s; `device` is where the re-scan runs (the card by
+    default: K2, or K1 for a capped group); `devices` and `backend`
+    raise unless left at their defaults (not ported yet).  Note a
+    changed *carbon* signal affects every case it applies to even under
+    carbon-blind schedules — the CO2 integral runs over the realized
+    trace — so a new carbon window re-scans all of its cases; the
+    savings there come from the plan cache (tables and classification
+    are reused), not from splicing.
+    """
+    reject_unported(devices=devices, backend=backend)
+    prev_results = list(prev_results)
+    n = len(prev_plan.cases)
+    if len(prev_results) != n:
+        raise ValueError(
+            f"prev_results carries {len(prev_results)} results but the "
+            f"plan has {n} cases — pass last cycle's full result list")
+    sched_map, carbon_map = _normalize_replace_maps(prev_plan, schedules,
+                                                    carbon)
+    sched_map = {i: s for i, s in sched_map.items()
+                 if _value_changed(prev_plan.cases[i].schedule, s)}
+    carbon_map = {i: c for i, c in carbon_map.items()
+                  if _value_changed(prev_plan.cases[i].carbon, c)}
+    new_plan = replace_tables(prev_plan, None,
+                              schedules=sched_map or None,
+                              carbon=carbon_map or None,
+                              cache_dir=cache_dir)
+    affected = set(sched_map) | set(carbon_map)
+    # lane-group revalidation: a changed member of a site-capped group
+    # invalidates the whole group's scan, not just its own lane
+    for g in sorted({int(new_plan.case_group[i]) for i in affected}):
+        if np.isfinite(new_plan.group_cap_kw[g]):
+            affected.update(
+                int(i) for i in np.flatnonzero(new_plan.case_group == g))
+    if not affected:
+        _STATS.lanes_spliced += new_plan.n_lanes
+        return DeltaSweepResult(results=prev_results, plan=new_plan,
+                                recomputed=(), spliced=tuple(range(n)))
+    sub = sorted(affected)
+    subplan = _subset_plan(new_plan, sub)
+    _STATS.lanes_recomputed += subplan.n_lanes
+    _STATS.lanes_spliced += new_plan.n_lanes - subplan.n_lanes
+    state = execute_plan(subplan, chunk_days=chunk_days, device=device)
+    sub_results = summarize_plan(subplan, state)
+    results = prev_results
+    for j, i in enumerate(sub):
+        results[i] = sub_results[j]
+    return DeltaSweepResult(
+        results=results, plan=new_plan, recomputed=tuple(sub),
+        spliced=tuple(i for i in range(n) if i not in affected))
 
 
 # ---------------------------------------------------------------------------
@@ -1719,18 +2207,19 @@ def trace_sweep(cases: Sequence, price: Optional[Signal] = None, *,
     `compile_plan`/`execute_plan`).  Use `repro_torch.core.engine.sweep`
     for mixed workloads: it keeps the periodic 24-slot path for cases
     that qualify and calls this for the rest.  `device` is where the
-    chunks run (default the card); `devices`, `backend` and `cache_dir`
-    are accepted for the reference's signature and raise unless left at
-    their defaults (not ported yet).
+    chunks run (default the card); `cache_dir` resolves like
+    `compile_plan`'s; `devices` and `backend` are accepted for the
+    reference's signature and raise unless left at their defaults (not
+    ported yet).
     """
-    reject_unported(devices=devices, backend=backend, cache_dir=cache_dir)
+    reject_unported(devices=devices, backend=backend)
     if not len(cases):
         return []
     plan = compile_plan(cases, price, slots_per_hour=slots_per_hour,
                         progress_buckets=progress_buckets, max_days=max_days,
                         group_sizes=group_sizes, group_caps_kw=group_caps_kw,
                         group_office_kw=group_office_kw,
-                        precision=precision)
+                        precision=precision, cache_dir=cache_dir)
     state = execute_plan(plan, chunk_days=chunk_days, mode=mode,
                          device=device)
     return summarize_plan(plan, state)

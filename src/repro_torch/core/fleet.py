@@ -157,10 +157,11 @@ def fleet_sweep(fleet_cases: Sequence[Sequence[SweepCase]],
     `precision` is the engine's dtype policy (see
     `engine_torch.compile_plan`) and `device` where the scan runs (the
     card by default; "cpu" runs the kernels' plain PyTorch versions).
-    `backend`, `devices` > 1 and `cache_dir` are not ported yet and
-    raise.
+    `cache_dir` points plan compilation at a persistent on-disk cache
+    (see `engine_torch.compile_plan`).  `backend` and `devices` > 1 are
+    not ported yet and raise.
     """
-    reject_unported(devices=devices, backend=backend, cache_dir=cache_dir)
+    reject_unported(devices=devices, backend=backend)
     if not len(fleet_cases):
         return []
     flat: List[SweepCase] = [c for grp in fleet_cases for c in grp]
@@ -169,7 +170,8 @@ def fleet_sweep(fleet_cases: Sequence[Sequence[SweepCase]],
         names = [grp[0].name() for grp in fleet_cases]
     if site.power_cap_kw is None:
         res = sweep(flat, price=price, progress_buckets=progress_buckets,
-                    max_days=max_days, precision=precision, device=device)
+                    max_days=max_days, precision=precision, device=device,
+                    cache_dir=cache_dir)
         out = []
         i = 0
         for name, M in zip(names, sizes):
@@ -190,7 +192,7 @@ def fleet_sweep(fleet_cases: Sequence[Sequence[SweepCase]],
                         group_sizes=sizes,
                         group_caps_kw=[site.power_cap_kw] * G,
                         group_office_kw=[site.office_kw] * G,
-                        precision=precision)
+                        precision=precision, cache_dir=cache_dir)
     state = execute_plan(plan, chunk_days=chunk_days, device=device)
     res = summarize_plan(plan, state)
     out = []
@@ -347,7 +349,6 @@ class Fleet:
                  *, name: Optional[str] = None,
                  out_dir: Optional[str] = None,
                  cache_dir: Optional[str] = None):
-        reject_unported(cache_dir=cache_dir)
         if not len(campaigns):
             raise ValueError("Fleet needs at least one campaign")
         self.campaigns = list(campaigns)
@@ -364,6 +365,7 @@ class Fleet:
         self.name = name or "+".join(
             getattr(c.workload, "name", c.name) for c in self.campaigns)
         self.out_dir = out_dir
+        self.cache_dir = cache_dir
 
     @property
     def n_campaigns(self) -> int:
@@ -465,7 +467,7 @@ class Fleet:
         out = fleet_sweep(groups, self.site, price=self.site.price,
                           names=labels, backend=backend, max_days=max_days,
                           precision=precision, devices=devices,
-                          device=device)
+                          cache_dir=self.cache_dir, device=device)
         if deltas:
             for fr in out:
                 for c, r in zip(self.campaigns, fr.campaigns):
@@ -545,6 +547,41 @@ class Fleet:
             cases, site=self.site, objective=objective,
             constraints=constraints, price=self.site.price, device=device,
             **kwargs)
+
+    def run_mpc(self, carbon_trace=None, objective="co2", *,
+                constraints=None, deadlines=None, forecast="oracle",
+                replan_every_h=24.0, backend=None, chunk_days=None,
+                device=None, **kwargs):
+        """Run the fleet closed-loop under receding-horizon MPC.
+
+        The M-campaign analogue of `Campaign.run_mpc`: every
+        `replan_every_h` hours (None/inf = open loop) the *unfinished*
+        campaigns' remaining workloads are jointly re-optimized via
+        `optimize_fleet` against a fresh `forecast` of the ground-truth
+        trace (`carbon_trace`, defaulting to the site's carbon),
+        warm-started from the incumbent schedules, and the grouped-lane
+        plan resumes from carried state — already-executed slots are
+        never recomputed.  `deadlines` (scalar or per-campaign, all
+        finite) define the receding horizons.  `device` is where every
+        solve and every control interval runs (the card by default);
+        `backend=` raises.  Remaining keyword arguments configure every
+        `optimize_fleet` solve.
+
+        Returns an `MPCResult` whose `.result` is a `FleetResult`
+        (per-campaign `SimResult`s + site rollup) realized against the
+        truth.
+        """
+        from repro_torch.core.mpc import FleetMPCSession
+        truth = self._carbon(carbon_trace, None)
+        dls = self._deadlines(deadlines)
+        cases = self._cases([c.schedule for c in self.campaigns],
+                            carbon=truth, deadlines=dls, label="mpc")
+        return FleetMPCSession(
+            cases, self.site, truth, objective=objective,
+            constraints=constraints, forecast=forecast,
+            replan_every_h=replan_every_h, price=self.site.price,
+            backend=backend, chunk_days=chunk_days,
+            cache_dir=self.cache_dir, solver=kwargs, device=device).run()
 
 
 __all__ = ["Fleet", "FleetResult", "Site", "SiteRollup", "fleet_sweep",

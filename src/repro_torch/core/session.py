@@ -17,6 +17,9 @@ Simulation campaigns (OEMWorkload):
     Campaign(workload).optimize("co2", deadline_h=200)
                                                 -> synthesized schedule
                                                    (core/optimize.py)
+    Campaign(workload).run_mpc(truth, "co2", deadline_h=200)
+                                                -> receding-horizon MPC
+                                                   (core/mpc.py)
 
 Training campaigns (TrainingCampaign):
     c = Campaign(training_workload, schedule)
@@ -33,7 +36,6 @@ from typing import List, Optional, Sequence, Tuple
 from repro_torch.core.carbon import GridCarbonModel
 from repro_torch.core.controller import CarinaController, SimClock
 from repro_torch.core.dashboard import render_frontier_dashboard, render_run_dashboard
-from repro_torch.core.device import reject_unported
 from repro_torch.core.energy import ChipProfile, MachineProfile, StepCost
 from repro_torch.core.engine import SweepCase, frontier_from_sweep, sweep
 from repro_torch.core.policy import BASELINE, POLICIES, TimeBands
@@ -67,7 +69,6 @@ class Campaign:
                  name: Optional[str] = None,
                  out_dir: Optional[str] = None,
                  cache_dir: Optional[str] = None):
-        reject_unported(cache_dir=cache_dir)
         self.workload = workload
         self.schedule: Schedule = as_schedule(schedule)
         self.machine = machine or MachineProfile()
@@ -82,6 +83,7 @@ class Campaign:
         self.name = name or f"{getattr(workload, 'name', 'campaign')}" \
                             f"-{self.schedule.name}"
         self.out_dir = out_dir
+        self.cache_dir = cache_dir
         self.tracker: Optional[RunTracker] = None
         self._calibrated: Optional[Tuple[OEMWorkload, MachineProfile]] = None
         self._baselines: dict = {}
@@ -255,7 +257,8 @@ class Campaign:
                     cases.append(SweepCase(
                         s, wl, m, self.bands, carbon, self.start_hour,
                         label=lbl, deadline_h=deadline_h))
-        results = sweep(cases, price=self.price, device=device)
+        results = sweep(cases, price=self.price, cache_dir=self.cache_dir,
+                        device=device)
         return (frontier_from_sweep(results, base=self.baseline())
                 if deltas else results)
 
@@ -339,6 +342,61 @@ class Campaign:
         if deltas:
             fill_deltas([out.result] + out.frontier, self.baseline())
         return out
+
+    def run_mpc(self, carbon_trace=None, objective="co2", *,
+                constraints=None, deadline_h: float = 0.0,
+                forecast="oracle", replan_every_h=24.0,
+                backend=None, chunk_days=None, device=None, **kwargs):
+        """Run this campaign closed-loop under receding-horizon MPC.
+
+        `carbon_trace` is the *ground truth* the campaign executes
+        against (an hourly trace or Signal; defaults to the campaign's
+        own carbon when that is a trace).  `forecast` names what the
+        optimizer *sees* — ``"oracle"`` / ``"day_ahead"`` /
+        ``"persistence"``, or any `repro_torch.core.signal.ForecastModel`
+        — and every `replan_every_h` hours (None/inf = open loop) the
+        remaining horizon is re-optimized from the carried executor
+        state, warm-started from the incumbent schedule's intensity
+        table.  A finite runtime cap is required (`deadline_h` or
+        `constraints={"runtime_h": ...}`): the receding horizon is
+        defined relative to it.  `device` is where every solve and
+        every control interval runs (the card by default); `backend=`
+        raises.  Remaining keyword arguments configure every
+        `optimize_schedule` solve (method, candidates, iterations,
+        seed, ...).
+
+        Returns an `MPCResult` — realized vs planned CO2/energy,
+        per-re-plan solve stats, and the realized forecast error.
+        """
+        from repro_torch.core.engine import (case_slots_per_hour,
+                                             periodic_decision_profile)
+        from repro_torch.core.mpc import MPCSession
+        from repro_torch.core.optimize import canonical_metric
+        from repro_torch.core.schedule import ParametricSchedule
+        wl, m = self.calibrated()
+        truth = (as_trace(carbon_trace, name="carbon-trace")
+                 if carbon_trace is not None else self.carbon)
+        constraints = {canonical_metric(k): float(v)
+                       for k, v in dict(constraints or {}).items()}
+        if deadline_h:
+            constraints.setdefault("runtime_h", float(deadline_h))
+        case = SweepCase(self.schedule, wl, m, self.bands, truth,
+                         self.start_hour,
+                         deadline_h=float(constraints.get("runtime_h", 0.0)))
+        solver = dict(kwargs)
+        if "init" not in solver:
+            prof = periodic_decision_profile(self.schedule, self.bands,
+                                             case_slots_per_hour(case))
+            if prof is not None:
+                solver["init"] = prof[0]
+            elif isinstance(self.schedule, ParametricSchedule):
+                solver["init"] = self.schedule.intensity_table()
+        return MPCSession(case, truth, objective=objective,
+                          constraints=constraints, forecast=forecast,
+                          replan_every_h=replan_every_h, price=self.price,
+                          backend=backend, chunk_days=chunk_days,
+                          cache_dir=self.cache_dir, solver=solver,
+                          device=device).run()
 
     # ------------------------------------------------------------------
     def as_fleet(self, site=None, **kwargs):

@@ -156,8 +156,7 @@ def test_default_device_is_the_card():
         resolve_device("meta")
 
 
-@pytest.mark.parametrize("kwargs", [dict(devices=2), dict(backend="numpy"),
-                                    dict(cache_dir="plans")])
+@pytest.mark.parametrize("kwargs", [dict(devices=2), dict(backend="numpy")])
 def test_unported_knobs_raise(kwargs):
     with pytest.raises(NotImplementedError):
         reject_unported(**kwargs)
