@@ -91,7 +91,29 @@ the answers against the repo's own oracles:
      tests/test_torch_mpc.py), and the K = infinity oracle run bitwise
      equal to `Campaign.optimize` plus a sweep; (d) `MPCSession` on the
      1/8 case (persistence, every 8 h) on the card against the CPU: fp64
-     1e-9, mixed 1e-6, records aligned;
+     1e-9, mixed 1e-6, records aligned; then the rest of the session API
+     (`phase_session`): (a) `serve_window` at benchmarks/run.py's size
+     (20,000 requests a load shape, service rate 0.6, Midwest x DTE, 6 am;
+     fifo, greedy and optimized, whose CEM runs K3's forward, 12 launches a
+     window), the million-request camel day of tests/test_serving.py (one
+     K2 chunk, every request admitted) and a greedy window under
+     `Site(0.64, 0.12)` (K1; the cap binds: its peak against the same
+     window's under 1000 kW), each against the same call on the CPU:
+     assignments equal (a request may change slot only where the card's
+     optimized budgets, within 1e-9 of the CPU's, move it: the rest is then
+     held to the CPU packing of the card's budgets), totals, lanes and the
+     per-request energy and CO2 within 1e-9, the attribution summing to the
+     lanes, the serving counters equal; requests/s, CO2 saved against fifo,
+     launches and the idle share of a traced repeat; (b) `zones=`: the
+     bundled 3-zone archive through `Campaign(OEM_CASE_1).sweep` of the six
+     policies (traces, and day windows as ensembles), the benchmark's
+     8-zone synthetic archive x 12 constant schedules batched (bitwise equal
+     to the per-zone loop on the card) and the README fleet under
+     `Site(0.45, 0.12)` (K1), each within 1e-9 of the CPU; (c)
+     `Campaign.calibrate(log, bootstrap=8, apply=True)` on the measured log
+     of examples/calibrate_from_logs.py, card and CPU: both within 2 % of
+     the truth, the fitted parameters within 1e-6 of each other, the
+     bootstrap intervals compared, then the fitted model's zone sweep;
   4a. K6 (`decode_attention`) through `kernels.ops.decode_attention`,
      as the reference reaches it: TinyLlama-1.1B's decode (q (4, 32, 64)
      over a (4, 2048, 4, 64) cache at length 1,000 and 2,048) and a 32k
@@ -811,46 +833,57 @@ def launch_err(kind, out_k, out_p, n_fields, n_scen):
     return max(errs), None
 
 
+def hold_recorded(torch, mod, name, rec, n_fields, n_scen, site):
+    """Hold every launch of `mod.name` recorded at `site` (`rec`: the
+    first and the last of each population size, from `recording(...,
+    key=by_size)`) to its plain version on the same inputs: fp64 forward
+    1e-9 per field, backward 1e-9 in norm and 1e-8 per component; mixed
+    (fp32 series) forward 1e-6, backward 1e-5 in norm.  Prints each
+    reading; returns the largest absolute error."""
+    fn, plain = getattr(mod, name), getattr(mod, name + "_plain")
+    kind = name.rsplit("_", 1)[1]
+    abs_err = 0.0
+    for size, calls in rec.items():
+        for i, (args, kw) in enumerate(calls[:1] if calls[0] is calls[1]
+                                       else calls):
+            with torch.no_grad():
+                out_k, out_p = fn(*args, **kw), plain(*args, **kw)
+            torch.cuda.synchronize()
+            e, e_comp = launch_err(kind, out_k, out_p, n_fields,
+                                   n_scen(args))
+            mixed = args[2].dtype == torch.float32
+            bar = (1e-6 if kind == "fwd" else 1e-5) if mixed else 1e-9
+            where = (f"{name} at {site}'s N = {size} "
+                     f"({'first' if i == 0 else 'last'} launch)")
+            check(e <= bar, f"{where} vs its plain version: {e:.3e} "
+                  f"(bar {bar:g})")
+            if e_comp is not None and not mixed:
+                check(e_comp <= 1e-8, f"{where} gradient component "
+                      f"error {e_comp:.3e} > 1e-8")
+            print(f"{where} vs its plain version: {e:.3e} (bar "
+                  f"{bar:g})" + ("" if e_comp is None else
+                                 f", components {e_comp:.3e}"),
+                  flush=True)
+            pairs = ([(out_k, out_p)] if kind == "bwd" else
+                     [(a, b) for a, b in zip(out_k, out_p)
+                      if a is not None])
+            abs_err = max(abs_err, max_abs(torch, *zip(*pairs)))
+    return abs_err
+
+
 def pair_rows(torch, mod, prefix, rec, timed_calls, launches, bound,
               replaces, source, n_fields, n_scen):
     """The JSON rows of a forward/backward kernel pair.  Every launch the
-    main path recorded (`rec[kind]`: the first and the last of each
-    population size) is held to its plain version on the same inputs:
-    fp64 forward 1e-9 per field, backward 1e-9 in norm and 1e-8 per
-    component; mixed (fp32 series) forward 1e-6, backward 1e-5 in norm.
-    `timed_calls[kind]` is timed (`cuda_ms`) beside its plain version and
-    its bound.  `n_scen(args)` is the launch's workload (the checkpoints'
-    scale)."""
+    main path recorded (`rec[kind]`) is held to its plain version
+    (`hold_recorded`).  `timed_calls[kind]` is timed (`cuda_ms`) beside
+    its plain version and its bound.  `n_scen(args)` is the launch's
+    workload (the checkpoints' scale)."""
     rows = []
     for kind in ("fwd", "bwd"):
         fn = getattr(mod, f"{prefix}_{kind}")
         plain = getattr(mod, f"{prefix}_{kind}_plain")
-        abs_err = 0.0
-        for size, calls in rec[kind].items():
-            for i, (args, kw) in enumerate(calls[:1] if calls[0] is calls[1]
-                                           else calls):
-                with torch.no_grad():
-                    out_k, out_p = fn(*args, **kw), plain(*args, **kw)
-                torch.cuda.synchronize()
-                e, e_comp = launch_err(kind, out_k, out_p, n_fields,
-                                       n_scen(args))
-                mixed = args[2].dtype == torch.float32
-                bar = (1e-6 if kind == "fwd" else 1e-5) if mixed else 1e-9
-                where = (f"{prefix}_{kind} at the main path's N = {size} "
-                         f"({'first' if i == 0 else 'last'} launch)")
-                check(e <= bar, f"{where} vs its plain version: {e:.3e} "
-                      f"(bar {bar:g})")
-                if e_comp is not None and not mixed:
-                    check(e_comp <= 1e-8, f"{where} gradient component "
-                          f"error {e_comp:.3e} > 1e-8")
-                print(f"{where} vs its plain version: {e:.3e} (bar "
-                      f"{bar:g})" + ("" if e_comp is None else
-                                     f", components {e_comp:.3e}"),
-                      flush=True)
-                pairs = ([(out_k, out_p)] if kind == "bwd" else
-                         [(a, b) for a, b in zip(out_k, out_p)
-                          if a is not None])
-                abs_err = max(abs_err, max_abs(torch, *zip(*pairs)))
+        abs_err = hold_recorded(torch, mod, f"{prefix}_{kind}", rec[kind],
+                                n_fields, n_scen, "the main path")
         args, kw = timed_calls[kind]
         fwd_outs = (getattr(mod, f"{prefix}_fwd")(*args[:7]) if kind == "bwd"
                     else fn(*args, **kw))
@@ -1761,6 +1794,471 @@ def phase_recurrence(torch, carina, et, k1, k2, k3, k4, dev):
           f"8 h, CEM 24 x 4), card vs CPU: fp64 {e64:.3e} (bar 1e-9), mixed "
           f"{emx:.3e} (bar 1e-6), {out['fp64', 'cuda'].n_replans} re-plans, "
           f"records aligned {part_s()}", flush=True)
+
+
+# --------------------------------------------------------------------------
+# the rest of the session API: windowed serving, zones, calibration
+# --------------------------------------------------------------------------
+SERVE_N = 20_000          # benchmarks/run.py serving_sweep
+SERVE_STREAM = dict(seed=42, slack_h=(4.0, 12.0), camel_fracs=(0.2, 0.55),
+                    tier_mix=(0.8, 0.15, 0.05))
+SERVE_SITE = (0.64, 0.12)  # kW cap and office draw of the capped window
+SERVE_TRACE_ROUNDS = 8     # the twelve windows, traced for the idle share
+CALIB_TRUTH = {"rate_at_full": 3.4, "gamma": 0.65, "idle_w": 95.0,
+               "dyn_w": 260.0, "overhead_w_frac": 0.45}
+
+
+class ExciteSchedule:
+    """examples/calibrate_from_logs.py's identification schedule:
+    intensity walked over [0.3, 1.0], batches of 8 and 32 in turn."""
+    name = "excite"
+
+    def __init__(self, carina):
+        self.carina = carina
+
+    def decide(self, ctx):
+        h = int(ctx.hour_of_day)
+        u = 0.3 + 0.7 * ((h * 7) % 24) / 23.0
+        return self.carina.Decision(u, batch_size=8 if h % 2 else 32)
+
+
+def window_err(got, ref):
+    """(max relative error, counts agree) of a `WindowReport` against
+    another: the totals, the site peak and cost, every lane's fields and
+    the per-request energy and CO2; the request counts, the lanes'
+    names and the SLO flags must agree."""
+    fields = ("policy", "n_requests", "n_admitted", "n_rejected",
+              "n_degraded", "n_slo_miss")
+    same = ([getattr(got, f) for f in fields]
+            == [getattr(ref, f) for f in fields]
+            and [r.policy for r in got.lanes] == [r.policy for r in ref.lanes]
+            and np.array_equal(got.slo_ok, ref.slo_ok)
+            and (got.peak_kw is None) == (ref.peak_kw is None)
+            and (got.cost_usd is None) == (ref.cost_usd is None))
+    errs = [rel_err([got.energy_kwh, got.co2_kg],
+                    [ref.energy_kwh, ref.co2_kg]),
+            rel_err(got.request_energy_kwh, ref.request_energy_kwh),
+            rel_err(got.request_co2_kg, ref.request_co2_kg)]
+    if ref.peak_kw is not None:
+        errs.append(rel_err(got.peak_kw, ref.peak_kw))
+    if ref.cost_usd is not None:
+        errs.append(rel_err(got.cost_usd, ref.cost_usd))
+    if same:
+        errs.append(rows_err(got.lanes, ref.lanes))
+    return max(errs), same
+
+
+def attribution_err(rep):
+    """How far the per-request attribution's sums sit from the lanes'
+    totals (relative)."""
+    return max(rel_err(rep.request_energy_kwh.sum(), rep.energy_kwh),
+               rel_err(rep.request_co2_kg.sum(), rep.co2_kg))
+
+
+def request_counts(et):
+    st = et.scan_stats()
+    return (st.requests_seen, st.requests_admitted, st.requests_rejected,
+            st.requests_degraded)
+
+
+@contextlib.contextmanager
+def kept_budgets(serve, store):
+    """Append the green budgets every `OptimizedServingPolicy` search
+    returns to `store`."""
+    fn = serve.OptimizedServingPolicy._budgets
+
+    def run(self, *args, **kwargs):
+        out = fn(self, *args, **kwargs)
+        store.append(out)
+        return out
+
+    serve.OptimizedServingPolicy._budgets = run
+    try:
+        yield
+    finally:
+        serve.OptimizedServingPolicy._budgets = fn
+
+
+class PackedBudgets:
+    """A serving policy that packs with given green budgets (the EDF
+    core of the optimized policy without its search)."""
+    name = "optimized"
+
+    def __init__(self, serve, green):
+        self.serve, self.green = serve, green
+
+    def assign(self, batch, window, tiers, *, seed=0, device=None):
+        return self.serve._edf_pack(self.name, batch, window, tiers,
+                                    self.green, degrade=True)
+
+
+def phase_session(torch, carina, et, k1, k2, k3, dev):
+    """The rest of the session API on the card, each part against the
+    same calls on the CPU: (a) windowed serving at the benchmark's size
+    (four load shapes x three policies), a million-request day and a
+    window under a binding site cap; (b) zone sweeps of the bundled
+    3-zone archive, the benchmark's 8-zone archive and the README fleet;
+    (c) `Campaign.calibrate` on a measured log."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import calibrate, serve
+    t_phase = t_part = time.perf_counter()
+
+    def part_s():
+        nonlocal t_part
+        t, t_part = t_part, time.perf_counter()
+        return f"[part {t_part - t:.1f} s]"
+
+    def counts():
+        return {"K1": k1.launches, "K2": k2.launches,
+                "K3": k3.fwd_launches}
+
+    def zero():
+        et.reset_scan_stats()
+        k3.reset_launches()
+
+    # (a) windowed serving: benchmarks/run.py serving_sweep's window
+    carbon = carina.HourlySignal(tuple(float(v) * carina.DTE_FACTOR
+                                       for v in carina.MIDWEST_HOURLY))
+
+    def session(where, **kw):
+        kw.setdefault("service_rate", SERVE_N * 3e-5)
+        return carina.ServingSession(carbon=carbon, start_hour=6.0,
+                                     device=where, **kw)
+
+    window = session(dev).window()
+    batches = {s: carina.arrival_stream(SERVE_N, shape=s, **SERVE_STREAM)
+               for s in carina.LOAD_SHAPES}
+    policies = ("fifo", "greedy", "optimized")
+    carina.serve_window(batches["random"], window, policy="greedy",
+                        device=dev)                  # first use: build
+    card, secs, green = {}, {}, {"card": [], "cpu": []}
+    rec3 = {}
+    zero()
+    with kept_budgets(serve, green["card"]), \
+            recording(k3, "trace_scan_fwd", rec3, key=by_size):
+        for shape, batch in batches.items():
+            for pol in policies:
+                t0 = time.perf_counter()
+                card[shape, pol] = carina.serve_window(batch, window,
+                                                       policy=pol,
+                                                       device=dev)
+                secs[shape, pol] = time.perf_counter() - t0
+    n_card = counts()
+    req_card = request_counts(et)
+    check(n_card["K2"] > 0 and n_card["K3"] > 0,
+          f"the serving windows launched {n_card} (K2 and K3 needed)")
+    check(n_card["K3"] == 12 * len(carina.LOAD_SHAPES),
+          f"K3 launched {n_card['K3']} times in the optimized windows, "
+          f"want 12 a window (a seed evaluate, 10 CEM populations, the "
+          f"final evaluate)")
+    check(sorted(rec3) == [1, 48], f"the optimized windows' K3 launches "
+          f"ran at N = {sorted(rec3)}, want 48 (the populations) and 1 (the "
+          f"seed and final evaluates)")
+    # K3's forward at this call site, held to its plain version on the
+    # same inputs (the first and the last launch of each size): the CEM
+    # reads K3 only through its elite ranking, so the budgets' agreement
+    # below would not catch a K3 that keeps the order of the best
+    k3_err = hold_recorded(torch, k3, "trace_scan_fwd", rec3, 5,
+                           lambda a: a[6][0], "the serving CEM")
+    rec3.clear()
+    zero()
+    cpu = {}
+    with kept_budgets(serve, green["cpu"]):
+        for shape, batch in batches.items():
+            for pol in policies:
+                cpu[shape, pol] = carina.serve_window(batch, window,
+                                                      policy=pol,
+                                                      device="cpu")
+    check(request_counts(et) == req_card,
+          f"serving counters card {req_card} vs CPU {request_counts(et)}")
+    e_budget = max(rel_err(a, b) for a, b in zip(green["card"],
+                                                 green["cpu"]))
+    check(e_budget <= 1e-9, f"optimized budgets card vs CPU {e_budget:.3e}")
+    flips, errs, attr = [], [], []
+    for key, got in card.items():
+        ref = cpu[key]
+        moved = int(np.count_nonzero(
+            (got.assignment.slot != ref.assignment.slot)
+            | (got.assignment.tier != ref.assignment.tier)))
+        if moved:
+            # a request at a budget's edge may change slot with a budget
+            # ~1e-15 away: the card's assignment must be the CPU packing
+            # of the card's budgets, and the rest is held to that
+            check(key[1] == "optimized", f"window {key}: {moved} requests "
+                  "assigned differently on the card (host packing)")
+            i = list(batches).index(key[0])
+            g = green["card"][i]
+            flips.append((key, moved, rel_err(g, green["cpu"][i])))
+            ref = carina.serve_window(batches[key[0]], window,
+                                      policy=PackedBudgets(serve, g),
+                                      device="cpu")
+        for f in ("slot", "tier", "t_finish_h", "demand"):
+            check(np.array_equal(getattr(got.assignment, f),
+                                 getattr(ref.assignment, f)),
+                  f"window {key}: assignment {f} differs card vs CPU")
+        e, same = window_err(got, ref)
+        check(same and e <= 1e-9, f"window {key} card vs CPU: {e:.3e}, "
+              f"counts agree: {same}")
+        errs.append(e)
+        attr.append(attribution_err(got))
+    check(max(attr) <= 1e-9, f"request attribution sums {max(attr):.3e}")
+    zero()
+
+    def card_windows():
+        # eight rounds, so a trace record the profiler loses (one or two a
+        # window on the card machine) stays within the 1 % cross-check of
+        # the 128 K2 launches
+        for _ in range(SERVE_TRACE_ROUNDS):
+            for shape, batch in batches.items():
+                for pol in policies:
+                    carina.serve_window(batch, window, policy=pol,
+                                        device=dev)
+
+    win = profile_window(torch, card_windows,
+                         {"K2": launch_count(k2),
+                          "K3": lambda: k3.fwd_launches})
+    rates = ", ".join(
+        f"{s}: " + " / ".join(f"{SERVE_N / secs[s, p]:.0f}"
+                              for p in policies)
+        + f" req/s, CO2 saved vs fifo greedy "
+        f"{100 * (1 - card[s, 'greedy'].co2_kg / card[s, 'fifo'].co2_kg):.1f}"
+        f" % / optimized "
+        f"{100 * (1 - card[s, 'optimized'].co2_kg / card[s, 'fifo'].co2_kg):.1f}"
+        f" %, admitted {card[s, 'greedy'].n_admitted} / "
+        f"{card[s, 'optimized'].n_admitted}, SLO misses "
+        f"{card[s, 'greedy'].n_slo_miss} / {card[s, 'optimized'].n_slo_miss}"
+        for s in carina.LOAD_SHAPES)
+    print(f"session (a) serve_window, {SERVE_N} requests a load shape, "
+          f"service_rate {SERVE_N * 3e-5:g}, Midwest x DTE, 6 am, "
+          f"fifo / greedy / optimized on the card: {rates}; launches "
+          f"{n_card} (K3 12 an optimized window, one a population of 48; "
+          f"the first and last launch of each size vs its plain version "
+          f"above, largest absolute error {k3_err:.3e}); card vs CPU: "
+          f"windows {max(errs):.3e} (bar 1e-9), attribution sums "
+          f"{max(attr):.3e}, optimized budgets {e_budget:.3e}, "
+          f"requests moved at a budget's edge {flips or 'none'}, counters "
+          f"{req_card} equal; the twelve traced again {SERVE_TRACE_ROUNDS} "
+          f"times (card activity only): {window_text(win)} {part_s()}",
+          flush=True)
+
+    # the million-request camel day of tests/test_serving.py, one chunk
+    n = 1_000_000
+    day = {}
+    for where in (dev, "cpu"):
+        sess = session(where, service_rate=30.0, policy="greedy")
+        sess.submit(n=n, shape="camel", seed=5, slack_h=(4.0, 12.0))
+        zero()
+        split = {"assign": [], "execute": []}
+        with timed(serve.GreedyServingPolicy, "assign", split["assign"]), \
+                timed(serve, "execute_assignment", split["execute"]):
+            t0 = time.perf_counter()
+            rep = sess.tick()
+            dt = time.perf_counter() - t0
+        st = et.scan_stats()
+        day[where] = (rep, dt, split, st, counts())
+    (rep, dt, split, st, n_day), ref = day[dev], day["cpu"][0]
+    e, same = window_err(rep, ref)
+    check(n_day["K2"] == 1 and st.chunks == 1,
+          f"the million-request day took {st.chunks} chunks, K2 "
+          f"{n_day['K2']} (want one)")
+    check(rep.n_admitted == n and rep.n_slo_miss == 0,
+          f"the million-request day admitted {rep.n_admitted}, "
+          f"{rep.n_slo_miss} SLO misses")
+    check(np.array_equal(rep.assignment.slot, ref.assignment.slot)
+          and same and e <= 1e-9,
+          f"the million-request day card vs CPU: {e:.3e}")
+    print(f"session (a) the million-request camel day (service_rate 30, "
+          f"greedy): {dt:.3f} s on the card ({n / dt:.0f} req/s; the "
+          f"host's assignment {sum(split['assign']):.3f} s, execution "
+          f"{sum(split['execute']):.3f} s), {st.chunks} chunk, K2 "
+          f"{n_day['K2']}, admitted {rep.n_admitted}, "
+          f"{rep.co2_kg:.4f} kg CO2; card vs CPU {e:.3e} "
+          f"(CPU {day['cpu'][1]:.3f} s) {part_s()}", flush=True)
+
+    # one window under a Site whose cap binds, for K1
+    cap, office = SERVE_SITE
+    bound_batch = carina.arrival_stream(SERVE_N, shape="peak", seed=7,
+                                        slack_h=(4.0, 12.0),
+                                        tier_mix=(0.8, 0.15, 0.05))
+    site = {}
+    for label, c, where in (("card", cap, dev), ("cpu", cap, "cpu"),
+                            ("free", 1e3, dev)):
+        sess = session(where, service_rate=0.6, policy="greedy",
+                       site=carina.Site(power_cap_kw=c, office_kw=office))
+        sess.submit(bound_batch)
+        zero()
+        t0 = time.perf_counter()
+        site[label] = (sess.tick(), time.perf_counter() - t0, counts(),
+                       request_counts(et))
+    got, ref, free = site["card"][0], site["cpu"][0], site["free"][0]
+    e, same = window_err(got, ref)
+    check(site["card"][2]["K1"] > 0, "the capped window launched no K1")
+    check(np.array_equal(got.assignment.slot, ref.assignment.slot)
+          and same and e <= 1e-9 and site["card"][3] == site["cpu"][3],
+          f"the capped window card vs CPU: {e:.3e}")
+    check(got.peak_kw <= cap * 1.005 < free.peak_kw,
+          f"the {cap} kW cap does not bind: peak {got.peak_kw} kW, "
+          f"{free.peak_kw} kW under a cap it cannot reach")
+    print(f"session (a) greedy window under Site({cap}, {office}), "
+          f"{SERVE_N} peak-shaped requests at service_rate 0.6: "
+          f"{site['card'][1]:.3f} s, K1 {site['card'][2]['K1']}, site peak "
+          f"{got.peak_kw!r} kW against {free.peak_kw!r} kW under a cap it "
+          f"cannot reach (1000 kW), {got.co2_kg:.4f} kg CO2 against "
+          f"{free.co2_kg:.4f}; card vs CPU {e:.3e} {part_s()}", flush=True)
+
+    # (b) zones: the bundled 3-zone archive through the README campaign
+    arch = carina.load_sample_archive("grid_week_3z.csv")
+    scheds = list(carina.POLICIES.values())
+    zsweeps = []
+    for kw in ({}, {"window_h": 24, "stride_h": 24}):
+        zero()
+        t0 = time.perf_counter()
+        rows = carina.Campaign(carina.OEM_CASE_1).sweep(scheds, zones=arch,
+                                                        device=dev, **kw)
+        dt = time.perf_counter() - t0
+        nz = counts()
+        cpu_rows = carina.Campaign(carina.OEM_CASE_1).sweep(
+            scheds, zones=arch, device="cpu", **kw)
+        e = rows_err(rows, cpu_rows)
+        if kw:
+            e = max([e] + [rel_err(a.co2_ensemble.samples,
+                                   b.co2_ensemble.samples)
+                           for a, b in zip(rows, cpu_rows)])
+        check([r.policy for r in rows] == [r.policy for r in cpu_rows]
+              and e <= 1e-9, f"zone sweep {kw} card vs CPU: {e:.3e}")
+        check(nz["K2"] > 0, f"zone sweep {kw} launched no K2")
+        members = (f" of {len(rows[0].co2_ensemble.samples)} members"
+                   if kw else "")
+        zsweeps.append(f"{len(rows)} rows{members} in {dt:.3f} s, K2 "
+                       f"{nz['K2']}, card vs CPU {e:.3e}")
+    # the benchmark's 8-zone synthetic archive (benchmarks/run.py:909-935)
+    tmp = tempfile.mkdtemp(prefix="carina-zones-")
+    try:
+        arch8 = carina.load_carbon_archive(carina.write_synthetic_archive(
+            os.path.join(tmp, "bench.csv"),
+            zones=tuple(f"Z{i}" for i in range(8)), days=7, seed=2))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wl = carina.OEMWorkload("zsweep", 40000, rate_at_full=2.3,
+                            batch_overhead_s=2.0)
+    s12 = [carina.constant_schedule(0.35 + 0.6 * i / 11) for i in range(12)]
+    c = carina.Campaign(wl)
+    carina.clear_plan_cache()
+    zero()
+    t0 = time.perf_counter()
+    rows8 = c.sweep(s12, zones=arch8, device=dev)
+    dt_b = time.perf_counter() - t0
+    n8 = counts()
+    carina.clear_plan_cache()
+    t0 = time.perf_counter()
+    loop8 = [r for z in arch8.zones
+             for r in c.sweep(s12, carbon_trace=arch8[z].to_trace(),
+                              device=dev)]
+    dt_l = time.perf_counter() - t0
+    bitwise = rows_of(rows8) == rows_of(loop8)
+    e8 = rows_err(rows8, c.sweep(s12, zones=arch8, device="cpu"))
+    check(bitwise, "the 8-zone sweep differs from the per-zone loop")
+    check(e8 <= 1e-9, f"the 8-zone sweep card vs CPU: {e8:.3e}")
+    scen = wl.n_scenarios * len(rows8)
+    # the README fleet under Site(0.45, 0.12), every zone: K1
+    fleet = carina.Fleet([carina.Campaign(carina.OEM_CASE_1),
+                          carina.Campaign(carina.OEM_CASE_2)],
+                         carina.Site(power_cap_kw=0.45, office_kw=0.12))
+    zero()
+    t0 = time.perf_counter()
+    frows = fleet.sweep(scheds, zones=arch, device=dev)
+    dt_f = time.perf_counter() - t0
+    nf = counts()
+    fcpu = fleet.sweep(scheds, zones=arch, device="cpu")
+    ef = max(max(rows_err(a.campaigns, b.campaigns),
+                 rel_err(a.site.peak_kw, b.site.peak_kw))
+             for a, b in zip(frows, fcpu))
+    check(nf["K1"] > 0, "the capped fleet's zone sweep launched no K1")
+    check(ef <= 1e-9, f"the fleet zone sweep card vs CPU: {ef:.3e}")
+    print(f"session (b) zones: Campaign(OEM_CASE_1).sweep(6 policies, "
+          f"zones=grid_week_3z.csv): {zsweeps[0]}; window_h=24, "
+          f"stride_h=24: {zsweeps[1]}; the 8-zone synthetic archive x 12 "
+          f"constant schedules: batched {dt_b:.3f} s ({scen / dt_b:.0f} "
+          f"scenarios/s, K2 {n8['K2']}) against a per-zone loop "
+          f"{dt_l:.3f} s, bitwise equal: {bitwise}, card vs CPU {e8:.3e}; "
+          f"Fleet([OEM 1, OEM 2], Site(0.45, 0.12)).sweep(6 policies, "
+          f"zones=3) {len(frows)} fleet rows in {dt_f:.3f} s, K1 "
+          f"{nf['K1']}, site peaks "
+          f"{min(r.site.peak_kw for r in frows):.5f}-"
+          f"{max(r.site.peak_kw for r in frows):.5f} kW, card vs CPU "
+          f"{ef:.3e} {part_s()}", flush=True)
+
+    # (c) calibration: examples/calibrate_from_logs.py
+    zone = arch.zones[0]
+    ccarbon = carina.GridCarbonModel(hourly_curve=carina.MIDWEST_HOURLY,
+                                     zone=zone, source=arch.name)
+    truth_wl = carina.OEMWorkload("measured", 150_000,
+                                  rate_at_full=CALIB_TRUTH["rate_at_full"],
+                                  batch_overhead_s=2.0)
+    truth_m = carina.MachineProfile(
+        idle_w=CALIB_TRUTH["idle_w"], dyn_w=CALIB_TRUTH["dyn_w"],
+        gamma=CALIB_TRUTH["gamma"],
+        overhead_w_frac=CALIB_TRUTH["overhead_w_frac"])
+    tmp = tempfile.mkdtemp(prefix="carina-calibrate-")
+    try:
+        report = carina.Campaign(truth_wl, ExciteSchedule(carina), truth_m,
+                                 carbon=ccarbon, out_dir=tmp
+                                 ).run(track=True, render=False)
+        log = os.path.join(tmp, "units.jsonl")
+        fits, fit_s, adam_s = {}, {}, {}
+        for where in (dev, "cpu"):
+            nominal = carina.Campaign(
+                carina.OEMWorkload("nominal", 150_000, rate_at_full=3.0,
+                                   batch_overhead_s=2.0),
+                ExciteSchedule(carina), carina.MachineProfile(),
+                carbon=ccarbon)
+            adam_s[where] = []
+            t0 = time.perf_counter()
+            with timed(calibrate, "_fit", adam_s[where]):
+                fits[where] = (nominal.calibrate(log, bootstrap=8,
+                                                 apply=True, device=where),
+                               nominal)
+            fit_s[where] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    (cm, nominal), (cm_cpu, _) = fits[dev], fits["cpu"]
+    err_truth = {w: max(f.rel_error(CALIB_TRUTH).values())
+                 for w, (f, _) in fits.items()}
+    e_par = max(abs(cm.params[p] / cm_cpu.params[p] - 1.0) for p in cm.fit)
+    ci_bitwise = cm.ci == cm_cpu.ci
+    e_ci = max(rel_err(cm.ci[p], cm_cpu.ci[p]) for p in cm.fit)
+    check(cm.backend == "torch" and max(err_truth.values()) < 0.02,
+          f"calibration misses the truth: {err_truth}")
+    check(e_par <= 1e-6, f"calibration card vs CPU: {e_par:.3e}")
+    # the bootstrap is NumPy on the host, warm-started from the point
+    # estimate: its intervals differ card vs CPU only as far as the two
+    # point estimates do (bitwise when they are)
+    check(e_ci <= 100 * e_par, f"bootstrap intervals card vs CPU: "
+          f"{e_ci:.3e} (bar 100 x the point estimates' {e_par:.3e})")
+    zero()
+    rows = nominal.sweep([carina.BASELINE, carina.PEAK_AWARE_BOOSTED,
+                          carina.constant_schedule(0.6)], zones=arch,
+                         device=dev)
+    n_fit = counts()
+    check(n_fit["K2"] > 0, "the fitted model's zone sweep launched no K2")
+    best = min(rows, key=lambda r: r.co2_kg)
+    print(f"session (c) calibration ({report.summary.units} units logged): "
+          f"Campaign.calibrate(bootstrap=8, apply=True) {fit_s[dev]:.3f} s "
+          f"on the card (the 500 Adam steps {sum(adam_s[dev]):.3f} s, the "
+          f"host's bootstrap the rest), {fit_s['cpu']:.3f} s on the CPU "
+          f"({sum(adam_s['cpu']):.3f} s); max relative "
+          f"error against the truth {err_truth[dev]:.2e} / "
+          f"{err_truth['cpu']:.2e} (bar 0.02); fitted parameters card vs "
+          f"CPU {e_par:.3e} (bar 1e-6), loss {cm.loss:.3e} / "
+          f"{cm_cpu.loss:.3e}; bootstrap intervals bitwise equal: "
+          f"{ci_bitwise} (within {e_ci:.3e}, bar {100 * e_par:.3e}); the "
+          f"fitted model's (schedule x zone) sweep {len(rows)} rows, K2 "
+          f"{n_fit['K2']}, best {best.policy} {best.co2_kg:.3f} kg CO2 "
+          f"{part_s()}", flush=True)
+    print(f"session: phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -3482,6 +3980,7 @@ def main() -> int:
     phase_end_to_end(torch, carina, et, dev)
     kernels += phase_optimize(torch, carina, et, k3, k4, _build, dev, floor)
     phase_recurrence(torch, carina, et, k1, k2, k3, k4, dev)
+    phase_session(torch, carina, et, k1, k2, k3, dev)
     kernels += [phase_decode_attention(torch, k6, ops, _build, dev),
                 phase_ssm_scan(torch, k7, ops, _build, dev)]
     gc.collect()                    # K6's caches and K7's scans

@@ -11,25 +11,50 @@
                          carina.Campaign(carina.OEM_CASE_2)],
                         site).sweep([carina.PEAK_AWARE_BOOSTED])
 
-Names mirror `repro.carina` for what the port covers.  Sweeps run on the
-card by default (`device="cuda"`); pass `device="cpu"` to run the
-kernels' plain PyTorch versions.  `ServingSession` is the live-mode
-adapter of the decode-serving engine (`repro_torch.serving.engine`); its
-windowed mode is not ported yet.  `Campaign.optimize` and
+    arch = carina.load_sample_archive("grid_week_3z.csv")
+    by_zone = carina.Campaign(carina.OEM_CASE_1).sweep(
+        [carina.PEAK_AWARE_BOOSTED], zones=arch)
+    sess = carina.ServingSession(policy="greedy", service_rate=30.0)
+    sess.submit(n=1_000_000, shape="camel", seed=7)
+    rollup = sess.drain()
+
+Every public name of `repro.carina` is here, eager.  Sweeps, serving
+windows and fits run on the card by default (`device="cuda"`); pass
+`device="cpu"` to run the kernels' plain PyTorch versions.
+`ServingSession` schedules and executes request windows
+(`submit`/`tick`/`drain`, the three `SERVING_POLICIES`, core/serve.py)
+and is the live-mode adapter of the decode-serving engine
+(`repro_torch.serving.engine`).  `Campaign.optimize` and
 `Fleet.optimize` search schedules with gradients under `torch.autograd`
 (core/optimize.py); `Campaign.run_mpc` and `Fleet.run_mpc` re-plan them
 in flight under receding-horizon MPC (core/mpc.py).  `cache_dir=` (or
 ``CARINA_PLAN_CACHE``) keeps compiled plans on disk across processes
 (core/plancache.py), and `delta_sweep` re-scans only the cases a
-recurring batch changed.  Not ported yet: grid-data ingestion and
-calibration, and the windowed serving mode (see ROADMAP.md).
+recurring batch changed.  `zones=` sweeps real grid archives
+(core/data.py) and `Campaign.calibrate` fits the rate/power model to a
+measured run (core/calibrate.py).  The reference's `backend=` and
+`devices` > 1 raise.
 """
+from repro_torch.core.arrivals import (DEFAULT_TIERS,  # noqa: F401
+                                       LOAD_SHAPES, ArrivalBatch,
+                                       QualityTier, arrival_stream)
+from repro_torch.core.calibrate import (FIT_PARAMS,  # noqa: F401
+                                        CalibratedModel,
+                                        CalibrationObjective, Observations,
+                                        fit_calibration, load_observations,
+                                        observations_from_units)
 from repro_torch.core.carbon import (DTE_FACTOR, MIDWEST_HOURLY,  # noqa: F401
                                      GridCarbonModel)
 from repro_torch.core.controller import (CarinaController,  # noqa: F401
                                          IntensityDecision, SimClock)
 from repro_torch.core.dashboard import (render_frontier_dashboard,  # noqa: F401
                                         render_run_dashboard)
+from repro_torch.core.data import (GAP_POLICIES,  # noqa: F401
+                                   SAMPLE_ARCHIVES, CarbonArchive,
+                                   QualityReport, ZoneSeries,
+                                   load_carbon_archive, load_sample_archive,
+                                   sample_archive_path,
+                                   write_synthetic_archive)
 from repro_torch.core.energy import (ChipProfile, EnergyModel,  # noqa: F401
                                      MachineProfile, StepCost)
 from repro_torch.core.engine import (SweepCase,  # noqa: F401
@@ -78,7 +103,13 @@ from repro_torch.core.schedule import (AllocationSchedule,  # noqa: F401
                                        dedupe_names, parametric_schedule,
                                        progress_ramp_schedule,
                                        proportional_split)
-from repro_torch.core.serve import ServingSession  # noqa: F401
+from repro_torch.core.serve import (DEFAULT_FILL_FRAC,  # noqa: F401
+                                    SERVING_POLICIES, Assignment,
+                                    FifoServingPolicy, GreedyServingPolicy,
+                                    OptimizedServingPolicy, ServingRollup,
+                                    ServingSession, ServingWindow,
+                                    WindowReport, as_serving_policy,
+                                    execute_assignment, serve_window)
 from repro_torch.core.session import Campaign, CampaignReport  # noqa: F401
 from repro_torch.core.signal import (TOU_PRICE, BandSignal,  # noqa: F401
                                      ConstantSignal, DayAheadForecast,

@@ -134,6 +134,10 @@ class ScanStats:
     sweep shows `disk_hits == S` with `plan_misses == 0`), and
     `lanes_recomputed`/`lanes_spliced` partition a `delta_sweep`'s
     lanes into re-scanned and result-spliced.
+    The `requests_*` counters are fed by the serving layer
+    (core/serve.py) as it schedules arrival windows: seen is every
+    request offered, admitted/rejected partition them, and degraded
+    counts admissions that only fit at a cheaper quality tier.
     `reset_scan_stats()` zeroes all of it.
     """
     slot_work: int = 0            # lane x slot units executed
@@ -147,6 +151,10 @@ class ScanStats:
     disk_misses: int = 0          # disk lookups that fell through to compile
     lanes_recomputed: int = 0     # delta_sweep lanes re-scanned
     lanes_spliced: int = 0        # delta_sweep lanes served from prev results
+    requests_seen: int = 0        # requests offered to the serving layer
+    requests_admitted: int = 0    # ... assigned a service slot
+    requests_rejected: int = 0    # ... infeasible at every allowed tier
+    requests_degraded: int = 0    # ... admitted at a cheaper tier
     precision_mode: str = ""      # dtype policy of the last executed plan
     device: str = ""              # device of the last executed plan
     copy_bytes: int = 0           # host<->device bytes around the chunks

@@ -430,6 +430,9 @@ class Fleet:
     def sweep(self, assignments: Sequence, *,
               deadlines=None,
               carbon_trace=None, carbon_ensemble=None,
+              zones=None,
+              window_h: Optional[int] = None,
+              stride_h: Optional[int] = None,
               deltas: bool = False,
               backend: Optional[str] = None,
               max_days: int = 240,
@@ -453,6 +456,15 @@ class Fleet:
         baseline.  `device` is where the sweep runs (the card by
         default).  `backend` and `devices` > 1 are not ported yet and
         raise.
+
+        `zones=` (a `CarbonArchive` or {zone: series} mapping; mutually
+        exclusive with the other carbon arguments) expands every
+        assignment across N real grid zones in the same batched plan:
+        one `FleetResult` per (assignment, zone), labeled
+        `"<assignment>@<zone>"`, each zone's group carrying that zone's
+        hourly trace (or, with `window_h`/`stride_h`, its sliding-window
+        ensemble).  Zone groups ride the same grouped-lane plan (K1 on
+        the card under a cap) and the plan cache unchanged.
         """
         assignments = list(assignments)
         if not assignments:
@@ -460,10 +472,25 @@ class Fleet:
                              "(got an empty sequence)")
         resolved = [self._member_schedules(a) for a in assignments]
         labels = _dedupe_names([label for label, _ in resolved])
-        carbon = self._carbon(carbon_trace, carbon_ensemble)
-        groups = [self._cases(scheds, carbon=carbon,
-                              deadlines=deadlines, label=lbl)
-                  for (_, scheds), lbl in zip(resolved, labels)]
+        if zones is not None:
+            if carbon_trace is not None or carbon_ensemble is not None:
+                raise ValueError("pass only one of carbon_trace=, "
+                                 "carbon_ensemble=, zones=")
+            from repro_torch.core.session import _zone_signals
+            pairs = _zone_signals(zones, window_h, stride_h)
+            groups = [self._cases(scheds, carbon=sig, deadlines=deadlines,
+                                  label=f"{lbl}@{z}")
+                      for (_, scheds), lbl in zip(resolved, labels)
+                      for z, sig in pairs]
+            labels = [f"{lbl}@{z}" for lbl in labels for z, _ in pairs]
+        else:
+            if window_h is not None or stride_h is not None:
+                raise ValueError("window_h=/stride_h= shape the per-zone "
+                                 "ensembles and need zones=")
+            carbon = self._carbon(carbon_trace, carbon_ensemble)
+            groups = [self._cases(scheds, carbon=carbon,
+                                  deadlines=deadlines, label=lbl)
+                      for (_, scheds), lbl in zip(resolved, labels)]
         out = fleet_sweep(groups, self.site, price=self.site.price,
                           names=labels, backend=backend, max_days=max_days,
                           precision=precision, devices=devices,

@@ -66,10 +66,12 @@ def _torch_extremum(pair, scalar):
 
 
 # Torch namespace: the same expressions on tensors of any device/dtype,
-# differentiable under `torch.autograd`.
+# differentiable under `torch.autograd` (`exp` for callers that build
+# parameters in log space, core/calibrate.py).
 TORCH = SimpleNamespace(
     maximum=_torch_extremum(torch.maximum, SCALAR.maximum),
-    minimum=_torch_extremum(torch.minimum, SCALAR.minimum))
+    minimum=_torch_extremum(torch.minimum, SCALAR.minimum),
+    exp=torch.exp)
 
 # A site-throttled campaign's worker intensity never drops below 5% of
 # its demand (the curtailment sheds worker load, not the whole machine;

@@ -20,6 +20,11 @@ Simulation campaigns (OEMWorkload):
     Campaign(workload).run_mpc(truth, "co2", deadline_h=200)
                                                 -> receding-horizon MPC
                                                    (core/mpc.py)
+    Campaign(workload).sweep(schedules, zones=archive)
+                                                -> (schedule x zone) sweep
+                                                   (core/data.py)
+    Campaign(workload).calibrate(log_path)      -> fitted rate/power model
+                                                   (core/calibrate.py)
 
 Training campaigns (TrainingCampaign):
     c = Campaign(training_workload, schedule)
@@ -56,6 +61,42 @@ class CampaignReport:
     dashboard_dir: Optional[str] = None
 
 
+def _zone_signals(zones, window_h: Optional[int],
+                  stride_h: Optional[int]) -> List[tuple]:
+    """Normalize a `zones=` argument into ordered (name, signal) pairs.
+
+    Accepts a `CarbonArchive` (every zone, archive order) or a mapping
+    of zone name -> `ZoneSeries` / Signal / hourly sequence.  Without
+    `window_h` each zone lowers to its hourly trace; with it, to a
+    sliding-window ensemble (the (S, E, zone) sweep shape).  Shared by
+    `Campaign.sweep` and `Fleet.sweep`.
+    """
+    from repro_torch.core.data import CarbonArchive, ZoneSeries
+    from repro_torch.core.signal import trace_windows
+    if isinstance(zones, CarbonArchive):
+        items = [(s.zone, s) for s in zones]
+    elif isinstance(zones, dict):
+        items = list(zones.items())
+    else:
+        raise TypeError(
+            f"zones= takes a CarbonArchive or a {{zone: series}} "
+            f"mapping, got {type(zones).__name__}")
+    if not items:
+        raise ValueError("zones= needs at least one zone")
+    out = []
+    for zname, v in items:
+        if isinstance(v, ZoneSeries):
+            sig = (v.to_ensemble(window_h, stride_h) if window_h
+                   else v.to_trace())
+        elif window_h:
+            sig = trace_windows(v, window_h, stride_h,
+                                name=f"carbon:{zname}")
+        else:
+            sig = as_trace(v, name=f"carbon:{zname}")
+        out.append((str(zname), sig))
+    return out
+
+
 class Campaign:
     """A workload bound to a schedule, a machine, and its input signals."""
 
@@ -77,8 +118,9 @@ class Campaign:
         self.price = price
         self.start_hour = start_hour
         # the ctor flag keeps its public name; the attribute is
-        # auto_calibrate, as in the reference (which also has a measured-
-        # run `calibrate()` method, not ported yet)
+        # auto_calibrate so the measured-run `calibrate()` *method* can
+        # exist (the bool gates the measured-baseline solve below, the
+        # method fits the full rate/power model from tracker logs)
         self.auto_calibrate = calibrate
         self.name = name or f"{getattr(workload, 'name', 'campaign')}" \
                             f"-{self.schedule.name}"
@@ -115,6 +157,53 @@ class Campaign:
                 wl, BASELINE, m, self.bands, self.carbon, self.start_hour,
                 price=self.price)
         return self._baselines[key]
+
+    def calibrate(self, log_path: Optional[str] = None, *, units=None,
+                  fit=None, steps: int = 500, lr: float = 0.1,
+                  bootstrap: int = 0, seed: int = 0,
+                  backend: Optional[str] = None, apply: bool = False,
+                  device=None):
+        """Fit the rate/power model to a measured run (RunTracker log).
+
+        Reads `log_path` (default: this campaign's `out_dir/units.jsonl`,
+        the log `run(track=True)` writes), lifts the units into observed
+        (throughput, power) targets, and fits `core/model.py`'s
+        parameters starting from this campaign's configured values —
+        Adam through `torch.autograd` on `device` (the card by default;
+        `core/calibrate.py`), or with `backend="numpy"` the
+        finite-difference mirror on the host (`backend="jax"` raises).
+        `bootstrap` > 0 adds seeded unit-resampling confidence
+        intervals (refits on the host mirror).  Returns a
+        `CalibratedModel`; with `apply=True` the fitted (workload,
+        machine) replace this campaign's calibrated pair, so subsequent
+        sweep/optimize/run calls use the measured physics.  Pass
+        `units=` (a `UnitRecord` sequence, e.g. a live tracker's
+        `.records`) to skip the disk round-trip.
+        """
+        from repro_torch.core.calibrate import (FIT_PARAMS, fit_calibration,
+                                                observations_from_units)
+        from repro_torch.core.tracker import load_units
+        source = log_path
+        if units is None:
+            source = log_path or (os.path.join(self.out_dir, "units.jsonl")
+                                  if self.out_dir else None)
+            if source is None or not os.path.exists(source):
+                raise ValueError(
+                    "Campaign.calibrate needs a measured run: pass "
+                    "log_path= (a RunTracker JSONL), or run(track=True) "
+                    "with out_dir set first, or pass units= directly")
+            units = load_units(source)
+        obs = observations_from_units(units, self.bands)
+        cm = fit_calibration(
+            obs, self.workload, self.machine,
+            fit=tuple(fit) if fit is not None else FIT_PARAMS,
+            steps=steps, lr=lr, bootstrap=bootstrap, seed=seed,
+            backend=backend, source=source,
+            zone=getattr(self.carbon, "zone", None), device=device)
+        if apply:
+            self._calibrated = cm.apply(self.workload, self.machine)
+            self._baselines = {}       # stale vs the fitted physics
+        return cm
 
     # ------------------------------------------------------------------
     # Simulation campaigns
@@ -204,6 +293,9 @@ class Campaign:
               deltas: bool = False,
               carbon_trace=None,
               carbon_ensemble=None,
+              zones=None,
+              window_h: Optional[int] = None,
+              stride_h: Optional[int] = None,
               deadline_h: float = 0.0,
               device=None) -> List[SimResult]:
         """Vectorized (schedule x workload x grid-curve) sweep.
@@ -227,18 +319,36 @@ class Campaign:
         one scan: results carry the ensemble-mean `co2_kg` plus
         per-member `EnsembleStats` in `co2_ensemble`.  A non-zero
         `deadline_h` is surfaced to every schedule via `ctx.deadline_h`.
+
+        `zones=` opens the grid axis: a `CarbonArchive` (or a
+        {zone: series} mapping) expands the sweep to (schedule x zone)
+        in ONE batched plan — each zone contributes its hourly trace
+        (or, with `window_h`/`stride_h`, its sliding-window scenario
+        ensemble, making the sweep (S, E, zone)).  Rows are labeled
+        `"<schedule>@<zone>"`, and results are bitwise-identical to
+        sweeping each zone independently.  Mutually exclusive with the
+        other carbon arguments.
         """
         exclusive = [n for n, v in (("carbons", carbons),
                                     ("carbon_trace", carbon_trace),
-                                    ("carbon_ensemble", carbon_ensemble))
+                                    ("carbon_ensemble", carbon_ensemble),
+                                    ("zones", zones))
                      if v is not None]
         if len(exclusive) > 1:
             raise ValueError(f"pass only one of carbons=, carbon_trace=, "
-                             f"carbon_ensemble=; got {exclusive}")
+                             f"carbon_ensemble=, zones=; got {exclusive}")
+        zone_names = None
         if carbon_trace is not None:
             carbons = [as_trace(carbon_trace, name="carbon-trace")]
         elif carbon_ensemble is not None:
             carbons = [as_ensemble(carbon_ensemble, name="carbon-ensemble")]
+        elif zones is not None:
+            pairs = _zone_signals(zones, window_h, stride_h)
+            zone_names = [z for z, _ in pairs]
+            carbons = [sig for _, sig in pairs]
+        elif window_h is not None or stride_h is not None:
+            raise ValueError("window_h=/stride_h= shape the per-zone "
+                             "ensembles and need zones=")
         schedules = [as_schedule(s) for s in schedules]
         if not schedules:
             raise ValueError("Campaign.sweep needs at least one schedule "
@@ -251,12 +361,14 @@ class Campaign:
         for wl in (workloads if workloads is not None else [wl0]):
             if wl is not wl0 and not wl.rate_at_full:
                 wl = dataclasses.replace(wl, rate_at_full=wl0.rate_at_full)
-            for carbon in (carbons if carbons is not None
-                           else [self.carbon]):
+            for ci, carbon in enumerate(carbons if carbons is not None
+                                        else [self.carbon]):
                 for s, lbl in zip(schedules, labels):
                     cases.append(SweepCase(
                         s, wl, m, self.bands, carbon, self.start_hour,
-                        label=lbl, deadline_h=deadline_h))
+                        label=(f"{lbl}@{zone_names[ci]}" if zone_names
+                               else lbl),
+                        deadline_h=deadline_h))
         results = sweep(cases, price=self.price, cache_dir=self.cache_dir,
                         device=device)
         return (frontier_from_sweep(results, base=self.baseline())

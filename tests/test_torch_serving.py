@@ -475,9 +475,9 @@ UNPORTED = {
     "mamba-cache": lambda: _write_slot(_mamba_cache(), _mamba_cache(), 0,
                                        _smoke(), 8),
     "ring-cache": _long_prompt,
-    "session-submit": lambda: ServingSession().submit(n=10),
-    "session-tick": lambda: ServingSession().tick(),
-    "session-drain": lambda: ServingSession().drain(),
+    # the windowed mode is ported; the session's constructor refuses the
+    # reference's `backend=` (the NumPy/JAX engine switch)
+    "session-backend": lambda: ServingSession(backend="numpy"),
 }
 
 
