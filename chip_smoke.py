@@ -4,8 +4,9 @@
     python3 chip_smoke.py            # from the root of a checkout
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc,
-drives the trace-sweep engine, the kernel API, the serving engine and
-the training loss through their entry points at benchmark sizes, holds
+drives the trace-sweep engine, the kernel API, the serving engine, the
+training loss and the training step through their entry points at
+benchmark sizes, holds
 every kernel against its plain PyTorch version on the card, and checks
 the answers against the repo's own oracles:
 
@@ -134,7 +135,10 @@ the answers against the repo's own oracles:
   5. serving end to end: TinyLlama-1.1B at its published widths (22
      layers, d 2048, 32/4 heads, d_ff 5632, vocab 32000, bf16 weights
      drawn on the card from seed 0) behind `ServingEngine` with 4 slots,
-     s_max 2048 and a live `ServingSession`; 8 requests with prompts of
+     s_max 2048 and a live `ServingSession` priced by the card's profile
+     from `core/sysinfo.py` (the H100 row), whose unit log is written
+     under `chiprun_out/chip_smoke/` and verified by `core/verify.py`; 8
+     requests with prompts of
      256-1024 tokens and 16 new tokens each.  K5 (`flash_attention`)
      must launch 22 times per prefill and K8 (`rmsnorm`) 45 times per
      forward; the same requests served again with the plain versions,
@@ -170,6 +174,23 @@ the answers against the repo's own oracles:
      within 2e-2 of max |logit| and the argmax equal outside top-2 gaps
      below 1e-4 of max |logit|, bf16 at most 1e-2 further from the plain
      fp32 loss than the plain bf16 run;
+  7b. one AdamW training step of TinyLlama-1.1B at full width and depth
+     (bf16, full logits, weights drawn well-conditioned on the card)
+     through `training.step.make_train_step` on a `SyntheticLM` batch of
+     4 x 2048 tokens (seed 0): K5 22, K11 (`flash_attention_bwd`, the
+     attention backward) 22, K8 45 forward and 45 backward (`rmsnorm_bwd`)
+     launches a step and K10 none; ten steps on that batch (the last
+     loss below the first, every leaf finite), step ms, tokens/s, peak
+     memory, the stacks split once against a layer indexed at a time, a
+     traced step's idle share; K11 and K8's backward at the main path's
+     first and last call against their plain versions (bf16 one rounding
+     step, 2^-7 |x| + 1e-3 max |x|; two launches bitwise equal), timed
+     beside their bound and PyTorch's own backward (SDPA's, F.rms_norm's);
+     the first step's gradients per leaf in norm against plain-version
+     runs (fp32 kernel vs plain within 1e-4; the bf16 kernel run at most
+     1e-2 further from the plain fp32 run than the plain bf16 run), and
+     `grad_accum=2` against 1 on the same batch (the same excess rule,
+     loss and gradient norm within 1e-2);
   8. serving DeepSeek-V2-Lite-16B at its published widths and depth (27
      layers, MLA, 26 MoE layers of 64 routed + 2 shared experts, top-6;
      bf16 weights drawn on the card from seed 0) through the same engine,
@@ -186,7 +207,8 @@ the answers against the repo's own oracles:
      and the `ptxas -v` registers and shared memory of its kernels are
      printed;
   9. one JSON line of per-kernel numbers (K2, K1, K3 and K4 forward and
-     backward, K6, K7, K5, K8, K10, K9), then the result line.
+     backward, K6, K7, K5, K8, K10, K11, K8's backward, K9), then the
+     result line.
 
 Every kernel time is by CUDA events (`cuda_ms`).  The profiler serves
 only the traced windows, and a window is used only when its trace shows
@@ -2278,7 +2300,8 @@ def smi(query):
 
 
 def serve(torch, model, params, prompts, dev, chip, force=None,
-          record=True, routes=None, k9=None, route_force=None):
+          record=True, routes=None, k9=None, route_force=None,
+          log_path=None):
     """Serve `prompts` through a fresh engine and session.  Returns the
     engine, the session, the wall seconds of `run_until_drained` and the
     steps: each prefill and decode tick with the request ids it served,
@@ -2294,13 +2317,15 @@ def serve(torch, model, params, prompts, dev, chip, force=None,
     that `force`'s step recorded; with `k9` (a dict whose
     "calls" list `recording` fills) the grouped-GEMM calls of the first
     MoE layer and of the last layer are kept for the first prefill, the
-    longest prefill and the first tick with every slot active."""
+    longest prefill and the first tick with every slot active.  With
+    `log_path` the session's tracker streams its unit log there and is
+    closed after the run."""
     from repro_torch.carina import (RunTracker, ServingSession, SimClock,
                                     StepCost)
     from repro_torch.serving.engine import ServingEngine
     n = model.cfg.active_param_count()     # 2 FLOP, 2 bytes per token each
     session = ServingSession(
-        tracker=RunTracker("chip-smoke-serve"),
+        tracker=RunTracker("chip-smoke-serve", log_path=log_path),
         clock=SimClock(start_hour=10.0), chip=chip,
         step_cost=StepCost(flops=2.0 * n, hbm_bytes=2.0 * n, ici_bytes=0.0))
     engine = ServingEngine(model, params, slots=SERVE["slots"],
@@ -2372,7 +2397,44 @@ def serve(torch, model, params, prompts, dev, chip, force=None,
     if not record:
         for st in steps:
             st["ms"] = st["ms"][0].elapsed_time(st["ms"][1])
+    # drop the timing wrappers: they close over the engine, and a cycle
+    # would keep its tree (and a recorded call's weight views) alive
+    # until the next garbage collection
+    engine._prefill, engine._decode = prefill, decode
+    if log_path is not None:
+        session.tracker.close()
     return engine, session, wall, steps
+
+
+def card_profile(torch):
+    """The card's energy profile as `core/sysinfo.py` detects it; on an
+    H100 it must be the H100 row.  Returns it and a text for the logs."""
+    from repro_torch.core.sysinfo import chip_profile_from_host, detect_host
+    info = detect_host()
+    chip = chip_profile_from_host(info)
+    kind = info["torch_device_kind"]
+    check(("h100" in kind.lower()) == (chip.name == "nvidia-h100"),
+          f"chip_profile_from_host gave {chip.name} for {kind}")
+    return chip, (f"{chip.name} profile detected for {kind} "
+                  f"({chip.peak_flops / 1e12:.0f} TFLOP/s, {chip.tdp_w:.0f} "
+                  f"W, idle {chip.idle_w:.1f} W)")
+
+
+def verified_log(path, session):
+    """Verify a serving run's unit log (`core/verify.py`): it must be ok
+    and hold the session's units and energy."""
+    from repro_torch.core.verify import verify_unit_log
+    rep = verify_unit_log(path)
+    check(rep.ok, f"unit log {path}: {rep.errors[:3]}")
+    check(rep.n_units == session.live_units and abs(
+        rep.energy_kwh - session.live_energy_kwh)
+        <= 1e-9 * session.live_energy_kwh,
+          f"unit log {path}: {rep.n_units} units, {rep.energy_kwh} kWh "
+          f"against the session's {session.live_units}, "
+          f"{session.live_energy_kwh}")
+    return (f"unit log {os.path.relpath(path, HERE)} verified ok "
+            f"({rep.n_units} units, {rep.energy_kwh:.4e} kWh, "
+            f"{rep.co2_kg:.4e} kg CO2)")
 
 
 def hold_logits(kern, plain, label):
@@ -2489,6 +2551,8 @@ KERNEL_GROUPS = (("K1", ("coupled_chunk_kernel",)),
                  ("K8", ("rmsnorm_rows", "rmsnorm_general")),
                  ("K9", ("grouped_gemm_kernel", "gg_prefill", "gg_tick")),
                  ("K10", ("xent_kernel",)),
+                 ("K11", ("flash_bwd",)),
+                 ("K8 backward", ("rms_bwd",)),
                  ("cuBLAS", ("nvjet", "gemv", "gemm", "splitK", "cutlass")),
                  ("copies and casts", ("copy", "Copy")),
                  ("softmax", ("softmax",)),
@@ -2564,7 +2628,6 @@ def groups_text(groups, per=1):
 
 def phase_serving(torch, k5, k8, dev):
     """The serving main path at full width, kernels vs plain versions."""
-    from repro_torch.carina import ChipProfile
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
     from repro_torch.models.param import tree_map
@@ -2579,23 +2642,26 @@ def phase_serving(torch, k5, k8, dev):
                             int(rng.integers(SERVE["lo"], SERVE["hi"] + 1))
                             ).astype(np.int32)
                for _ in range(SERVE["requests"])]
-    idle_w, limit_w = smi("power.draw,power.limit")
-    chip = ChipProfile(name=torch.cuda.get_device_name(0), peak_flops=989e12,
-                       hbm_bw=3.35e12, ici_bw=450e9, idle_w=idle_w,
-                       tdp_w=limit_w, pj_per_flop=limit_w / 989e12 * 1e12)
+    chip, chip_txt = card_profile(torch)
     serve(torch, model, params, prompts[:1], dev, chip)      # warm-up
 
     # the main path: counts zeroed just before, read just after; every
     # step's logits recorded, the first and last kernel call of each shape
-    # kept for the per-call checks (layer 0 and the deepest layer)
+    # kept for the per-call checks (layer 0 and the deepest layer); the
+    # session's unit log written and verified
     calls5, calls8 = {}, {}
+    log_path = os.path.join(OUT, "serve_units.jsonl")
+    os.makedirs(OUT, exist_ok=True)
+    if os.path.exists(log_path):
+        os.remove(log_path)
     with recording(k5, "flash_attention_fwd", calls5,
                    lambda a: tuple(a[0].shape)), \
             recording(k8, "rmsnorm", calls8, lambda a: a[0].shape[0]):
         k5.launches = k8.launches = 0
         engine, session, _, steps = serve(torch, model, params, prompts, dev,
-                                          chip)
+                                          chip, log_path=log_path)
         n5, n8 = k5.launches, k8.launches
+    log_txt = verified_log(log_path, session)
     prefills = sum(s["kind"] == "prefill" for s in steps)
     ticks = session.live_units
     layers = cfg.num_layers
@@ -2736,8 +2802,8 @@ def phase_serving(torch, k5, k8, dev):
           f"({ticks} ticks; device ms between CUDA events), "
           f"{tokens / wall:.1f} generated tokens/s; session "
           f"{session.live_energy_kwh:.4e} kWh, {session.live_co2_kg:.4e} kg "
-          f"CO2 (roofline estimate, H100 profile, idle {idle_w:.1f} W read "
-          f"by nvidia-smi); device idle share of serving {idle}; one decode "
+          f"CO2 (roofline estimate, {chip_txt}); {log_txt}; device idle "
+          f"share of serving {idle}; one decode "
           f"tick: {tick_txt}; launches K5 {n5} = {layers} x {prefills}, K8 "
           f"{n8} = {2 * layers + 1} x ({prefills} + {ticks}); plain-version "
           f"bf16 run {pwall:.3f} s (recorded); whole-model logits, teacher-"
@@ -3185,6 +3251,361 @@ def phase_loss(torch, k5, k8, k10, dev):
 
 
 # --------------------------------------------------------------------------
+# training: AdamW steps of TinyLlama-1.1B, K5/K11 and K8 both ways
+# --------------------------------------------------------------------------
+TRAIN = dict(batch=4, seq=2048, steps=10, traced=5)
+GRAD_EXCESS = 1e-2        # bf16 gradients, relative in norm per leaf
+GRAD_FP32 = 1e-4          # fp32 gradients kernel vs plain, relative in norm
+
+
+def bwd_bar(ref, bf16):
+    """K11's and K8 backward's bar against their plain versions: both
+    compute in fp32 and round once, so bf16 may differ by one rounding
+    step, 2^-7 |x| + 1e-3 max |x|; fp32 1e-4 of max |x| (fp32 sums in
+    another order)."""
+    ref = ref.float()
+    if bf16:
+        return 2.0 ** -7 * ref.abs() + 1e-3 * ref.abs().max()
+    return 1e-4 * ref.abs().max()
+
+
+def flash_bwd_bound(q, k, causal):
+    """Least time of one K11 call: 10 D flops per (q, k) pair the mask
+    keeps (the four products and the exponential's neighbours counted as
+    the reference counts them, 2 D each for s, dp, dq, dk, dv) at the
+    inputs' peak, against q, k, v, o, do and lse read once and dq, dk, dv
+    written once."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal
+             else sq * sk) * b * h
+    t = q.element_size()
+    bytes_ = (4 * q.numel() + 4 * k.numel()) * t + 4 * b * h * sq
+    return bound_ms(bytes_, 10.0 * d * pairs, 0,
+                    str(q.dtype).split(".")[1], peak=PEAK_TC_S)
+
+
+def rel_norm(torch, a, b):
+    """|a - b| / |b| in fp64 norms, a and b tensors on the card."""
+    num = torch.linalg.vector_norm((a.double() - b.double()))
+    return float(num / torch.linalg.vector_norm(b.double()).clamp_min(
+        1e-300))
+
+
+def phase_train(torch, k5, k8, k10, build, dev):
+    """TinyLlama-1.1B's AdamW training step at full width and depth in
+    bf16 through `make_train_step` (full logits): launch proof a step
+    (K5 22, K11 22, K8 45 forward and 45 backward, K10 none), ten steps on
+    one batch, step ms, tokens/s, peak memory and the idle share; K11 and
+    K8's backward per call against their plain versions, timed beside
+    their bound and PyTorch's own backward; the first step's gradients
+    against plain-version runs; `grad_accum=2` against 1."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import build_model
+    from repro_torch.models.param import tree_leaves as flat_leaves
+    from repro_torch.models.param import tree_map
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.training import step as ST
+    t_phase = time.perf_counter()
+    cfg = get_config("tinyllama-1.1b")
+    check(not cfg.blocked_xent, "TinyLlama trains on full logits")
+    model = build_model(cfg)
+    opt = AdamWConfig(warmup_steps=2, total_steps=TRAIN["steps"] + 2)
+    batch = SyntheticLM(cfg, batch=TRAIN["batch"], seq=TRAIN["seq"],
+                        seed=0).batch_at(0)
+    n_tok = TRAIN["batch"] * TRAIN["seq"]
+    layers = cfg.num_layers
+
+    def fresh(dtype=None):
+        """A train state on weights drawn well-conditioned (the same draw
+        each time; bf16 unless `dtype`)."""
+        params = ST.trainable(conditioned_params(torch, model, dev, dtype))
+        return {"params": params, "opt": init_opt_state(params, opt)}
+
+    def timed_step(step, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        return state, {k: float(v) for k, v in met.items()}, \
+            (time.perf_counter() - t0) * 1e3
+
+    step = ST.make_train_step(model, opt)
+    state = fresh()
+    state, _, warm_ms = timed_step(step, state)               # warm-up
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the main path: counts zeroed just before the first step, read just
+    # after; the first and last call of K11 and of K8's backward and the
+    # step's gradients recorded
+    state = fresh()
+    calls11, calls8b, upd = {}, {}, []
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with recording(k5, "flash_attention_bwd", calls11,
+                   lambda a: tuple(a[0].shape)), \
+            recording(k8, "rmsnorm_bwd", calls8b, lambda a: a[0].shape[0]), \
+            recording(ST, "adamw_update", upd):
+        k5.launches = k5.bwd_launches = k8.launches = k8.bwd_launches = 0
+        k10.launches = 0
+        state, met, ms1 = timed_step(step, state)
+        n5, n11, n8, n8b, n10 = (k5.launches, k5.bwd_launches, k8.launches,
+                                 k8.bwd_launches, k10.launches)
+    peak = torch.cuda.max_memory_allocated()
+    g16 = flat_leaves(upd[0][0][1])
+    del upd
+    check((n5, n11, n8, n8b, n10) == (layers, layers, 2 * layers + 1,
+                                      2 * layers + 1, 0),
+          f"a step launched K5 {n5}, K11 {n11}, K8 {n8} forward and {n8b} "
+          f"backward, K10 {n10}; expected {layers}, {layers}, "
+          f"{2 * layers + 1}, {2 * layers + 1}, 0")
+    losses, walls = [met["loss"]], [ms1]
+    for _ in range(TRAIN["steps"] - 1):                      # one batch
+        state, m, ms = timed_step(step, state)
+        losses.append(m["loss"])
+        walls.append(ms)
+        check(all(math.isfinite(v) for v in m.values()),
+              f"non-finite metrics {m}")
+    check(losses[-1] < losses[0], f"ten steps on one batch: loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f}, not below the first")
+    check(all(bool(torch.isfinite(t.float()).all())
+              for t in flat_leaves(state["params"])),
+          "a parameter leaf went non-finite")
+    step_ms = float(np.median(walls[1:]))
+
+    # the stacks split once (`unbind`) against a layer indexed at a time
+    split = T._layers
+
+    def indexed(tree, n):
+        return [T._layer(tree, r) for r in range(n)]
+    split_ms = {}
+    for name in ("indexed", "unbind", "unbind", "indexed"):
+        T._layers = indexed if name == "indexed" else split
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            state, _, ms = timed_step(step, state)
+        finally:
+            T._layers = split
+        split_ms.setdefault(name, []).append(
+            (ms, torch.cuda.max_memory_allocated()))
+
+    # traced steps: device time by kernel group, idle share (K11 is three
+    # launches a call, K8's backward two)
+    def traced():
+        for _ in range(TRAIN["traced"]):
+            timed_step(step, state)
+    busy = profile_window(
+        torch, traced,
+        {"K5": launch_count(k5), "K8": launch_count(k8),
+         "K11": lambda: 3 * k5.bwd_launches,
+         "K8 backward": lambda: 2 * k8.bwd_launches})
+    idle = f"not measured ({busy})"
+    if not isinstance(busy, str):
+        twall, dev_s, n_kern, groups, table = busy
+        idle = (f"{1.0 - dev_s / twall:.3f} (device busy {dev_s:.3f} s, "
+                f"{n_kern} device activities, over {twall:.3f} s wall, "
+                f"{TRAIN['traced']} traced steps; device ms / activities a "
+                f"step by group: {groups_text(groups, TRAIN['traced'])})")
+        os.makedirs(OUT, exist_ok=True)
+        with open(os.path.join(OUT, "train_profile.txt"), "w") as fh:
+            fh.write(f"{TRAIN['traced']} train steps, profiled: wall "
+                     f"{twall:.3f} s, device busy {dev_s:.3f} s, {n_kern} "
+                     f"device activities\n{table}\n")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # K11 and K8's backward per call: the main path's first and last call
+    # (layer 21's and layer 0's, the backward runs deepest first) against
+    # their plain versions on the same inputs, and the first again with its
+    # inputs cast to fp32; times at the first call
+    def fp32(args):
+        return tuple(t.float() if isinstance(t, torch.Tensor)
+                     and t.dtype == torch.bfloat16 else t for t in args)
+    rows = {}
+    texts = []
+    for label, store, kern, plain_fn in (
+            ("K11", calls11, k5.flash_attention_bwd,
+             k5.flash_attention_bwd_plain),
+            ("K8 backward", calls8b, k8.rmsnorm_bwd, k8.rmsnorm_bwd_plain)):
+        (first, last), = store.values()
+        worst = worst32 = 0.0
+        for where, (args, kw) in (("first", first), ("last", last),
+                                  ("first, fp32", (fp32(first[0]),
+                                                   first[1]))):
+            got = kern(*args, **kw)
+            want = plain_fn(*args, **kw)
+            torch.cuda.synchronize()
+            for a, w in zip(got, want):
+                err = (a.float() - w.float()).abs()
+                check(bool(torch.isfinite(a).all()) and bool(
+                    (err <= bwd_bar(w, a.dtype == torch.bfloat16)).all()),
+                      f"{label} {where} call: max err {float(err.max()):.3e}"
+                      f" (max |x| {float(w.float().abs().max()):.4g})")
+                if where.endswith("fp32"):
+                    worst32 = max(worst32, float(err.max()))
+                else:
+                    worst = max(worst, float(err.max()))
+            again = kern(*args, **kw)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{label}: two launches on the same inputs differ")
+            del got, want, again
+        args, kw = first
+        if label == "K11":
+            q, k, v, o, lse, do = args
+            ql, kl, vl = (t.detach().clone().requires_grad_()
+                          for t in (q, k, v))
+            out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                                 enable_gqa=True)
+
+            def lib():
+                return torch.autograd.grad(out, (ql, kl, vl), do,
+                                           retain_graph=True)
+            b_ms, b_by = flash_bwd_bound(q, k, True)
+            f32 = fp32(args)
+            ms32 = cuda_ms(torch, lambda: k5.flash_attention_bwd(*f32, **kw),
+                           3)
+            extra = f", fp32 {ms32:.3f} ms"
+            del f32
+        else:
+            x, sc, g = args[:3]
+            xl = x.detach().clone().requires_grad_()
+            wl = (1.0 + sc.float()).to(x.dtype).requires_grad_()
+            out = F.rms_norm(xl, (x.shape[1],), wl, 1e-6)
+
+            def lib():
+                return torch.autograd.grad(out, (xl, wl), g,
+                                           retain_graph=True)
+            t = x.element_size()
+            b_ms, b_by = bound_ms(3 * x.numel() * t + 2 * sc.numel() * t,
+                                  10.0 * x.numel(), 0, "float32")
+            extra = ""
+        reps = 5 if label == "K11" else 50
+        ms = cuda_ms(torch, lambda: kern(*args, **kw), reps)
+        plain = cuda_ms(torch, lambda: plain_fn(*args, **kw), 3)
+        lib_ms = cuda_ms(torch, lib, reps)
+        del out
+        shape = " x ".join(str(tuple(a.shape)) for a in args[:3])
+        texts.append(f"{label} at the main path's {shape} "
+                     f"{str(args[0].dtype)[6:]}: max err {worst:.3e} over "
+                     f"the first and last call ({worst32:.3e} on the first's "
+                     f"inputs in fp32), two launches bitwise equal; "
+                     f"{ms:.4f} ms per call by CUDA events{extra} (plain "
+                     f"{plain:.3f}, PyTorch's backward {lib_ms:.4f}, bound "
+                     f"{b_ms:.4f} {b_by})")
+        rows[label] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                       "bound_by": b_by, "library_ms": lib_ms,
+                       "max_abs_err": worst}
+    del calls11, calls8b
+
+    # the first step's gradients, kernels against plain versions (swapped
+    # in by name, as in `phase_loss`): fp32 kernel run within GRAD_FP32 of
+    # the plain fp32 run per leaf in norm; the bf16 kernel run (the main
+    # path's step) at most GRAD_EXCESS further from the plain fp32 run
+    # than the plain bf16 run is
+    def plain():
+        return plain_versions((k5, "flash_attention_fwd"),
+                              (k5, "flash_attention_bwd"),
+                              (k8, "rmsnorm"), (k8, "rmsnorm_bwd"))
+
+    def grads(fp32=False):
+        """The loss's gradients at the main path's weights (in fp32, the
+        fp32 copy of its bf16 weights)."""
+        params = conditioned_params(torch, model, dev)
+        if fp32:
+            params = tree_map(lambda t: t.float(), params)
+        params = ST.trainable(params)
+        loss, _ = model.loss(params, batch)
+        out = torch.autograd.grad(loss, flat_leaves(params))
+        del params, loss
+        return list(out)
+    with plain():
+        truth = grads(fp32=True)
+    k32 = grads(fp32=True)
+    fp32_worst = max(rel_norm(torch, a, t) for a, t in zip(k32, truth))
+    del k32
+    with plain():
+        p16 = grads()
+    d_p = [rel_norm(torch, a, t) for a, t in zip(p16, truth)]
+    del p16
+    d_k = [rel_norm(torch, a, t) for a, t in zip(g16, truth)]
+    excess = max(a - b for a, b in zip(d_k, d_p))
+    check(fp32_worst <= GRAD_FP32, f"fp32 gradients kernel vs plain "
+          f"{fp32_worst:.3e} > {GRAD_FP32} (relative in norm, worst leaf)")
+    check(excess <= GRAD_EXCESS, f"bf16 gradients: the kernel run is "
+          f"{excess:.3e} further from the plain fp32 run than the plain bf16 "
+          f"run (worst leaf), > {GRAD_EXCESS}")
+
+    # grad_accum=2 against 1 on the same batch: its gradients (summed in
+    # fp32 over two microbatches) no further from the plain fp32 run than
+    # the main path's by more than GRAD_EXCESS; loss and gradient norm
+    upd2 = []
+    with recording(ST, "adamw_update", upd2):
+        st2, met2, ms2 = timed_step(ST.make_train_step(model, opt,
+                                                       grad_accum=2),
+                                    fresh())
+    g2 = flat_leaves(upd2[0][0][1])
+    del upd2, st2
+    d_2 = [rel_norm(torch, a, t) for a, t in zip(g2, truth)]
+    acc_excess = max(a - b for a, b in zip(d_2, d_k))
+    acc_loss = abs(met2["loss"] - met["loss"]) / abs(met["loss"])
+    acc_gn = abs(met2["grad_norm"] - met["grad_norm"]) / met["grad_norm"]
+    check(all(g.dtype == torch.float32 for g in g2),
+          "grad_accum=2 hands AdamW fp32 sums")
+    check(acc_excess <= GRAD_EXCESS and acc_loss <= GRAD_EXCESS
+          and acc_gn <= GRAD_EXCESS, f"grad_accum=2 vs 1: gradient excess "
+          f"{acc_excess:.3e}, loss {acc_loss:.3e}, grad norm {acc_gn:.3e} "
+          f"(bar {GRAD_EXCESS})")
+    del g2, truth, g16
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    limit = smi("power.limit")[0]
+    sm = {k: [f"{ms:.1f} ms / {pk / 1e9:.2f} GB" for ms, pk in v]
+          for k, v in split_ms.items()}
+    print(f"train TinyLlama-1.1B ({model.param_count():,} params, bf16, "
+          f"well-conditioned weights, full logits) on "
+          f"{torch.cuda.get_device_name(0)} at {limit:.2f} W: "
+          f"make_train_step on SyntheticLM {TRAIN['batch']} x {TRAIN['seq']} "
+          f"(seed 0, step 0) repeated {TRAIN['steps']} times: losses "
+          f"{[round(v, 4) for v in losses]}; lr {met['lr']:.3e}, grad norm "
+          f"{met['grad_norm']:.4f} at step 1; launches a step K5 {n5}, K11 "
+          f"{n11}, K8 {n8} forward and {n8b} backward, K10 {n10}; step "
+          f"{step_ms:.1f} ms (median of steps 2-{TRAIN['steps']}; first "
+          f"{ms1:.1f}, warm-up {warm_ms:.1f}), {n_tok / step_ms * 1e3:.0f} "
+          f"tokens/s; peak memory of the first step "
+          f"{peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} above the "
+          f"{base / 1e9:.2f} GB of state); stacks split once against a layer "
+          f"indexed at a time (step ms / peak): {sm}; device idle share "
+          f"{idle}; gradients of the first step per leaf, relative in norm: "
+          f"fp32 kernel vs plain worst {fp32_worst:.3e} (bar {GRAD_FP32}), "
+          f"bf16 kernel vs fp32 plain worst {max(d_k):.3e}, plain bf16 vs "
+          f"fp32 plain worst {max(d_p):.3e}, the kernel run's excess "
+          f"{excess:.3e} (bar {GRAD_EXCESS}); grad_accum=2 vs 1: gradient "
+          f"excess {acc_excess:.3e}, loss {acc_loss:.3e}, grad norm "
+          f"{acc_gn:.3e}, step {ms2:.1f} ms; " + "; ".join(texts)
+          + f"; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    print("K11 ptxas: " + ptxas_report(build, "flash_attention_bwd", (
+        "flash_bwd_dsum", "flash_bwd_dq", "flash_bwd_dkdv")), flush=True)
+    print("K8 backward ptxas: " + ptxas_report(build, "rmsnorm", (
+        "rms_bwd_rows", "rms_bwd_sum")), flush=True)
+    return [dict({"name": "flash_attention_bwd", "route": "cuda",
+                  "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+                  "replaces": "src/repro/kernels/ops.py:65",
+                  "launches": n11}, **rows["K11"]),
+            dict({"name": "rmsnorm_bwd", "route": "cuda",
+                  "source": "src/repro_torch/csrc/rmsnorm.cu",
+                  "replaces": "src/repro/models/layers.py:23",
+                  "launches": n8b}, **rows["K8 backward"])]
+
+
+# --------------------------------------------------------------------------
 # serving: DeepSeek-V2-Lite-16B (MLA + 64-expert MoE), K9 on its path
 # --------------------------------------------------------------------------
 NEAR_TIE = 1e-4           # router probability gap of a near-tie
@@ -3509,7 +3930,6 @@ def phase_moe_serving(torch, k5, k8, k9, moe, build, dev):
     main path, K9 on every routed-expert product; per-call checks, the
     untouched and traced runs, then whole-model parity on weights drawn
     well-conditioned, fp32 and bf16."""
-    from repro_torch.carina import ChipProfile
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
     cfg = get_config("deepseek-v2-lite-16b")
@@ -3523,10 +3943,7 @@ def phase_moe_serving(torch, k5, k8, k9, moe, build, dev):
                             int(rng.integers(SERVE["lo"], SERVE["hi"] + 1))
                             ).astype(np.int32)
                for _ in range(SERVE["requests"])]
-    idle_w, limit_w = smi("power.draw,power.limit")
-    chip = ChipProfile(name=torch.cuda.get_device_name(0), peak_flops=989e12,
-                       hbm_bw=3.35e12, ici_bw=450e9, idle_w=idle_w,
-                       tdp_w=limit_w, pj_per_flop=limit_w / 989e12 * 1e12)
+    chip, chip_txt = card_profile(torch)
     serve(torch, model, params, prompts[:1], dev, chip)      # warm-up
 
     # the main path: counts zeroed just before, read just after
@@ -3619,8 +4036,8 @@ def phase_moe_serving(torch, k5, k8, k9, moe, build, dev):
           f"ms per request, decode {np.mean(dec_ms):.2f} ms per tick "
           f"({ticks} ticks; device ms between CUDA events), "
           f"{tokens / wall:.1f} generated tokens/s; session {kwh:.4e} kWh, "
-          f"{co2:.4e} kg CO2 (roofline estimate on active parameters, H100 "
-          f"profile, idle {idle_w:.1f} W read by nvidia-smi); device idle "
+          f"{co2:.4e} kg CO2 (roofline estimate on active parameters, "
+          f"{chip_txt}); device idle "
           f"share of serving {idle}; one decode tick: {tick_txt}; launches "
           f"K9 {n9} = {3 * n_moe} x ({prefills} + {ticks}), K8 {n8} = "
           f"{3 * cfg.num_layers + 1} x ({prefills} + {ticks}), K5 {n5}; K9 "
@@ -3659,6 +4076,7 @@ def phase_moe_serving(torch, k5, k8, k9, moe, build, dev):
             with forced_routing(torch, moe, queue):
                 _, _, _, t32 = serve(torch, model, cparams, prompts, dev,
                                      chip, force=k32, route_force=queue)
+        gc.collect()
         cast_tree_(cparams, model.spec())
         torch.cuda.empty_cache()
         with forced_routing(torch, moe, queue):
@@ -3994,6 +4412,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     kernels.append(phase_loss(torch, k5, k8, k10, dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels += phase_train(torch, k5, k8, k10, _build, dev)
     gc.collect()                    # TinyLlama's tensors, before DeepSeek's
     torch.cuda.empty_cache()
     kernels.append(phase_moe_serving(torch, k5, k8, k9, moe, _build, dev))

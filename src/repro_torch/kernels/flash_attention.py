@@ -14,7 +14,16 @@ On a CUDA tensor the wrapper launches the hand-written kernel
 split into two bf16 terms so that P V keeps fp32-like weights; fp32 on
 FMAs) and counts the launch in `launches`; on a CPU tensor it runs
 `flash_attention_fwd_plain`.  Any other device raises.  It refuses inputs
-that require grad: the backward kernel (K11) comes with training.
+that require grad: `kernels/ops.py::flash_attention` is the
+differentiable entry.
+
+K11, `flash_attention_bwd`, is the backward: the reference's `_fa_bwd`
+(`src/repro/kernels/ops.py:65`), recomputing p from (q, k, v, o, lse) in
+the same layout, fp32 math rounded once.  On a CUDA tensor it launches
+csrc/flash_attention_bwd.cu (dsum, then dq a query tile at a time, then
+dk and dv a key tile at a time over the group's query heads; three
+launches counted as one call in `bwd_launches`); on a CPU tensor it runs
+`flash_attention_bwd_plain`, the reference's chunked recompute.
 """
 from __future__ import annotations
 
@@ -30,11 +39,17 @@ from repro_torch.kernels import _build
 
 #: kernel launches on CUDA tensors since import (or the last reset)
 launches = 0
+#: K11 calls on CUDA tensors (three launches each, counted once)
+bwd_launches = 0
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 _FNS = {torch.bfloat16: "flash_attention_fwd_bf16",
         torch.float32: "flash_attention_fwd_f32"}
+_BWD_FNS = {torch.bfloat16: "flash_attention_bwd_bf16",
+            torch.float32: "flash_attention_bwd_f32"}
+#: queries a step of the plain backward's recompute (the reference's)
+BWD_CHUNK = 1024
 
 
 def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
@@ -58,36 +73,79 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
     return torch.matmul(p, vf).to(q.dtype), lse
 
 
-def _check(q, k, v):
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                              scale: Optional[float] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """The reference's `_fa_bwd` in tensor ops (any device), in K5's
+    layout: each chunk of BWD_CHUNK queries recomputes its scores against
+    every key, p = exp(s - lse), ds = p (dp - dsum) scale, and adds its
+    share of dk and dv; fp32 math, rounded once to the inputs' dtype."""
+    exact_fp32()
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qf = q.float().view(b, hkv, g, sq, d)
+    kf, vf = k.float(), v.float()                       # (B,Hkv,Sk,D)
+    dof = do.float().view(b, hkv, g, sq, d)
+    lsef = lse.float().view(b, hkv, g, sq)
+    dsum = torch.sum(dof * o.float().view(b, hkv, g, sq, d), dim=-1)
+    kpos = torch.arange(sk, device=q.device)
+    dq = torch.empty_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for c0 in range(0, sq, BWD_CHUNK):
+        c1 = min(c0 + BWD_CHUNK, sq)
+        q_c, do_c = qf[:, :, :, c0:c1], dof[:, :, :, c0:c1]
+        s = torch.einsum("bhgqd,bhkd->bhgqk", q_c, kf) * scale
+        if causal:
+            qpos = torch.arange(c0, c1, device=q.device)
+            s = s.masked_fill(kpos[None, :] > qpos[:, None], NEG_INF)
+        p = torch.exp(s - lsef[:, :, :, c0:c1, None])
+        del s
+        dv += torch.einsum("bhgqk,bhgqd->bhkd", p, do_c)
+        dp = torch.einsum("bhgqd,bhkd->bhgqk", do_c, vf)
+        ds = p * (dp - dsum[:, :, :, c0:c1, None]) * scale
+        del p, dp
+        dq[:, :, :, c0:c1] = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf)
+        dk += torch.einsum("bhgqk,bhgqd->bhkd", ds, q_c)
+        del ds
+    return (dq.view(b, h, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _check(q, k, v, name: str):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"flash_attention_fwd takes q (B,H,Sq,D) and k, v "
+        raise ValueError(f"{name} takes q (B,H,Sq,D) and k, v "
                          f"(B,Hkv,Sk,D), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, h, _, d = q.shape
     if k.shape[0] != b or k.shape[3] != d or h % k.shape[1]:
-        raise ValueError(f"flash_attention_fwd: k {tuple(k.shape)} does not "
+        raise ValueError(f"{name}: k {tuple(k.shape)} does not "
                          f"fit q {tuple(q.shape)} (batch, head dim, and "
                          "kv heads dividing the heads)")
     if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_fwd takes head dims {HEAD_DIMS}, "
+        raise ValueError(f"{name} takes head dims {HEAD_DIMS}, "
                          f"got {d}")
     if q.dtype not in _FNS or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention_fwd takes bf16 or fp32 q, k, v of "
+        raise TypeError(f"{name} takes bf16 or fp32 q, k, v of "
                         f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if k.device != q.device or v.device != q.device:
-        raise ValueError("flash_attention_fwd inputs must be on one device")
+        raise ValueError(f"{name} inputs must be on one device")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention_fwd inputs must be contiguous")
+        raise ValueError(f"{name} inputs must be contiguous")
     if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise RuntimeError("flash_attention_fwd is forward only: its "
-                           "backward (K11) is not ported yet")
+        raise RuntimeError(f"{name} is forward only: differentiate through "
+                           "ops.flash_attention, whose backward is K11 "
+                           "(flash_attention_bwd)")
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True,
                         scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q (B,H,Sq,D), k and v (B,Hkv,Sk,D) -> (o (B,H,Sq,D), lse (B,H,Sq))."""
-    _check(q, k, v)
+    _check(q, k, v, "flash_attention_fwd")
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal=causal, scale=scale)
     if q.device.type != "cuda":
@@ -112,6 +170,62 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     global launches
     launches += 1
     return o, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K11.  q, o, do (B,H,Sq,D); k, v (B,Hkv,Sk,D); lse (B,H,Sq) fp32, as
+    `flash_attention_fwd` gave them -> (dq, dk, dv) in the inputs' dtype
+    and layout."""
+    _check(q, k, v, "flash_attention_bwd")
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd takes {name} of q's "
+                             f"shape, dtype and device, got "
+                             f"{tuple(t.shape)} {t.dtype} {t.device}")
+    b, h, sq, d = q.shape
+    if (lse.shape != (b, h, sq) or lse.dtype != torch.float32
+            or lse.device != q.device):
+        raise ValueError(f"flash_attention_bwd takes lse (B,H,Sq) fp32 on "
+                         f"q's device, got {tuple(lse.shape)} {lse.dtype}")
+    if not (o.is_contiguous() and do.is_contiguous()
+            and lse.is_contiguous()):
+        raise ValueError("flash_attention_bwd inputs must be contiguous")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         scale=scale)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_attention_bwd runs on CUDA or CPU "
+                           f"tensors, not {q.device}")
+    hkv, sk = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    fn = getattr(_bwd_library(), _BWD_FNS[q.dtype])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), dsum.data_ptr(), b, h, hkv, sq, sk, d,
+                 int(causal), float(scale), stream)
+    if err:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+    global bwd_launches
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_library() -> ctypes.CDLL:
+    lib = _build.library("flash_attention_bwd")
+    for name in _BWD_FNS.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + \
+            [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
 
 
 @functools.lru_cache(maxsize=None)

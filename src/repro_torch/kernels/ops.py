@@ -3,10 +3,16 @@ exposes them: attention in (B, S, H, D), flash-decoding over a cache of
 valid prefix `length`, the diagonal linear-recurrence scan, the grouped
 expert GEMM over block-sorted rows, and the fused cross-entropy.  Each
 launches its hand-written kernel on CUDA tensors and runs its plain
-version on CPU tensors; there is no mode switch."""
+version on CPU tensors; there is no mode switch.
+
+`flash_attention` is differentiable, as the reference's `custom_vjp` is:
+K5 forward, saving (q, k, v, o, lse) in K5's contiguous layout, and K11
+(`flash_attention_bwd`) backward."""
 from __future__ import annotations
 
 from typing import Optional
+
+import torch
 
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
@@ -15,15 +21,35 @@ from repro_torch.kernels import ssm_scan as SS
 from repro_torch.kernels import xent as XE
 
 
+class FlashAttention(torch.autograd.Function):
+    """K5 forward and K11 backward at the model's (B, S, H, D) layout."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        qt, kt, vt = (t.detach().transpose(1, 2).contiguous()
+                      for t in (q, k, v))
+        o, lse = FA.flash_attention_fwd(qt, kt, vt, causal=causal,
+                                        scale=scale)
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(qt, kt, vt, o, lse)
+            ctx.causal, ctx.scale = causal, scale
+        return o.transpose(1, 2)
+
+    @staticmethod
+    def backward(ctx, do):
+        qt, kt, vt, o, lse = ctx.saved_tensors
+        dq, dk, dv = FA.flash_attention_bwd(
+            qt, kt, vt, o, lse, do.transpose(1, 2).contiguous(),
+            causal=ctx.causal, scale=ctx.scale)
+        return (dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2),
+                None, None)
+
+
 def flash_attention(q, k, v, causal: bool = True,
                     scale: Optional[float] = None):
     """q: (B,Sq,H,D); k,v: (B,Sk,Hkv,D) -> (B,Sq,H,D), through K5 in its
-    (B,H,S,D) layout (forward only)."""
-    o, _ = FA.flash_attention_fwd(q.transpose(1, 2).contiguous(),
-                                  k.transpose(1, 2).contiguous(),
-                                  v.transpose(1, 2).contiguous(),
-                                  causal=causal, scale=scale)
-    return o.transpose(1, 2)
+    (B,H,S,D) layout, differentiable through K11."""
+    return FlashAttention.apply(q, k, v, causal, scale)
 
 
 def decode_attention(q, k, v, length):

@@ -11,7 +11,9 @@ query offset, equal q/v head dims, more than one query); every other call
 runs `_attend_dense` in plain tensor ops, as the reference computes it
 outside any Pallas kernel, over query chunks of `chunk_q` when Sq is
 larger.  `rms_norm` runs K8, which computes the same
-function as the reference's `rms_norm`.  The tensors' device picks the
+function as the reference's `rms_norm`, with K8's backward behind a
+`torch.autograd.Function`; attention's flash path is differentiable
+through K11 (`kernels/ops.py::flash_attention`).  The tensors' device picks the
 kernel (CUDA) or its plain version (CPU).  MLA's prefill has q/k head
 dim 192 and v head dim 128, so the flash gate sends it to the dense
 path, as in the reference.
@@ -45,11 +47,31 @@ def _unported(what: str):
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
+class RMSNorm(torch.autograd.Function):
+    """K8 forward over rows, K8's backward (`rmsnorm_bwd`) backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        x2 = x.detach().reshape(-1, x.shape[-1])
+        y = RN.rmsnorm(x2, scale.detach(), eps)
+        if any(ctx.needs_input_grad[:2]):
+            ctx.save_for_backward(x2, scale.detach())
+            ctx.eps = eps
+        return y.reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, scale = ctx.saved_tensors
+        dx, dscale = RN.rmsnorm_bwd(x2, scale,
+                                    dy.reshape(x2.shape).contiguous(),
+                                    ctx.eps)
+        return dx.reshape(dy.shape), dscale, None
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last axis through K8 (rows flattened)."""
-    y = RN.rmsnorm(x.reshape(-1, x.shape[-1]), scale, eps)
-    return y.reshape(x.shape)
+    return RMSNorm.apply(x, scale, eps)
 
 
 def norm_spec(d: int) -> ParamSpec:

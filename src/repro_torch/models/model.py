@@ -3,7 +3,7 @@ with full attention or MLA (`src/repro/models/model.py`):
 
     model = build_model(cfg)
     params = model.init(generator, device)      # drawn on `device`
-    loss, metrics = model.loss(params, batch)   # forward, under no_grad
+    loss, metrics = model.loss(params, batch)   # differentiable
     logits, cache = model.prefill(params, {"tokens": tokens})
     logits, cache = model.decode_step(params, cache, tokens, index)
 
@@ -119,10 +119,12 @@ class Model(nn.Module):
     def loss(self, params, batch):
         """The training objective on `batch` ({"tokens": (B, S)}, a tensor
         or a numpy array, as `SyntheticLM.batch_at` gives it).  Returns
-        (loss, {"nll", "acc", "aux"}), fp32 scalars.  Forward only: call
-        it under `torch.no_grad()` (K5 `flash_attention`, K6
-        `decode_attention`, K7 `ssm_scan`, K8 `rmsnorm`, K9 `moe_gemm`
-        and K10 `xent` refuse inputs that require grad)."""
+        (loss, {"nll", "acc", "aux"}), fp32 scalars.  Differentiable
+        with full logits on the dense family: attention runs K5 forward
+        and K11 backward, every norm K8 and its backward
+        (`training/step.py` takes the gradients).  The MoE FFN (K9) and
+        `blocked_xent` (K10) are forward only: their kernels refuse
+        inputs that require grad."""
         cfg = self.cfg
         if cfg.encdec:
             raise NotImplementedError("the encoder-decoder loss is not "

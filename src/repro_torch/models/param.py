@@ -57,6 +57,15 @@ def tree_map(fn: Callable, tree):
     return fn(tree)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict / list tree, in `tree_map`'s order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
 def init_params(spec: SpecTree, generator: torch.Generator, device):
     """Materialize `spec` leaf by leaf, in tree order, from `generator`
     (which must live on `device`)."""

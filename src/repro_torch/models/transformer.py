@@ -96,6 +96,20 @@ def _layer(tree, r: int):
     return tree_map(lambda t: t[r], tree)
 
 
+def _layers(tree, n: int) -> List[Any]:
+    """The `n` layers of a stacked (n, ...) tree, as views, each stack
+    split once (`unbind`): under autograd a stack's gradient is then one
+    `stack` of its layers' gradients, where indexing it a layer at a time
+    (`_layer`) adds a zero-filled stack-sized gradient per layer."""
+    parts: List[Tuple[torch.Tensor, ...]] = []
+
+    def split(t):
+        parts.append(t.unbind(0))
+        return len(parts) - 1
+    index = tree_map(split, tree)
+    return [tree_map(lambda i: parts[i][r], index) for r in range(n)]
+
+
 # ---------------------------------------------------------------------------
 # Block application (full sequence: prefill)
 # ---------------------------------------------------------------------------
@@ -136,10 +150,11 @@ def apply_segments(x, params_segments, cfg: ModelConfig, *, causal=True,
     caches: List[Any] = []
     for seg, seg_p in zip(layer_plan(cfg), params_segments):
         entries = [[] for _ in seg.pattern]
+        blocks = [_layers(b, seg.repeats) for b in seg_p["blocks"]]
         for r in range(seg.repeats):
             for pos_i, (kind, m) in enumerate(seg.pattern):
                 x, aux, ce = apply_block(
-                    x, _layer(seg_p["blocks"][pos_i], r), cfg, kind, m,
+                    x, blocks[pos_i][r], cfg, kind, m,
                     causal=causal, positions=positions,
                     collect_cache=collect_cache)
                 total_aux = total_aux + aux

@@ -1,0 +1,138 @@
+"""Train / serve step factories (the reference's
+`src/repro/training/step.py`).
+
+`make_train_step(model, opt_cfg)` -> train_step(state, batch) with:
+  * the loss and its gradients through `torch.autograd` over
+    `model.loss` (on the card: K5 and K11 for attention, K8 and its
+    backward for every norm; cuBLAS, autograd's own kernels elsewhere),
+  * optional microbatch gradient accumulation (a loop over splits; the
+    gradients summed in fp32, then divided, the loss and metrics
+    averaged, as the reference's scan does),
+  * the AdamW update (`optim/adamw.py`, written into the state's
+    tensors).
+
+`init_train_state` draws the parameters on the device and marks them
+trainable; the serving path's trees (`Model.init`) stay frozen.
+`make_prefill_step` / `make_decode_step` are the serving lowerings.
+
+Not ported yet (ROADMAP.md Queue 1): `remat` other than "none", a step
+over `blocked_xent` (K10's backward) or the MoE FFN (K9's backward),
+`abstract_train_state` (abstract shapes) and the explicit data-parallel
+`make_dp_compressed_step` / `init_dp_compressed_state` (`distributed/`).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+from torch import nn
+
+from repro_torch.models.model import Model
+from repro_torch.models.param import tree_leaves as leaves
+from repro_torch.models.param import tree_map
+from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
+
+F32 = torch.float32
+
+
+def trainable(params):
+    """The tree with each leaf a trainable `nn.Parameter` sharing the
+    leaf's storage."""
+    return tree_map(lambda t: nn.Parameter(t.detach(), requires_grad=True),
+                    params)
+
+
+def init_train_state(model: Model, generator: torch.Generator,
+                     opt_cfg: AdamWConfig, device=None) -> Dict[str, Any]:
+    """Parameters drawn from `generator` on `device` (the card unless told
+    otherwise), trainable and bound to `model`, with zero moments."""
+    params = trainable(model.init(generator, device))
+    model.bind(params)
+    return {"params": params, "opt": init_opt_state(params, opt_cfg)}
+
+
+def _split_microbatches(batch: Dict[str, Any], n: int):
+    def split(x):
+        b = x.shape[0]
+        assert b % n == 0, (b, n)
+        return x.reshape(n, b // n, *x.shape[1:])
+    parts = {k: split(v) for k, v in batch.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def _unported(cfg) -> list:
+    out = []
+    if cfg.remat != "none":
+        out.append(f"remat={cfg.remat!r} (rematerialized layers)")
+    if cfg.blocked_xent:
+        out.append("blocked_xent=True (K10's backward, the blocked loss's)")
+    if cfg.moe is not None:
+        out.append("MoE layers (K9's backward)")
+    return out
+
+
+def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
+                    grad_accum: int = 1):
+    unported = _unported(model.cfg)
+    if unported:
+        raise NotImplementedError(
+            f"{model.cfg.name}: a training step with "
+            f"{', '.join(unported)} is not ported yet (ROADMAP.md Queue 1)")
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+
+    def loss_and_grads(params, mb):
+        with torch.enable_grad():
+            loss, metrics = model.loss(params, mb)
+            grads = torch.autograd.grad(loss, leaves(params))
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                list(grads))
+
+    def train_step(state, batch):
+        params = state["params"]
+        flat = leaves(params)
+        if not all(p.requires_grad for p in flat):
+            raise ValueError("the train state's parameters must require "
+                             "grad (init_train_state, or training.step."
+                             "trainable(params))")
+        if grad_accum == 1:
+            loss, metrics, grads = loss_and_grads(params, batch)
+        else:
+            grads = [torch.zeros(p.shape, dtype=F32, device=p.device)
+                     for p in flat]
+            loss = torch.zeros((), dtype=F32, device=flat[0].device)
+            ms = []
+            for mb in _split_microbatches(batch, grad_accum):
+                l_mb, m, g = loss_and_grads(params, mb)
+                for acc, gi in zip(grads, g):
+                    acc.add_(gi)
+                del g
+                loss = loss + l_mb
+                ms.append(m)
+            for acc in grads:
+                acc.div_(grad_accum)
+            loss = loss / grad_accum
+            metrics = {k: torch.stack([m[k] for m in ms]).mean()
+                       for k in ms[0]}
+        index = iter(range(len(flat)))
+        grad_tree = tree_map(lambda _: grads[next(index)], params)
+        del grads
+        new_params, new_opt, opt_metrics = adamw_update(
+            params, grad_tree, state["opt"], opt_cfg)
+        metrics = dict(metrics, **opt_metrics, loss=loss)
+        return {"params": new_params, "opt": new_opt}, metrics
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+def make_prefill_step(model: Model):
+    def prefill_step(params, batch):
+        return model.prefill(params, batch)
+    return prefill_step
+
+
+def make_decode_step(model: Model):
+    def decode_step(params, cache, tokens, index):
+        return model.decode_step(params, cache, tokens, index)
+    return decode_step

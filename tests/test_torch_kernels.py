@@ -1,7 +1,7 @@
 """The port's kernels K1 (`coupled_chunk`), K2 (`scan_chunk`), K3
 (`objective_scan`), K4 (`fleet_objective`), K5 (`flash_attention`), K6
-(`decode_attention`), K7 (`ssm_scan`), K8 (`rmsnorm`), K9 (`moe_gemm`) and
-K10 (`xent`):
+(`decode_attention`), K7 (`ssm_scan`), K8 (`rmsnorm`) and its backward, K9
+(`moe_gemm`), K10 (`xent`) and K11 (`flash_attention_bwd`):
 their wrappers' dispatch and input checks, and — on a machine with an NVIDIA GPU — each CUDA kernel
 against its plain PyTorch version.
 
@@ -883,6 +883,234 @@ def test_rmsnorm_launch_plan_picks_the_layout_by_rows(rows, d, itemsize,
     assert tpr * rpb <= k8.MAX_THREADS and tpr % 32 == 0
     if tpr > 32:                        # whole 16-byte pieces a thread
         assert (d * itemsize // 16) % tpr == 0
+
+
+# ---------------------------------------------------------------------------
+# K11 attention backward, K8's backward
+# ---------------------------------------------------------------------------
+def attn_bwd_inputs(b, h, hkv, sq, sk, d, dtype, causal, device="cpu",
+                    seed=0):
+    """q, k, v, o, lse (K5's plain forward) and do, at the backward's
+    layout, on `device`."""
+    q, k, v = attn_inputs(b, h, hkv, sq, sk, d, dtype, device, seed)
+    o, lse = k5.flash_attention_fwd_plain(q, k, v, causal=causal)
+    rng = np.random.default_rng(seed + 1)
+    do = torch.as_tensor(rng.normal(size=q.shape), dtype=torch.float32
+                         ).to(dtype).to(device)
+    return q, k, v, o, lse, do
+
+
+def assert_bwd_close(got, ref, dtype):
+    """K11 against its plain version: both compute in fp32 and round once,
+    in another order: bf16 one rounding step, 2^-7 |x| + 1e-3 max |x|;
+    fp32 1e-4 of max |x|."""
+    got, ref = got.float().cpu(), ref.float().cpu()
+    scale = ref.abs().max()
+    bar = (2.0 ** -7 * ref.abs() + 1e-3 * scale if dtype == torch.bfloat16
+           else 1e-4 * scale)
+    assert bool(((got - ref).abs() <= bar).all()), \
+        float((got - ref).abs().max())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h,hkv,sq,sk", [(4, 4, 9, 9), (4, 2, 7, 13),
+                                         (8, 1, 12, 5), (2, 1, 1100, 1030)])
+def test_flash_attention_bwd_plain_matches_autograd(h, hkv, sq, sk, causal):
+    """The plain backward (the reference's chunked recompute, 1,024 queries
+    a chunk) against autograd of the plain forward in float64."""
+    q, k, v, o, lse, do = attn_bwd_inputs(1, h, hkv, sq, sk, 16,
+                                          torch.float32, causal)
+    got = k5.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    q64, k64, v64 = (t.double().requires_grad_() for t in (q, k, v))
+    g = k64.shape[1]
+    s = (q64 @ k64.repeat_interleave(h // g, 1).transpose(-1, -2)) / 4.0
+    if causal:
+        s = s.masked_fill(torch.arange(sk)[None] > torch.arange(sq)[:, None],
+                          -1e30)
+    o64 = torch.softmax(s, -1) @ v64.repeat_interleave(h // g, 1)
+    want = torch.autograd.grad((o64 * do.double()).sum(), (q64, k64, v64))
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32
+        close(a, b, 1e-5, scale=float(b.abs().max()))
+
+
+def test_flash_attention_bwd_wrapper_dispatch_and_checks():
+    args = attn_bwd_inputs(1, 4, 2, 10, 12, 16, torch.float32, True)
+    before = k5.bwd_launches
+    a = k5.flash_attention_bwd(*args, causal=True)
+    b = k5.flash_attention_bwd_plain(*args, causal=True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert [t.shape for t in a] == [t.shape for t in args[:3]]
+    assert k5.bwd_launches == before                   # CPU: no launch
+    q, k, v, o, lse, do = args
+    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+        k5.flash_attention_bwd(*(t.to("meta") for t in args))
+    with pytest.raises(ValueError, match="shape"):
+        k5.flash_attention_bwd(q, k, v, o[:, :, :5], lse, do)
+    with pytest.raises(ValueError, match="shape"):
+        k5.flash_attention_bwd(q, k, v, o, lse, do.bfloat16())
+    with pytest.raises(ValueError, match="lse"):
+        k5.flash_attention_bwd(q, k, v, o, lse.double(), do)
+    with pytest.raises(ValueError, match="contiguous"):
+        k5.flash_attention_bwd(q, k, v, o, lse,
+                               do.transpose(2, 3).contiguous().transpose(2, 3))
+    with pytest.raises(ValueError, match="head dims"):
+        k5.flash_attention_bwd(*attn_bwd_inputs(1, 4, 2, 6, 6, 24,
+                                                torch.float32, False))
+    with pytest.raises(TypeError):
+        k5.flash_attention_bwd(*(t.double() for t in args))
+
+
+def test_rmsnorm_bwd_plain_matches_autograd():
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.normal(0, 2, (9, 100)), dtype=torch.float32)
+    s = torch.as_tensor(rng.normal(0, 0.3, 100), dtype=torch.float32)
+    g = torch.as_tensor(rng.normal(size=(9, 100)), dtype=torch.float32)
+    dx, ds = k8.rmsnorm_bwd_plain(x, s, g, 1e-6)
+    x64, s64 = x.double().requires_grad_(), s.double().requires_grad_()
+    y = x64 * torch.rsqrt((x64 ** 2).mean(-1, keepdim=True) + 1e-6) * (1 + s64)
+    want = torch.autograd.grad((y * g.double()).sum(), (x64, s64))
+    close(dx, want[0], 1e-5, scale=float(want[0].abs().max()))
+    close(ds, want[1], 1e-5, scale=float(want[1].abs().max()))
+
+
+def test_rmsnorm_bwd_wrapper_dispatch_and_checks():
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.normal(size=(5, 64)), dtype=torch.float32)
+    s = torch.as_tensor(rng.normal(size=64), dtype=torch.float32)
+    g = torch.as_tensor(rng.normal(size=(5, 64)), dtype=torch.float32)
+    before = k8.bwd_launches
+    got = k8.rmsnorm_bwd(x, s, g)
+    want = k8.rmsnorm_bwd_plain(x, s, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert k8.bwd_launches == before                   # CPU: no launch
+    dx, ds = k8.rmsnorm_bwd(x.bfloat16(), s.bfloat16(), g.bfloat16())
+    assert dx.dtype == ds.dtype == torch.bfloat16
+    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+        k8.rmsnorm_bwd(x.to("meta"), s.to("meta"), g.to("meta"))
+    with pytest.raises(ValueError, match="shape"):
+        k8.rmsnorm_bwd(x, s, g[:4])
+    with pytest.raises(ValueError, match="shape"):
+        k8.rmsnorm_bwd(x, s, g.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        k8.rmsnorm_bwd(x, s, g.T.contiguous().T)
+    with pytest.raises(TypeError):
+        k8.rmsnorm_bwd(x, s.bfloat16(), g)
+
+
+@pytest.mark.parametrize("rows,d,sms,plan", [
+    (8192, 2048, 132, (264, 8)),       # the training step's rows
+    (4, 2048, 132, (1, 8)),            # a few rows
+    (916, 512, 132, (115, 8)),         # MLA kv_norm rows
+    (33, 100, 132, (5, 8)),
+    (10, 8192, 132, (2, 7)),           # d-wide partials cap the warps
+    (3, 58112, 132, (3, 1))])
+def test_rmsnorm_bwd_plan_fits_shared_memory(rows, d, sms, plan):
+    assert k8.bwd_plan(rows, d, sms) == plan
+    blocks, warps = plan
+    assert warps * d * 4 <= k8.SMEM_BYTES and blocks <= 2 * sms
+    assert blocks * warps >= min(rows, 2 * sms * warps)
+
+
+def test_rmsnorm_bwd_plan_refuses_too_wide_rows():
+    with pytest.raises(ValueError, match="d <="):
+        k8.bwd_plan(4, 58113, 132)
+
+
+# (causal, sq, sk, h, hkv, d): every combination of the first axes, then
+# TinyLlama's training shape (S 2,048, 32 / 4 heads)
+FLASH_BWD_CARD_CASES = [
+    (causal, sq, sk, h, hkv, d)
+    for causal in (True, False)
+    for sq, sk in ((128, 128), (1000, 1000),   # off the 64-row tiles
+                   (193, 129), (129, 193))     # Sq > Sk and Sq < Sk
+    for h, hkv in ((8, 8), (8, 1))
+    for d in (64, 16, 128, 32)] + [(True, 2048, 2048, 32, 4, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,sq,sk,h,hkv,d", FLASH_BWD_CARD_CASES)
+def test_flash_attention_bwd_kernel_matches_plain_on_card(causal, sq, sk, h,
+                                                          hkv, d, dtype):
+    dev = _card()
+    b = 4 if sq == 2048 else 2
+    args = attn_bwd_inputs(b, h, hkv, sq, sk, d, dtype, causal, dev)
+    before = k5.bwd_launches
+    got = k5.flash_attention_bwd(*args, causal=causal)
+    want = k5.flash_attention_bwd_plain(*args, causal=causal)
+    torch.cuda.synchronize()
+    assert k5.bwd_launches == before + 1
+    for a, w in zip(got, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        assert bool(torch.isfinite(a).all())
+        assert_bwd_close(a, w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scale,shift", [(0.3, 0), (None, 1)])
+def test_flash_attention_bwd_kernel_scale_alignment_and_bits_on_card(
+        scale, shift, dtype):
+    """A given scale; inputs off 16-byte alignment; two launches on the same
+    inputs give the same bits (no atomics)."""
+    dev = _card()
+    args = tuple(shifted(t, shift) if t.dtype == dtype else t
+                 for t in attn_bwd_inputs(2, 8, 2, 300, 300, 64, dtype, True,
+                                          dev, seed=7))
+    got = k5.flash_attention_bwd(*args, causal=True, scale=scale)
+    again = k5.flash_attention_bwd(*args, causal=True, scale=scale)
+    want = k5.flash_attention_bwd_plain(*args, causal=True, scale=scale)
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        assert_bwd_close(a, w, dtype)
+
+
+def assert_rms_bwd_close(dx, ds, x, s, g, eps=1e-6):
+    """K8's backward against its plain version: dx one rounding step in
+    bf16 (2^-7 |dx| + 1e-3 max |dx|), 1e-5 of max |dx| in fp32; d scale,
+    an fp32 sum over the rows in another order, within 1e-5 of the sum of
+    its terms' magnitudes plus one rounding step of its type."""
+    pdx, pds = k8.rmsnorm_bwd_plain(x, s, g, eps)
+    xf = x.float()
+    r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    mag = (g.float() * xf * r).abs().sum(0)
+    rnd = 2.0 ** -8 if x.dtype == torch.bfloat16 else 1e-6
+    dxf, pdxf = dx.float(), pdx.float()
+    bar = (2.0 ** -7 * pdxf.abs() + 1e-3 * pdxf.abs().max()
+           if x.dtype == torch.bfloat16 else 1e-5 * pdxf.abs().max())
+    assert bool(((dxf - pdxf).abs() <= bar).all()), \
+        float((dxf - pdxf).abs().max())
+    dbar = 1e-5 * mag + rnd * pds.float().abs()
+    assert bool(((ds.float() - pds.float()).abs() <= dbar).all()), \
+        float((ds.float() - pds.float()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t,d,shift", [(8192, 2048, 0), (4, 2048, 0),
+                                       (916, 512, 0), (33, 100, 0),
+                                       (7, 2048, 1), (1, 2048, 0)])
+def test_rmsnorm_bwd_kernel_matches_plain_on_card(t, d, shift, dtype):
+    """The training step's rows, a tick's, MLA's kv_norm rows, another
+    width and rows off 16-byte alignment (element loads); two launches
+    give the same bits."""
+    dev = _card()
+    rng = np.random.default_rng(t + d)
+    x, g = (shifted(torch.as_tensor(rng.normal(0, 3, (t, d)),
+                                    dtype=torch.float32).to(dtype).to(dev),
+                    shift) for _ in range(2))
+    s = torch.as_tensor(rng.normal(0, 0.3, d), dtype=torch.float32
+                        ).to(dtype).to(dev)
+    before = k8.bwd_launches
+    dx, ds = k8.rmsnorm_bwd(x, s, g, 1e-6)
+    dx2, ds2 = k8.rmsnorm_bwd(x, s, g, 1e-6)
+    torch.cuda.synchronize()
+    assert k8.bwd_launches == before + 2
+    assert dx.dtype == ds.dtype == dtype
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+    assert_rms_bwd_close(dx, ds, x, s, g)
 
 
 # ---------------------------------------------------------------------------
