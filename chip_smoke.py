@@ -185,7 +185,9 @@ the answers against the repo's own oracles:
      traced step's idle share; K11 and K8's backward at the main path's
      first and last call against their plain versions (bf16 one rounding
      step, 2^-7 |x| + 1e-3 max |x|; two launches bitwise equal), timed
-     beside their bound and PyTorch's own backward (SDPA's, F.rms_norm's);
+     beside their bound and PyTorch's own backward (SDPA's, F.rms_norm's),
+     K11's dsum, dq and dk/dv passes split by a trace, its C launcher's
+     plan held to `flash_attention.bwd_plan`;
      the first step's gradients per leaf in norm against plain-version
      runs (fp32 kernel vs plain within 1e-4; the bf16 kernel run at most
      1e-2 further from the plain fp32 run than the plain bf16 run), and
@@ -2615,6 +2617,21 @@ def profile_window(torch, fn, counted):
     return wall, busy_ns / 1e9, len(acts), groups, table
 
 
+def kernel_split(table, parts):
+    """Device ms a launch and launches of each named kernel ({label: name
+    substring}, in order) from a `profile_window` per-kernel table."""
+    out = []
+    for label, key in parts.items():
+        ms = n = 0
+        for ln in table.splitlines():
+            if key in ln:
+                ms += float(ln.split(" ms ", 1)[0])
+                n += int(ln.split(" ms ", 1)[1].split("x", 1)[0])
+        out.append(f"{label} {ms / n:.4f} ms ({n} launches)" if n
+                   else f"{label} not in the trace")
+    return ", ".join(out)
+
+
 def launch_count(mod):
     """The launch count of a kernel module's wrapper, for `counted`."""
     return lambda: mod.launches
@@ -3298,8 +3315,9 @@ def phase_train(torch, k5, k8, k10, build, dev):
     (K5 22, K11 22, K8 45 forward and 45 backward, K10 none), ten steps on
     one batch, step ms, tokens/s, peak memory and the idle share; K11 and
     K8's backward per call against their plain versions, timed beside
-    their bound and PyTorch's own backward; the first step's gradients
-    against plain-version runs; `grad_accum=2` against 1."""
+    their bound and PyTorch's own backward, K11's passes split by a trace
+    and its C launcher's plan held to `bwd_plan`; the first step's
+    gradients against plain-version runs; `grad_accum=2` against 1."""
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticLM
@@ -3394,19 +3412,34 @@ def phase_train(torch, k5, k8, k10, build, dev):
         split_ms.setdefault(name, []).append(
             (ms, torch.cuda.max_memory_allocated()))
 
-    # traced steps: device time by kernel group, idle share (K11 is three
-    # launches a call, K8's backward two)
+    # traced steps: device time by kernel group, idle share (K11 is
+    # `bwd_plan`'s launches a call, K8's backward two)
+    (first11, _), = calls11.values()
+    q11, k11 = first11[0][:2]
+    plan11 = k5.bwd_plan(*q11.shape[:2], k11.shape[1], q11.shape[2],
+                         k11.shape[2], q11.shape[3], True, q11.dtype)
+    dev11 = k5.bwd_device_plan(*q11.shape[:2], k11.shape[1], q11.shape[2],
+                               k11.shape[2], q11.shape[3], True, q11.dtype)
+    check(all(dev11[key] == plan11[key] for key in dev11
+              if not key.endswith(("_smem", "_blocks_per_sm"))),
+          f"K11's C launcher plans {dev11}, bwd_plan {plan11}")
+    del q11, k11
+
     def traced():
         for _ in range(TRAIN["traced"]):
             timed_step(step, state)
     busy = profile_window(
         torch, traced,
         {"K5": launch_count(k5), "K8": launch_count(k8),
-         "K11": lambda: 3 * k5.bwd_launches,
+         "K11": lambda: plan11["launches"] * k5.bwd_launches,
          "K8 backward": lambda: 2 * k8.bwd_launches})
     idle = f"not measured ({busy})"
+    split11 = "not measured (no trace)"
     if not isinstance(busy, str):
         twall, dev_s, n_kern, groups, table = busy
+        split11 = kernel_split(table, {"dsum": "flash_bwd_dsum",
+                                       "dq": "flash_bwd_dq",
+                                       "dk/dv": "flash_bwd_dkdv"})
         idle = (f"{1.0 - dev_s / twall:.3f} (device busy {dev_s:.3f} s, "
                 f"{n_kern} device activities, over {twall:.3f} s wall, "
                 f"{TRAIN['traced']} traced steps; device ms / activities a "
@@ -3471,8 +3504,16 @@ def phase_train(torch, k5, k8, k10, build, dev):
             f32 = fp32(args)
             ms32 = cuda_ms(torch, lambda: k5.flash_attention_bwd(*f32, **kw),
                            3)
-            extra = f", fp32 {ms32:.3f} ms"
             del f32
+            extra = (f", fp32 {ms32:.3f} ms; a call's passes in the traced "
+                     f"steps: {split11}; "
+                     f"plan: dq {dev11['dq_grid']} blocks of "
+                     f"{dev11['dq_threads']} ({dev11['dq_heads']} heads, "
+                     f"{dev11['dq_smem']} B shared, "
+                     f"{dev11['dq_blocks_per_sm']} an SM), dk/dv "
+                     f"{dev11['dkdv_grid']} of {dev11['dkdv_threads']} "
+                     f"({dev11['dkdv_smem']} B, "
+                     f"{dev11['dkdv_blocks_per_sm']} an SM)")
         else:
             x, sc, g = args[:3]
             xl = x.detach().clone().requires_grad_()
@@ -3486,7 +3527,7 @@ def phase_train(torch, k5, k8, k10, build, dev):
             b_ms, b_by = bound_ms(3 * x.numel() * t + 2 * sc.numel() * t,
                                   10.0 * x.numel(), 0, "float32")
             extra = ""
-        reps = 5 if label == "K11" else 50
+        reps = 20 if label == "K11" else 50
         ms = cuda_ms(torch, lambda: kern(*args, **kw), reps)
         plain = cuda_ms(torch, lambda: plain_fn(*args, **kw), 3)
         lib_ms = cuda_ms(torch, lib, reps)
@@ -3592,7 +3633,8 @@ def phase_train(torch, k5, k8, k10, build, dev):
           f"{acc_gn:.3e}, step {ms2:.1f} ms; " + "; ".join(texts)
           + f"; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     print("K11 ptxas: " + ptxas_report(build, "flash_attention_bwd", (
-        "flash_bwd_dsum", "flash_bwd_dq", "flash_bwd_dkdv")), flush=True)
+        "flash_bwd_dsum", "flash_bwd_dq_mma", "flash_bwd_dkdv_mma",
+        "flash_bwd_dq", "flash_bwd_dkdv")), flush=True)
     print("K8 backward ptxas: " + ptxas_report(build, "rmsnorm", (
         "rms_bwd_rows", "rms_bwd_sum")), flush=True)
     return [dict({"name": "flash_attention_bwd", "route": "cuda",

@@ -1,15 +1,17 @@
-"""Where the kernels' time goes: K5 (csrc/flash_attention.cu), K10
-(csrc/xent.cu) and K9 (csrc/moe_gemm.cu) in bf16, K6
-(csrc/decode_attention.cu), the chunk kernels K2 (csrc/scan_chunk.cu)
-and K1 (csrc/coupled_chunk.cu) in fp64 and fp32, K7 (csrc/ssm_scan.cu)
-and K8 (csrc/rmsnorm.cu), built beside variants with one part removed,
-each timed at the main path's shapes on one card.
+"""Where the kernels' time goes: K5 (csrc/flash_attention.cu), K11
+(csrc/flash_attention_bwd.cu), K10 (csrc/xent.cu) and K9
+(csrc/moe_gemm.cu) in bf16, K6 (csrc/decode_attention.cu), the chunk
+kernels K2 (csrc/scan_chunk.cu) and K1 (csrc/coupled_chunk.cu) in fp64
+and fp32, K7 (csrc/ssm_scan.cu) and K8 (csrc/rmsnorm.cu), built beside
+variants with one part removed, each timed at the main path's shapes on
+one card.
 
     PYTHONPATH=src python -m repro_torch.kernels.ablate [--baseline DIR]
         [source ...]
 
-(sources: flash_attention, xent, moe_gemm, decode_attention,
-scan_chunk, coupled_chunk, ssm_scan, rmsnorm; all by default).  With
+(sources: flash_attention, flash_attention_bwd, xent, moe_gemm,
+decode_attention, scan_chunk, coupled_chunk, ssm_scan, rmsnorm; all by
+default).  With
 --baseline, the same sources of another checkout rooted at DIR (a `git
 archive` of an earlier commit, say) are built and timed beside them as
 the variant "baseline", so two versions are compared within one call;
@@ -71,6 +73,68 @@ VARIANTS: Dict[str, Dict[str, List[Edit]]] = {
              "scale2, lane);",
              "      acc[0][0] += __bfloat162float(cK[lane]) + "
              "__bfloat162float(cV[lane]);")],
+    },
+    "flash_attention_bwd": {            # K11's bf16 kernels, dq and dk/dv
+        "no lo products": [
+            ("      mma::mma_bf16(acc[2 * dn], dl, r[0], r[1]);\n"
+             "      mma::mma_bf16(acc[2 * dn + 1], dl, r[2], r[3]);\n", ""),
+            ("      mma::mma_bf16(adv[2 * dn], pl, rd[0], rd[1]);\n"
+             "      mma::mma_bf16(adv[2 * dn + 1], pl, rd[2], rd[3]);\n"
+             "      mma::mma_bf16(adk[2 * dn], dl, rq[0], rq[1]);\n"
+             "      mma::mma_bf16(adk[2 * dn + 1], dl, rq[2], rq[3]);\n",
+             "")],
+        "no dQ product": [
+            ("      mma::mma_bf16(acc[2 * dn], dh, r[0], r[1]);\n"
+             "      mma::mma_bf16(acc[2 * dn + 1], dh, r[2], r[3]);\n"
+             "      mma::mma_bf16(acc[2 * dn], dl, r[0], r[1]);\n"
+             "      mma::mma_bf16(acc[2 * dn + 1], dl, r[2], r[3]);\n",
+             "      acc[2 * dn][0] += __uint_as_float(dh[dn & 3] ^ dl[dn & 3]"
+             " ^ r[0]);\n")],
+        "no dK/dV products": [
+            ("      mma::mma_bf16(adv[2 * dn], ph, rd[0], rd[1]);\n"
+             "      mma::mma_bf16(adv[2 * dn + 1], ph, rd[2], rd[3]);\n"
+             "      mma::mma_bf16(adk[2 * dn], dh, rq[0], rq[1]);\n"
+             "      mma::mma_bf16(adk[2 * dn + 1], dh, rq[2], rq[3]);\n"
+             "      mma::mma_bf16(adv[2 * dn], pl, rd[0], rd[1]);\n"
+             "      mma::mma_bf16(adv[2 * dn + 1], pl, rd[2], rd[3]);\n"
+             "      mma::mma_bf16(adk[2 * dn], dl, rq[0], rq[1]);\n"
+             "      mma::mma_bf16(adk[2 * dn + 1], dl, rq[2], rq[3]);\n",
+             "      adv[2 * dn][0] += __uint_as_float(ph[dn & 3] ^ pl[dn & 3]"
+             " ^ rd[0]);\n"
+             "      adk[2 * dn][0] += __uint_as_float(dh[dn & 3] ^ dl[dn & 3]"
+             " ^ rq[0]);\n")],
+        "no exp2": [
+            ("float p = ex2(fmaf(s[j][e], scale2, -lse2[r]));",
+             "float p = fmaf(s[j][e], scale2, -lse2[r]);"),
+            ("float p = ex2(fmaf(s[j][e], scale2, -lq[e & 1]));",
+             "float p = fmaf(s[j][e], scale2, -lq[e & 1]);")],
+        "no loads after the rings' first": [
+            ("    if (it + STAGES - 1 < n_tiles) load_kv(it + STAGES - 1);\n",
+             ""),
+            ("    if (i + STAGES - 1 < n_items) load_item(i + STAGES - 1);\n",
+             "")],
+        "alt: masks on every tile (no branch-free interior path)": [
+            ("    if (k0 + BK > Sk || (causal && k0 + BK - 1 > row0))\n",
+             "    if (true)\n"),
+            ("    if (q0 + BQ > Sq || key0 + 16 > Sk || (causal && q0 < key0 + "
+             "15))\n", "    if (true)\n")],
+        "alt: dk/dv K, V from shared memory at D = 64": [
+            ("constexpr int KV_REG_MAX_D = 64;",
+             "constexpr int KV_REG_MAX_D = 32;")],
+        "alt: dq dO fragments from shared memory at D = 64": [
+            ("constexpr int DO_REG_MAX_D = 64;",
+             "constexpr int DO_REG_MAX_D = 32;")],
+        "alt: dq key steps unrolled": [
+            ("#pragma unroll 1\n  for (int ks = 0; ks < BK / 16; ++ks) {",
+             "#pragma unroll\n  for (int ks = 0; ks < BK / 16; ++ks) {")],
+        "alt: dq 1 block an SM (no register cap)": [
+            ("__launch_bounds__(HPC * 128, D <= 64 ? 4 / HPC : 1)",
+             "__launch_bounds__(HPC * 128, D <= 32 ? 4 / HPC : 1)")],
+        "alt: 3-stage rings": [
+            ("constexpr int STAGES = 2;", "constexpr int STAGES = 3;")],
+        "alt: dq one head a block": [
+            ("const int hpc = mma_path && (H / Hkv) % 2 == 0 ? 2 : 1;",
+             "const int hpc = 1;")],
     },
     "xent": {
         "no epilogue": [
@@ -464,6 +528,32 @@ def _time_k5(torch, libs, rnd, dev, stream):
     return rows
 
 
+def _time_k11(torch, libs, rnd, dev, stream):
+    """K11 in bf16 at the training step's call: (4, 32, 2048, 64) x
+    (4, 4, 2048, 64) causal, o and lse from K5's forward."""
+    from repro_torch.kernels import flash_attention as fa
+    b, h, hkv, s, d = 4, 32, 4, 2048, 64
+    q, k, v = rnd(b, h, s, d), rnd(b, hkv, s, d), rnd(b, hkv, s, d)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    do = rnd(b, h, s, d)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dsum = torch.empty((b, h, s), device=dev)
+    rows = []
+    for label, fn in _variants(libs, "flash_attention_bwd",
+                               "flash_attention_bwd_bf16",
+                               [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                               + [ctypes.c_float, ctypes.c_void_p]):
+        def call(fn=fn):
+            return fn(*(t.data_ptr() for t in (q, k, v, o, lse, do, dq, dk,
+                                               dv, dsum)),
+                      b, h, hkv, s, s, d, 1, d ** -0.5, stream)
+        if call():
+            raise RuntimeError(f"K11 {label}: launch failed")
+        rows.append(("K11", f"({b},{h},{s},{d})x({b},{hkv},{s},{d}) causal",
+                     label, _event_ms(torch, call, 10)))
+    return rows
+
+
 def _time_k10(torch, libs, rnd, gen, dev, stream):
     rows = []
     t, d, vocab, chunk = 8192, 2048, 32000, 8192   # the loss's K10 call
@@ -793,16 +883,31 @@ def _time_k8(torch, libs, rnd, dev, stream):
     return rows
 
 
+def spills(log: str) -> Dict[str, str]:
+    """Mangled kernel name -> its `ptxas -v` spill line, where it spills."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif name and "spill" in ln and not ln.strip().startswith(
+                "0 bytes stack frame, 0 bytes spill stores"):
+            out[name] = ln.strip()
+    return out
+
+
 def _registers_line(logs, src):
-    """`ptxas -v` registers of every kernel of each built variant."""
+    """`ptxas -v` registers (and spills) of every kernel of each built
+    variant."""
     lines = []
     for (name, label), log in logs.items():
         if name == src:
             parts = []
+            spilled = spills(log)
             for k, n in registers(log).items():
                 m = re.search(r"_cu_[0-9a-f]{8}\d+([A-Za-z_]+)I(.*?)EEv", k)
-                parts.append(f"{m.group(1)}<{m.group(2)}> {n}" if m else
-                             f"{k} {n}")
+                extra = f" ({spilled[k]})" if k in spilled else ""
+                parts.append(f"{m.group(1)}<{m.group(2)}> {n}{extra}" if m
+                             else f"{k} {n}{extra}")
             lines.append(f"{src} {label}: " + ", ".join(parts))
     return lines
 
@@ -875,6 +980,8 @@ def main(argv=None) -> int:
     stream = torch.cuda.current_stream().cuda_stream
     timers = {"flash_attention": lambda: _time_k5(torch, libs, rnd, dev,
                                                   stream),
+              "flash_attention_bwd": lambda: _time_k11(torch, libs, rnd, dev,
+                                                       stream),
               "xent": lambda: _time_k10(torch, libs, rnd, gen, dev, stream),
               "moe_gemm": lambda: _time_k9(torch, libs, rnd, dev, stream),
               "decode_attention": lambda: _time_k6(torch, libs, rnd, dev,
@@ -886,7 +993,7 @@ def main(argv=None) -> int:
               "rmsnorm": lambda: _time_k8(torch, libs, rnd, dev, stream)}
     for line in _occupancy(libs, logs, names):
         print(line, flush=True)
-    for src in ("ssm_scan", "rmsnorm"):
+    for src in ("ssm_scan", "rmsnorm", "flash_attention_bwd"):
         if src in names:
             for line in _registers_line(logs, src):
                 print(line, flush=True)

@@ -20,9 +20,11 @@ differentiable entry.
 K11, `flash_attention_bwd`, is the backward: the reference's `_fa_bwd`
 (`src/repro/kernels/ops.py:65`), recomputing p from (q, k, v, o, lse) in
 the same layout, fp32 math rounded once.  On a CUDA tensor it launches
-csrc/flash_attention_bwd.cu (dsum, then dq a query tile at a time, then
-dk and dv a key tile at a time over the group's query heads; three
-launches counted as one call in `bwd_launches`); on a CPU tensor it runs
+csrc/flash_attention_bwd.cu in the passes of `bwd_plan` (dsum, then dq a
+query tile at a time, then dk and dv a key tile at a time over the
+group's query heads, no atomics; counted as one call in `bwd_launches`):
+bf16 on the tensor cores, p and dS kept in registers and each split into
+two bf16 terms for the products; fp32 on FMAs.  On a CPU tensor it runs
 `flash_attention_bwd_plain`, the reference's chunked recompute.
 """
 from __future__ import annotations
@@ -39,7 +41,7 @@ from repro_torch.kernels import _build
 
 #: kernel launches on CUDA tensors since import (or the last reset)
 launches = 0
-#: K11 calls on CUDA tensors (three launches each, counted once)
+#: K11 calls on CUDA tensors (`bwd_plan`'s launches each, counted once)
 bwd_launches = 0
 
 NEG_INF = -1e30
@@ -50,6 +52,13 @@ _BWD_FNS = {torch.bfloat16: "flash_attention_bwd_bf16",
             torch.float32: "flash_attention_bwd_f32"}
 #: queries a step of the plain backward's recompute (the reference's)
 BWD_CHUNK = 1024
+#: K11's tiles: the queries of a dq block (a head) and the keys of a dk/dv
+#: block
+BWD_TILE = 64
+_PLAN_KEYS = ("launches", "dsum_blocks", "dq_grid", "dq_threads",
+              "dq_heads", "dq_smem", "dq_blocks_per_sm", "dkdv_grid",
+              "dkdv_threads", "dkdv_smem", "dkdv_blocks_per_sm",
+              "dq_first_tile", "dkdv_first_tile", "dsum_threads")
 
 
 def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
@@ -113,6 +122,72 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
         del ds
     return (dq.view(b, h, sq, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def bwd_plan(B: int, H: int, Hkv: int, Sq: int, Sk: int, D: int,
+             causal: bool, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """K11's launches for one call, the rule of
+    csrc/flash_attention_bwd.cu::plan (`bwd_device_plan` reads the C
+    launcher's own).  dsum: a warp a query row, 256 threads a block.  dq: a
+    block per 64-query tile and `dq_heads` query heads (bf16: two heads of
+    one GQA group where the group is even, 128 threads a head; fp32: one
+    head, 256 threads), block 0 on the last query tile (the heaviest under
+    the causal mask; the fp32 kernel keeps the natural order when not
+    causal).  dk/dv: a block per 64-key tile and KV head (bf16: 4 warps of
+    16 keys; fp32: 256 threads), looping over the group's H / Hkv query
+    heads and their query tiles, block 0 on key tile 0 (the heaviest).
+    A pass with nothing to compute is not launched; `launches` counts the
+    rest.  `dq_tiles` and `dkdv_tiles` give the tile each block x index
+    takes; `dkdv_items` the (head, query tile) items of each key tile."""
+    bf16 = dtype == torch.bfloat16
+    q_tiles, k_tiles = -(-Sq // BWD_TILE), -(-Sk // BWD_TILE)
+    g = H // Hkv
+    hpc = 2 if bf16 and g % 2 == 0 else 1
+    rows = B * H * Sq
+    plan = {key: (0, 0, 0) if key.endswith("_grid") else 0
+            for key in _PLAN_KEYS
+            if not key.endswith(("_smem", "_blocks_per_sm"))}
+    plan.update(dsum_threads=256, dq_tiles=(), dkdv_tiles=(),
+                dkdv_items=())
+    if rows > 0:
+        plan.update(launches=2, dsum_blocks=-(-rows // 8),
+                    dq_grid=(q_tiles, H // hpc, B),
+                    dq_threads=128 * hpc if bf16 else 256, dq_heads=hpc,
+                    dq_first_tile=q_tiles - 1 if bf16 or causal else 0)
+        plan["dq_tiles"] = (tuple(range(q_tiles - 1, -1, -1))
+                            if bf16 or causal else tuple(range(q_tiles)))
+    if B * Hkv * Sk > 0:
+        plan.update(launches=plan["launches"] + 1,
+                    dkdv_grid=(k_tiles, Hkv, B),
+                    dkdv_threads=128 if bf16 else 256,
+                    dkdv_tiles=tuple(range(k_tiles)))
+        plan["dkdv_items"] = tuple(
+            g * max(q_tiles - (kt if causal else 0), 0)
+            for kt in range(k_tiles))
+    return plan
+
+
+def bwd_device_plan(B: int, H: int, Hkv: int, Sq: int, Sk: int, D: int,
+                    causal: bool, dtype: torch.dtype = torch.bfloat16
+                    ) -> dict:
+    """The plan K11's C launcher takes on the current card (needs the
+    card): `bwd_plan`'s keys without the tile tuples, plus each product
+    kernel's dynamic shared bytes and the blocks an SM holds (CUDA's
+    occupancy API, the 16-byte-aligned instance)."""
+    out = (ctypes.c_int * 18)()
+    err = _bwd_library().flash_attention_bwd_plan(
+        B, H, Hkv, Sq, Sk, D, int(causal), int(dtype == torch.bfloat16), out)
+    if err:
+        raise RuntimeError(f"flash_attention_bwd_plan failed: CUDA error "
+                           f"{err}")
+    vals = list(out)
+    plan = {}
+    for key in _PLAN_KEYS:
+        if key.endswith("_grid"):
+            plan[key], vals = tuple(vals[:3]), vals[3:]
+        else:
+            plan[key], vals = vals[0], vals[1:]
+    return plan
 
 
 def _check(q, k, v, name: str):
@@ -225,6 +300,9 @@ def _bwd_library() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + \
             [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.flash_attention_bwd_plan.argtypes = [ctypes.c_int] * 8 + \
+        [ctypes.c_void_p]
+    lib.flash_attention_bwd_plan.restype = ctypes.c_int
     return lib
 
 

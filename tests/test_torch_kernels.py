@@ -1067,6 +1067,141 @@ def test_flash_attention_bwd_kernel_scale_alignment_and_bits_on_card(
         assert_bwd_close(a, w, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal,sq,sk,h,hkv,d", FLASH_BWD_CARD_CASES)
+def test_flash_attention_bwd_plan_covers_the_tiles(causal, sq, sk, h, hkv,
+                                                   d, dtype):
+    """K11's launch plan at the train shape and the card cases' shapes:
+    every query tile of every head in one dq block (two heads of one GQA
+    group a bf16 block where the group is even), every key tile of every
+    KV head in one dk/dv block, each over the group's query heads and
+    the query tiles at or past it (causal), three launches, and the
+    heaviest tiles first."""
+    b = 4 if sq == 2048 else 2
+    plan = k5.bwd_plan(b, h, hkv, sq, sk, d, causal, dtype)
+    bf16 = dtype == torch.bfloat16
+    g = h // hkv
+    nq, nk = -(-sq // 64), -(-sk // 64)
+    heads = 2 if bf16 and g % 2 == 0 else 1
+    assert plan["launches"] == 3
+    assert plan["dsum_blocks"] * 8 >= b * h * sq > (plan["dsum_blocks"]
+                                                   - 1) * 8
+    assert plan["dq_grid"] == (nq, h // heads, b)
+    assert plan["dq_heads"] == heads
+    assert plan["dq_threads"] == (128 * heads if bf16 else 256)
+    assert plan["dkdv_grid"] == (nk, hkv, b)
+    assert plan["dkdv_threads"] == (128 if bf16 else 256)
+    assert sorted(plan["dq_tiles"]) == list(range(nq))
+    assert sorted(plan["dkdv_tiles"]) == list(range(nk))
+    # work of each block: key tiles a query tile sees, query tiles (of all
+    # the group's heads) a key tile sees
+    q_work = [min(qt + 1, nk) if causal else nk for qt in plan["dq_tiles"]]
+    kv_work = [plan["dkdv_items"][kt] for kt in plan["dkdv_tiles"]]
+    assert kv_work == [g * max(nq - kt, 0) if causal else g * nq
+                       for kt in plan["dkdv_tiles"]]
+    if causal:                                  # heaviest first
+        assert q_work == sorted(q_work, reverse=True)
+        assert kv_work == sorted(kv_work, reverse=True)
+    assert plan["dq_first_tile"] == plan["dq_tiles"][0]
+    assert plan["dkdv_first_tile"] == plan["dkdv_tiles"][0]
+    if (causal, sq, h, hkv, d) == (True, 2048, 32, 4, 64) and bf16:
+        assert plan["dq_grid"] == (32, 16, 4)
+        assert plan["dkdv_grid"] == (32, 4, 4)
+        assert kv_work[:2] == [256, 248] and kv_work[-1] == 8
+
+
+def test_flash_attention_bwd_plan_skips_empty_passes():
+    """Nothing to compute, nothing launched: no query rows leave only the
+    dk/dv pass (zeros), no keys only dsum and dq."""
+    assert k5.bwd_plan(2, 8, 2, 0, 100, 64, True)["launches"] == 1
+    assert k5.bwd_plan(2, 8, 2, 100, 0, 64, True)["launches"] == 2
+    assert k5.bwd_plan(2, 8, 2, 100, 0, 64, True)["dkdv_grid"] == (0, 0, 0)
+    # Sq < Sk under the causal mask: key tiles past the last query see
+    # no item
+    plan = k5.bwd_plan(1, 8, 1, 129, 193, 64, True)
+    assert plan["dkdv_items"] == (24, 16, 8, 0)
+
+
+def split_bf16(w):
+    """fp32 weights as K11's bf16 kernels multiply them: hi, the top 16
+    bits (exact in bf16), and lo = bf16(w - hi)."""
+    hi = (w.view(torch.int32) & -65536).view(torch.float32)
+    return hi, (w - hi).to(torch.bfloat16).float()
+
+
+def flash_bwd_emulated(q, k, v, o, lse, do, causal, split=True):
+    """K11's bf16 operand rounding in fp32 on the CPU: q, k, v, do in bf16,
+    s and dp summed in fp32, p and ds each multiplied as two bf16 terms
+    (`split_bf16`; with `split` False as one, bf16(w)), fp32 sums, each
+    output rounded once."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = 1.0 / d ** 0.5
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(g, 1)
+    vf = v.float().repeat_interleave(g, 1)
+    dsum = (dof * o.float()).sum(-1, keepdim=True)
+    s = qf @ kf.transpose(-1, -2)
+    p = torch.exp(s * scale - lse[..., None])
+    if causal:
+        p = p.masked_fill(torch.arange(sk)[None] > torch.arange(sq)[:, None],
+                          0.0)
+    ds = p * (dof @ vf.transpose(-1, -2) - dsum) * scale
+    def terms(w):
+        if split:
+            return split_bf16(w)
+        return w.bfloat16().float(), torch.zeros_like(w)
+    (ph, pl), (dh, dl) = terms(p), terms(ds)
+    dq = dh @ kf + dl @ kf
+    dk = (dh.transpose(-1, -2) @ qf + dl.transpose(-1, -2) @ qf)
+    dv = (ph.transpose(-1, -2) @ dof + pl.transpose(-1, -2) @ dof)
+    dk = dk.view(b, hkv, g, sk, d).sum(2)
+    dv = dv.view(b, hkv, g, sk, d).sum(2)
+    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_bwd_split_operands_hold_the_bar(d):
+    """The bf16 kernels' operand rounding (p and ds as hi + lo bf16
+    terms) keeps dq, dk and dv within K11's bar of the plain version:
+    g = 8, S = 256, causal.  With one bf16 term each, dq (a sum with heavy
+    cancellation: the ds of a row sum to 0) misses the bar: that is what
+    the lo products pay for."""
+    args = attn_bwd_inputs(1, 8, 1, 256, 256, d, torch.bfloat16, True,
+                           seed=d)
+    got = flash_bwd_emulated(*args, causal=True)
+    want = k5.flash_attention_bwd_plain(*args, causal=True)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape
+        assert_bwd_close(a, w, torch.bfloat16)
+    dq1 = flash_bwd_emulated(*args, causal=True, split=False)[0].float()
+    ref = want[0].float()
+    bar = 2.0 ** -7 * ref.abs() + 1e-3 * ref.abs().max()
+    assert not bool(((dq1 - ref).abs() <= bar).all())
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_launch_plan_matches_the_kernel_on_card():
+    """The C launcher takes `bwd_plan`'s launches, and each product
+    kernel fits an SM."""
+    _card()
+    cases = [(4, 32, 4, 2048, 2048, 64, True)] + [
+        (2, h, hkv, sq, sk, d, causal)
+        for causal, sq, sk, h, hkv, d in FLASH_BWD_CARD_CASES[:-1]]
+    for args in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            got = k5.bwd_device_plan(*args, dtype)
+            want = k5.bwd_plan(*args, dtype)
+            for key, val in got.items():
+                if key.endswith(("_smem", "_blocks_per_sm")):
+                    continue
+                assert val == want[key], (args, dtype, key)
+            assert got["dq_blocks_per_sm"] >= 1, (args, dtype)
+            assert got["dkdv_blocks_per_sm"] >= 1, (args, dtype)
+            assert max(got["dq_smem"], got["dkdv_smem"]) <= 232448
+
+
 def assert_rms_bwd_close(dx, ds, x, s, g, eps=1e-6):
     """K8's backward against its plain version: dx one rounding step in
     bf16 (2^-7 |dx| + 1e-3 max |dx|), 1e-5 of max |dx| in fp32; d scale,
@@ -1308,16 +1443,15 @@ def test_blocked_xent_kernel_matches_plain_on_card(t, d, v, block_v, dv,
 
 def test_ablation_variants_apply_to_the_sources():
     """Every part-removed variant of `kernels.ablate` still matches the
-    current K1, K2, K5, K6, K7, K8, K9 and K10 sources, with their headers
-    inlined
-    (the tool is run on the card; here only its substitutions are
-    checked)."""
+    current K1, K2, K5, K6, K7, K8, K9, K10 and K11 sources, with their
+    headers inlined (the tool is run on the card; here only its
+    substitutions are checked)."""
     from repro_torch.kernels import ablate
     srcs = ablate.variant_sources()
     assert set(ablate.VARIANTS) == {"scan_chunk", "coupled_chunk",
                                     "flash_attention", "decode_attention",
                                     "moe_gemm", "xent", "ssm_scan",
-                                    "rmsnorm"}
+                                    "rmsnorm", "flash_attention_bwd"}
     for name, variants in ablate.VARIANTS.items():
         base = srcs[(name, "unchanged")]
         assert len(variants) >= 3
