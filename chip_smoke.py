@@ -193,6 +193,32 @@ the answers against the repo's own oracles:
      1e-2 further from the plain fp32 run than the plain bf16 run), and
      `grad_accum=2` against 1 on the same batch (the same excess rule,
      loss and gradient norm within 1e-2);
+  7c. training with the blocked loss (`phase_train_loop`): (a) K12a
+     (`blocked_xent_bwd`, the blocked loss's backward) at the main
+     path's first and last call and the first on fp32 inputs against its
+     plain version (bf16 2^-7 |x| + 1e-3 max |x|, fp32 1e-4 max |x|, two
+     launches bitwise equal), timed whole, its kernel alone and the
+     chunks' cuBLAS products, beside its bound, the plain version and
+     autograd's backward of `x @ W` + `F.cross_entropy`; (b) ten
+     `make_train_step` steps with `blocked_xent=True` on 7b's batch
+     (K10 1, K12a 4 (a launch a vocab chunk), K5 22, K11 22, K8 45 + 45
+     launches a step) against ten with full logits: step ms, tokens/s,
+     peak memory, the idle share of traced steps; the first step's
+     gradients against a plain-version run and the full-logits step's
+     (the excess rule); the loss falls, every leaf finite; `remat`
+     "none", "full" and "dots": first-step gradients bitwise equal to the
+     blocked run's (or within 1e-4), the memory held from the forward to
+     the backward, the peaks, the median of 4 steps' ms and a traced
+     step's device time; (c) `training.loop.run_training` 4 steps with a
+     checkpoint, then resumed from it to 8 with
+     `FailureInjector(fail_at_steps=(6,))`, restarting from the same
+     checkpoint, against an uninterrupted 8-step run (parameters and
+     moments bitwise, or within 1e-6 with the difference printed; the
+     metrics at each step equal where bitwise), the checkpoint's GB,
+     save and restore seconds; (d) `python -m repro_torch.launch.train
+     --arch tinyllama-1.1b --blocked-xent --steps 10 --batch 4 --seq
+     2048` in a subprocess: exit 0, its device cuda, "done at
+     step 10; restarts=0", its unit log verified and its host the H100;
   8. serving DeepSeek-V2-Lite-16B at its published widths and depth (27
      layers, MLA, 26 MoE layers of 64 routed + 2 shared experts, top-6;
      bf16 weights drawn on the card from seed 0) through the same engine,
@@ -209,8 +235,8 @@ the answers against the repo's own oracles:
      and the `ptxas -v` registers and shared memory of its kernels are
      printed;
   9. one JSON line of per-kernel numbers (K2, K1, K3 and K4 forward and
-     backward, K6, K7, K5, K8, K10, K11, K8's backward, K9), then the
-     result line.
+     backward, K6, K7, K5, K8, K10, K11, K8's backward, K12a, K9), then
+     the result line.
 
 Every kernel time is by CUDA events (`cuda_ms`).  The profiler serves
 only the traced windows, and a window is used only when its trace shows
@@ -2555,6 +2581,7 @@ KERNEL_GROUPS = (("K1", ("coupled_chunk_kernel",)),
                  ("K10", ("xent_kernel",)),
                  ("K11", ("flash_bwd",)),
                  ("K8 backward", ("rms_bwd",)),
+                 ("K12a", ("xent_bwd_kernel",)),
                  ("cuBLAS", ("nvjet", "gemv", "gemm", "splitK", "cutlass")),
                  ("copies and casts", ("copy", "Copy")),
                  ("softmax", ("softmax",)),
@@ -3023,8 +3050,8 @@ def xent_check(torch, k10, x, emb, labels, dv, label):
     nll within 1e-4 + 1e-4 |nll|, the argmax equal except where the plain
     top-2 gap is below XENT_NEAR of max |logit|.  Returns the max abs nll
     error, the near-ties and how many of them differ."""
-    nll, amax = k10.blocked_xent(x, emb, labels, transpose_emb=dv)
-    pnll, pamax = k10.blocked_xent_plain(x, emb, labels, transpose_emb=dv)
+    nll, amax, _ = k10.blocked_xent(x, emb, labels, transpose_emb=dv)
+    pnll, pamax, _ = k10.blocked_xent_plain(x, emb, labels, transpose_emb=dv)
     torch.cuda.synchronize()
     err = (nll - pnll).abs()
     check(bool(torch.isfinite(nll).all()), f"K10 {label}: non-finite nll")
@@ -3209,7 +3236,7 @@ def phase_loss(torch, k5, k8, k10, dev):
     del c32
     worst32 = nll_worst = 0.0
     ties = flips = 0
-    for (lk, _), (lp, _), (x32, w32, (nk, ak)), (_, _, (np_, ap)) in \
+    for (lk, _), (lp, _), (x32, w32, (nk, ak, _)), (_, _, (np_, ap, _)) in \
             zip(k32, p32, kk, pk):
         worst32 = max(worst32, abs(lk - lp) / abs(lp))
         logits = xent_logits(torch, x32, w32, True)
@@ -3645,6 +3672,539 @@ def phase_train(torch, k5, k8, k10, build, dev):
                   "source": "src/repro_torch/csrc/rmsnorm.cu",
                   "replaces": "src/repro/models/layers.py:23",
                   "launches": n8b}, **rows["K8 backward"])]
+
+
+# --------------------------------------------------------------------------
+# training with the blocked loss: K12a, run_training, checkpoints, the CLI
+# --------------------------------------------------------------------------
+LOOP = dict(steps=4, total=8, fail_at=6, traced=5)
+CKPT_FREE_GB = 30         # two 11 GB train states on disk at once, and room
+RESUME_TOL = 1e-6         # relative in norm, where a resumed run is not bitwise
+REMAT_STEPS = 4           # timed steps a remat mode
+
+
+@contextlib.contextmanager
+def recording_copies(torch, mod, name, store):
+    """Record clones of the arguments of the first and of the last call of
+    `mod.name` as `store["first"]`, `store["last"]` ((args, kwargs)): the
+    inputs as they were at the call, before an in-place update."""
+    fn = getattr(mod, name)
+
+    def rec(*args, **kwargs):
+        copy = (tuple(a.detach().clone() if isinstance(a, torch.Tensor)
+                      else a for a in args), dict(kwargs))
+        store.setdefault("first", copy)
+        store["last"] = copy
+        return fn(*args, **kwargs)
+
+    setattr(mod, name, rec)
+    try:
+        yield
+    finally:
+        setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def step_memory(torch, model, st, out):
+    """Record in `out` the device memory of a train step of `model`:
+    "held", allocated when `model.loss` returns less before it was called
+    (what the forward keeps for the backward, the loss's own outputs
+    among it), and "fb_peak", the peak when `st.adamw_update` is called
+    (the forward's and the backward's, from the last reset)."""
+    loss, update = model.loss, st.adamw_update
+
+    def held(*args, **kwargs):
+        before = torch.cuda.memory_allocated()
+        r = loss(*args, **kwargs)
+        out["held"] = torch.cuda.memory_allocated() - before
+        return r
+
+    def at_update(*args, **kwargs):
+        out["fb_peak"] = torch.cuda.max_memory_allocated()
+        return update(*args, **kwargs)
+    model.loss, st.adamw_update = held, at_update
+    try:
+        yield
+    finally:
+        del model.loss
+        st.adamw_update = update
+
+
+def xent_bwd_bound(torch, x, emb, kernel_only=False):
+    """Least time of one K12a call: 2 T V d operations for the recomputed
+    logits and 2 T V d for each of the chunks' two products (the kernel
+    alone: the logits) at the inputs' peak, against x, emb, labels, lse
+    and g read once and dx, d emb written once (the kernel alone: dl
+    written, 4 bytes an entry: fp32, or bf16 hi + lo)."""
+    t, d = x.shape
+    v = emb.numel() // d
+    e = x.element_size()
+    if kernel_only:
+        bytes_, ops = (t + v) * d * e + 12 * t + 4 * t * v, 2.0 * t * v * d
+    else:
+        bytes_, ops = 2 * (t + v) * d * e + 12 * t, 6.0 * t * v * d
+    return bound_ms(bytes_, ops, 0, str(x.dtype).split(".")[1],
+                    peak=PEAK_TC_S)
+
+
+def state_diff(torch, a, b):
+    """Whether two train states are bitwise equal (parameters, moments,
+    step), and else the worst leaf's relative difference in norm."""
+    from repro_torch.models.param import tree_leaves as flat
+    la = flat(a["params"]) + flat(a["opt"]["m"]) + flat(a["opt"]["v"])
+    lb = flat(b["params"]) + flat(b["opt"]["m"]) + flat(b["opt"]["v"])
+    same = int(a["opt"]["step"]) == int(b["opt"]["step"])
+    if same and all(torch.equal(x, y) for x, y in zip(la, lb)):
+        return True, 0.0
+    return False, max(rel_norm(torch, x, y) for x, y in zip(la, lb))
+
+
+def phase_train_loop(torch, k5, k8, k10, build, dev):
+    """TinyLlama-1.1B trained with the blocked loss (K10 forward, K12a
+    backward) at full width and depth in bf16: (b) ten `make_train_step`
+    steps against ten with full logits, (a) K12a per call against its
+    plain version, (c) `run_training` resumed from a checkpoint and
+    restarted after an injected failure against an uninterrupted run, (d)
+    the training CLI in a subprocess."""
+    import shutil
+    import torch.nn.functional as F
+    from repro_torch.checkpoint import checkpoint as CKM
+    from repro_torch.configs import get_config
+    from repro_torch.core.sysinfo import chip_profile_from_host
+    from repro_torch.core.verify import verify_unit_log
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed.fault_tolerance import FailureInjector
+    from repro_torch.models.model import build_model
+    from repro_torch.models.param import tree_leaves as flat_leaves
+    from repro_torch.models.param import tree_map
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.training import loop as LP
+    from repro_torch.training import step as ST
+    t_phase = time.perf_counter()
+    full_cfg = get_config("tinyllama-1.1b")
+    cfg = dataclasses.replace(full_cfg, blocked_xent=True)
+    model, full = build_model(cfg), build_model(full_cfg)
+    opt = AdamWConfig(warmup_steps=2, total_steps=TRAIN["steps"] + 2)
+    batch = SyntheticLM(cfg, batch=TRAIN["batch"], seq=TRAIN["seq"],
+                        seed=0).batch_at(0)
+    n_tok = TRAIN["batch"] * TRAIN["seq"]
+    layers = cfg.num_layers
+    chunks = -(-cfg.vocab_size // cfg.vocab_block)
+
+    def fresh(dtype=None):
+        params = ST.trainable(conditioned_params(torch, model, dev, dtype))
+        return {"params": params, "opt": init_opt_state(params, opt)}
+
+    def timed_step(step, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        return state, {k: float(v) for k, v in met.items()}, \
+            (time.perf_counter() - t0) * 1e3
+
+    def counts():
+        return (k10.launches, k10.bwd_launches, k5.launches,
+                k5.bwd_launches, k8.launches, k8.bwd_launches)
+
+    def zero_counts():
+        k10.launches = k10.bwd_launches = k5.launches = k5.bwd_launches = 0
+        k8.launches = k8.bwd_launches = 0
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (b) ten steps on one batch, blocked and full logits; counts zeroed
+    # just before the first step of each, read just after
+    plan11 = k5.bwd_plan(TRAIN["batch"], cfg.num_heads, cfg.num_kv_heads,
+                         TRAIN["seq"], TRAIN["seq"], cfg.resolved_head_dim,
+                         True, torch.bfloat16)
+    runs, g_first, calls12 = {}, {}, {}
+    for name, m in (("blocked", model), ("full", full)):
+        step = ST.make_train_step(m, opt)
+        state, _, warm_ms = timed_step(step, fresh())         # warm-up
+        del state
+        free()
+        state = fresh()
+        upd = []
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with contextlib.ExitStack() as st:
+            if name == "blocked":
+                st.enter_context(recording_copies(torch, k10,
+                                                  "blocked_xent_bwd",
+                                                  calls12))
+            with recording(ST, "adamw_update", upd):
+                zero_counts()
+                state, met, ms1 = timed_step(step, state)
+                n = counts()
+            peak = torch.cuda.max_memory_allocated()
+            g_first[name] = flat_leaves(upd[0][0][1])
+            del upd
+            want = ((1, chunks) if name == "blocked" else (0, 0)) + (
+                layers, layers, 2 * layers + 1, 2 * layers + 1)
+            check(n == want, f"a {name} step launched K10 {n[0]}, K12a "
+                  f"{n[1]}, K5 {n[2]}, K11 {n[3]}, K8 {n[4]} forward and "
+                  f"{n[5]} backward; expected {want}")
+            losses, walls = [met["loss"]], [ms1]
+            for _ in range(TRAIN["steps"] - 1):               # one batch
+                state, mt, ms = timed_step(step, state)
+                losses.append(mt["loss"])
+                walls.append(ms)
+                check(all(math.isfinite(v) for v in mt.values()),
+                      f"{name}: non-finite metrics {mt}")
+        check(losses[-1] < losses[0], f"{name}: ten steps on one batch: "
+              f"loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+        check(all(bool(torch.isfinite(t.float()).all())
+                  for t in flat_leaves(state["params"])),
+              f"{name}: a parameter leaf went non-finite")
+        runs[name] = dict(ms=float(np.median(walls[1:])), first=ms1,
+                          warm=warm_ms, peak=peak, base=base, losses=losses,
+                          n=n, lr=met["lr"], gn=met["grad_norm"])
+        if name == "blocked":
+            def traced():
+                for _ in range(LOOP["traced"]):
+                    timed_step(step, state)
+            busy = profile_window(
+                torch, traced,
+                {"K5": launch_count(k5), "K8": launch_count(k8),
+                 "K10": launch_count(k10),
+                 "K11": lambda: plan11["launches"] * k5.bwd_launches,
+                 "K8 backward": lambda: 2 * k8.bwd_launches,
+                 "K12a": lambda: k10.bwd_launches})
+            idle = f"not measured ({busy})"
+            if not isinstance(busy, str):
+                twall, dev_s, n_kern, groups, table = busy
+                idle = (f"{1.0 - dev_s / twall:.3f} (device busy {dev_s:.3f}"
+                        f" s over {twall:.3f} s wall, {LOOP['traced']} "
+                        f"traced steps; device ms / activities a step by "
+                        f"group: {groups_text(groups, LOOP['traced'])})")
+                os.makedirs(OUT, exist_ok=True)
+                with open(os.path.join(OUT, "train_blocked_profile.txt"),
+                          "w") as fh:
+                    fh.write(f"{LOOP['traced']} blocked train steps: wall "
+                             f"{twall:.3f} s, device busy {dev_s:.3f} s, "
+                             f"{n_kern} device activities\n{table}\n")
+        del state
+        free()
+
+    # the first step's gradients: kernels against plain versions swapped
+    # in by name (fp32 within GRAD_FP32; the bf16 kernel run at most
+    # GRAD_EXCESS further from the plain fp32 run than the plain bf16 run)
+    # and against the full-logits step's (the same excess rule)
+    def plain():
+        return plain_versions((k5, "flash_attention_fwd"),
+                              (k5, "flash_attention_bwd"),
+                              (k8, "rmsnorm"), (k8, "rmsnorm_bwd"),
+                              (k10, "blocked_xent"),
+                              (k10, "blocked_xent_bwd"))
+
+    def grads(fp32=False):
+        params = conditioned_params(torch, model, dev)
+        if fp32:
+            params = tree_map(lambda t: t.float(), params)
+        params = ST.trainable(params)
+        loss, _ = model.loss(params, batch)
+        out = torch.autograd.grad(loss, flat_leaves(params))
+        del params, loss
+        return list(out)
+    with plain():
+        truth = grads(fp32=True)
+    k32 = grads(fp32=True)
+    fp32_worst = max(rel_norm(torch, a, t) for a, t in zip(k32, truth))
+    del k32
+    with plain():
+        p16 = grads()
+    d_p = [rel_norm(torch, a, t) for a, t in zip(p16, truth)]
+    del p16
+    d_k = [rel_norm(torch, a, t) for a, t in zip(g_first["blocked"], truth)]
+    d_f = [rel_norm(torch, a, t) for a, t in zip(g_first["full"], truth)]
+    excess = max(a - b for a, b in zip(d_k, d_p))
+    excess_full = max(a - b for a, b in zip(d_k, d_f))
+    del truth
+    free()
+    check(fp32_worst <= GRAD_FP32, f"blocked fp32 gradients kernel vs plain "
+          f"{fp32_worst:.3e} > {GRAD_FP32} (relative in norm, worst leaf)")
+    check(excess <= GRAD_EXCESS and excess_full <= GRAD_EXCESS,
+          f"blocked bf16 gradients: {excess:.3e} further from the plain "
+          f"fp32 run than the plain bf16 run, {excess_full:.3e} further "
+          f"than the full-logits step (worst leaf), bar {GRAD_EXCESS}")
+
+    # remat, "none" again beside "full" and "dots" on the same fresh state:
+    # the first step's gradients against the blocked run's (bitwise, or
+    # within GRAD_FP32 per leaf in norm); then the memory held from the
+    # forward to the backward, the peak before AdamW's update and of the
+    # step above what was allocated before it, the median ms of
+    # REMAT_STEPS steps, and one traced step's device-busy time against
+    # its wall
+    del g_first["full"]
+    remat = {}
+    for mode in ("none", "full", "dots"):
+        rm = build_model(dataclasses.replace(cfg, remat=mode))
+        step = ST.make_train_step(rm, opt)
+        upd = []
+        with recording(ST, "adamw_update", upd):
+            state, _, _ = timed_step(step, fresh())
+        g = flat_leaves(upd[0][0][1])
+        del upd
+        same = all(torch.equal(a, b) for a, b in zip(g, g_first["blocked"]))
+        diff = 0.0 if same else max(rel_norm(torch, a, b) for a, b in
+                                    zip(g, g_first["blocked"]))
+        del g
+        check(same or diff <= GRAD_FP32, f"remat={mode!r}: first-step "
+              f"gradients {diff:.3e} from the blocked run's (worst leaf, "
+              f"relative in norm) > {GRAD_FP32}")
+        mem = {}
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with step_memory(torch, rm, ST, mem):
+            state, _, ms = timed_step(step, state)
+        walls = [ms]
+        peak = torch.cuda.max_memory_allocated()
+        for _ in range(REMAT_STEPS - 1):
+            state, _, ms = timed_step(step, state)
+            walls.append(ms)
+        busy = profile_window(torch, lambda: timed_step(step, state), {})
+        remat[mode] = dict(ms=float(np.median(walls)), walls=walls,
+                           peak=peak, base=base, same=same, diff=diff, **mem,
+                           busy=busy if isinstance(busy, str) else
+                           f"device busy {busy[1] * 1e3:.1f} ms of "
+                           f"{busy[0] * 1e3:.1f} ms wall")
+        del state, rm, step
+        free()
+    del g_first
+
+    # (a) K12a per call: the main path's first and last call, and the
+    # first again with its inputs in fp32
+    def fp32(args):
+        return tuple(t.float() if isinstance(t, torch.Tensor)
+                     and t.dtype == torch.bfloat16 else t for t in args)
+    worst = worst32 = 0.0
+    first, last = calls12["first"], calls12["last"]
+    for where, (args, kw) in (("first", first), ("last", last),
+                              ("first, fp32", (fp32(first[0]), first[1]))):
+        got = k10.blocked_xent_bwd(*args, **kw)
+        want = k10.blocked_xent_bwd_plain(*args, **kw)
+        again = k10.blocked_xent_bwd(*args, **kw)
+        torch.cuda.synchronize()
+        for a, w, b in zip(got, want, again):
+            err = (a.float() - w.float()).abs()
+            check(bool(torch.isfinite(a).all()) and bool(
+                (err <= bwd_bar(w, a.dtype == torch.bfloat16)).all()),
+                  f"K12a {where} call: max err {float(err.max()):.3e} "
+                  f"(max |x| {float(w.float().abs().max()):.4g})")
+            check(torch.equal(a, b), f"K12a {where} call: two launches "
+                  "on the same inputs differ")
+            if where.endswith("fp32"):
+                worst32 = max(worst32, float(err.max()))
+            else:
+                worst = max(worst, float(err.max()))
+        del got, want, again
+    args, kw = first
+    x, emb, lab, lse, g = args
+    dv, bv = kw["transpose_emb"], kw["block_v"]
+    ms = cuda_ms(torch, lambda: k10.blocked_xent_bwd(*args, **kw), 10)
+    kern_ms = cuda_ms(torch, lambda: [None for _ in k10._bwd_chunks(
+        x, emb, lab, lse, g, dv, bv)], 10)
+    plain_ms = cuda_ms(torch, lambda: k10.blocked_xent_bwd_plain(*args, **kw),
+                       3)
+    a32 = fp32(args)
+    ms32 = cuda_ms(torch, lambda: k10.blocked_xent_bwd(*a32, **kw), 3)
+    kern32 = cuda_ms(torch, lambda: [None for _ in k10._bwd_chunks(
+        *a32, dv, bv)], 3)
+    del a32
+    xl = x.detach().clone().requires_grad_()
+    wl = emb.detach().clone().requires_grad_()
+    lib_loss = (F.cross_entropy((xl @ wl).float(), lab.long(),
+                                reduction="none") * g).sum()
+    lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        lib_loss, (xl, wl), retain_graph=True), 10)
+    del lib_loss, xl, wl
+    b_ms, b_by = xent_bwd_bound(torch, x, emb)
+    kb_ms, kb_by = xent_bwd_bound(torch, x, emb, kernel_only=True)
+    n12 = runs["blocked"]["n"][1]
+    row = {"name": "blocked_xent_bwd", "route": "cuda",
+           "source": "src/repro_torch/csrc/xent_bwd.cu",
+           "replaces": "src/repro/models/loss.py:35", "launches": n12,
+           "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    k12_text = (f"K12a blocked_xent_bwd at the main path's x {tuple(x.shape)}"
+                f" head {tuple(emb.shape)} bf16, {chunks} chunks of "
+                f"{bv}: max err {worst:.3e} over the first and last call "
+                f"({worst32:.3e} on the first's inputs in fp32), two "
+                f"launches bitwise equal; a call {ms:.4f} ms by CUDA events "
+                f"(bound {b_ms:.4f} {b_by}): the kernel's {chunks} launches "
+                f"{kern_ms:.4f} ms (bound {kb_ms:.4f} {kb_by}), the chunks' "
+                f"cuBLAS products and sums {ms - kern_ms:.4f} ms (bound "
+                f"{2 * kb_ms:.4f} operations, counting dl once); fp32 "
+                f"{ms32:.3f} ms (kernel {kern32:.3f}); plain {plain_ms:.3f}; "
+                f"no single PyTorch call computes it: autograd's backward of "
+                f"x @ W + F.cross_entropy (full logits, two calls) "
+                f"{lib_ms:.4f}")
+    del calls12, first, last, args, x, emb, lab, lse, g
+    free()
+
+    # (c) run_training: an uninterrupted run against a run of 4 steps
+    # with a checkpoint, resumed from it to 8 in a second run that fails
+    # at step 6 and restarts from the same checkpoint (two saves, two
+    # restores of an 11 GB state)
+    ck_root = os.path.join(OUT, "ckpt")
+    shutil.rmtree(ck_root, ignore_errors=True)
+    os.makedirs(ck_root)
+    disk = shutil.disk_usage(ck_root).free / 1e9
+    check(disk >= CKPT_FREE_GB, f"{disk:.1f} GB free under {ck_root}: the "
+          f"checkpoint part needs {CKPT_FREE_GB} GB (two 11 GB train states)")
+    data = SyntheticLM(cfg, batch=TRAIN["batch"], seq=TRAIN["seq"], seed=0)
+    lopt = AdamWConfig(warmup_steps=2, total_steps=LOOP["total"])
+    saves, restores = [], []
+
+    walls = []
+
+    def run(total, ckpt_dir=None, **kw):
+        lcfg = LP.LoopConfig(total_steps=total, steps_per_unit=LOOP["steps"],
+                             ckpt_dir=ckpt_dir, keep=1, log_every=1)
+        t0 = time.perf_counter()
+        with timed(CKM, "save_checkpoint", saves), \
+                timed(LP, "restore_checkpoint", restores):
+            res = LP.run_training(model, lopt, data, lcfg, device=dev, **kw)
+        walls.append(time.perf_counter() - t0)
+        return res
+    try:
+        zero_counts()
+        ref = run(LOOP["total"])
+        n_loop = counts()
+        check(n_loop[:2] == (LOOP["total"], chunks * LOOP["total"])
+              and n_loop[3] == layers * LOOP["total"], f"run_training's "
+              f"{LOOP['total']} steps launched K10 {n_loop[0]}, K12a "
+              f"{n_loop[1]}, K11 {n_loop[3]}")
+        check(all(math.isfinite(v) for m in ref.metrics_history
+                  for v in m.values()) and all(
+                      bool(torch.isfinite(t.float()).all())
+                      for t in flat_leaves(ref.state)),
+              "the uninterrupted run went non-finite")
+        part = run(LOOP["steps"], ck_root)
+        check(part.final_step == LOOP["steps"]
+              and CKM.latest_step(ck_root) == LOOP["steps"],
+              f"the first run stopped at {part.final_step}")
+        npz = os.path.join(ck_root, f"step_{LOOP['steps']:08d}",
+                           "arrays.npz")
+        gb = os.path.getsize(npz) / 1e9
+        del part
+        free()
+        resumed = run(LOOP["total"], ck_root, injector=FailureInjector(
+            fail_at_steps=(LOOP["fail_at"],)))
+        check(resumed.final_step == LOOP["total"] and resumed.restarts == 1
+              and len(restores) == 2 and len(saves) == 2,
+              f"the resumed run stopped at {resumed.final_step} after "
+              f"{resumed.restarts} restarts, {len(saves)} saves and "
+              f"{len(restores)} restores in all")
+        same_r, diff_r = state_diff(torch, resumed.state, ref.state)
+        by_step = {m["step"]: m for m in ref.metrics_history}
+        hist_r = all(m == by_step[m["step"]]          # before and after
+                     for m in resumed.metrics_history)  # the failure
+        del resumed, ref
+        free()
+    finally:
+        shutil.rmtree(ck_root, ignore_errors=True)
+    check(same_r or diff_r <= RESUME_TOL, f"the run resumed and restarted "
+          f"after a failure ends {diff_r:.3e} (relative in norm, worst "
+          f"leaf) from the uninterrupted run, > {RESUME_TOL}")
+    check(hist_r or not same_r, "the resumed run's metrics differ from the "
+          "uninterrupted run's at the same steps, its state does not")
+
+    # (d) the training CLI in a subprocess, as a user runs it
+    cli_dir = os.path.join(OUT, "train_cli")
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    os.makedirs(cli_dir)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [SRC] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH")
+                 else [])))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "tinyllama-1.1b", "--blocked-xent", "--steps", "10", "--batch",
+           "4", "--seq", "2048"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=cli_dir, env=env, capture_output=True,
+                          text=True, timeout=900)
+    t_cli = time.perf_counter() - t0
+    with open(os.path.join(OUT, "train_cli.log"), "w") as fh:
+        fh.write(f"$ {' '.join(cmd[1:])}\n{proc.stdout}\n{proc.stderr}")
+    check(proc.returncode == 0, f"the training CLI exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    check("done at step 10; restarts=0" in proc.stdout.splitlines(),
+          f"the training CLI printed {proc.stdout[-1000:]}")
+    check(proc.stdout.startswith("devices=1 (cuda"), f"the training CLI "
+          f"trained on {proc.stdout.splitlines()[:1]}, not the card")
+    log = os.path.join(cli_dir, "experiments", "train_run", "units.jsonl")
+    rep = verify_unit_log(log)
+    with open(log) as fh:
+        host = json.loads(fh.read().splitlines()[-1])["summary"]["meta"][
+            "host"]
+    chip = chip_profile_from_host(host)
+    kind = host.get("torch_device_kind", "")
+    check(rep.ok and rep.n_units == 1 and rep.energy_kwh > 0,
+          f"the CLI's unit log: {rep.errors[:3]}, {rep.n_units} units")
+    check(("h100" in kind.lower()) == (chip.name == "nvidia-h100"),
+          f"the CLI ran on {kind}, priced by {chip.name}")
+
+    limit = smi("power.limit")[0]
+    rb, rf = runs["blocked"], runs["full"]
+    text = {k: (f"step {r['ms']:.1f} ms (median of steps 2-"
+                f"{TRAIN['steps']}; first {r['first']:.1f}, warm-up "
+                f"{r['warm']:.1f}), {n_tok / r['ms'] * 1e3:.0f} tokens/s, "
+                f"peak {r['peak'] / 1e9:.2f} GB ({(r['peak'] - r['base']) / 1e9:.2f}"
+                f" above the {r['base'] / 1e9:.2f} GB of state), losses "
+                f"{[round(v, 4) for v in r['losses']]}")
+            for k, r in runs.items()}
+    rm = "; ".join(
+        f"remat={m!r} step {r['ms']:.1f} ms (median of "
+        f"{[round(v, 1) for v in r['walls']]}; one traced step: "
+        f"{r['busy']}), {r['held'] / 1e9:.2f} GB held from the forward to "
+        f"the backward, peak above the {r['base'] / 1e9:.2f} GB allocated "
+        f"before the step {(r['fb_peak'] - r['base']) / 1e9:.2f} GB before "
+        f"the update, {(r['peak'] - r['base']) / 1e9:.2f} GB in the step, "
+        f"first-step gradients "
+        + ("bitwise equal to the blocked run's" if r["same"] else
+           f"{r['diff']:.3e} from the blocked run's (worst leaf)")
+        for m, r in remat.items())
+    ck = (f"run_training (steps_per_unit {LOOP['steps']}, a checkpoint a "
+          f"unit, keep 1): runs uninterrupted, {LOOP['steps']} steps, "
+          f"resumed with a failure at step {LOOP['fail_at']} "
+          f"{[round(v, 1) for v in walls]} s wall ({LOOP['total']} steps "
+          f"uninterrupted: launches K10 {n_loop[0]}, K12a {n_loop[1]}); "
+          f"the checkpoint {gb:.2f} GB (bf16 parameters, fp32 "
+          f"moments), saves {[round(v, 2) for v in saves]} s, restores "
+          f"{[round(v, 2) for v in restores]} s (free disk {disk:.0f} GB); "
+          f"resumed from step {LOOP['steps']}, restarted from it after the "
+          f"failure, to {LOOP['total']}: "
+          + ("bitwise equal" if same_r else f"{diff_r:.3e} apart")
+          + f" (metrics at each step {'equal' if hist_r else 'differ'})")
+    print(f"train TinyLlama-1.1B with the blocked loss ({model.param_count():,}"
+          f" params, bf16, well-conditioned weights) on "
+          f"{torch.cuda.get_device_name(0)} at {limit:.2f} W: "
+          f"make_train_step on SyntheticLM {TRAIN['batch']} x {TRAIN['seq']} "
+          f"(seed 0, step 0) {TRAIN['steps']} times: blocked_xent "
+          f"{text['blocked']}; full logits {text['full']}; launches a step "
+          f"K10 {rb['n'][0]} / {rf['n'][0]}, K12a {rb['n'][1]} / "
+          f"{rf['n'][1]}, K5 {rb['n'][2]}, K11 {rb['n'][3]}, K8 "
+          f"{rb['n'][4]} forward and {rb['n'][5]} backward; blocked device "
+          f"idle share {idle}; first-step gradients per leaf, relative in "
+          f"norm: fp32 kernel vs plain worst {fp32_worst:.3e} (bar "
+          f"{GRAD_FP32}), bf16 kernel vs fp32 plain worst {max(d_k):.3e}, "
+          f"plain bf16 {max(d_p):.3e}, full logits {max(d_f):.3e}: excess "
+          f"{excess:.3e} over plain bf16, {excess_full:.3e} over full logits "
+          f"(bar {GRAD_EXCESS}); {rm}; {k12_text}; {ck}; the CLI "
+          f"({' '.join(cmd[3:])}) exited 0 in {t_cli:.1f} s: "
+          f"\"done at step 10; restarts=0\", its unit log verified ok "
+          f"({rep.n_units} unit, {rep.energy_kwh:.4e} kWh) on {kind} priced "
+          f"by {chip.name}; phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    print("K12a ptxas: " + ptxas_report(build, "xent_bwd", (
+        "xent_bwd_kernel_mma", "xent_bwd_kernel")) + "; dynamic shared "
+          "memory of the bf16 kernel: 156,672 B with the (d, V) head, "
+          "165,888 B with a (V, d) table (3 stages of a 128 x 64 x tile and "
+          "a 64 x 256 or 256 x 64 head tile, rows padded by 8)", flush=True)
+    return row
 
 
 # --------------------------------------------------------------------------
@@ -4457,6 +5017,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     kernels += phase_train(torch, k5, k8, k10, _build, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.append(phase_train_loop(torch, k5, k8, k10, _build, dev))
     gc.collect()                    # TinyLlama's tensors, before DeepSeek's
     torch.cuda.empty_cache()
     kernels.append(phase_moe_serving(torch, k5, k8, k9, moe, _build, dev))

@@ -5,7 +5,10 @@
 // from the inputs' values (bf16 or fp32), never stored:
 //   nll[t]  = max_v logits + log(sum_v exp(logits - max)) - logits[t, label]
 //   amax[t] = the first v of the row maximum (the `acc` of
-//             models/loss.py::blocked_cross_entropy).
+//             models/loss.py::blocked_cross_entropy);
+//   lse[t]  = max_v logits + log(sum_v exp(logits - max)), which the
+//             backward (K12a, csrc/xent_bwd.cu) reads instead of
+//             recomputing the row statistics.
 // A label outside [0, V) leaves the label logit at -inf, so nll = +inf, as
 // in the reference's scan.
 //
@@ -176,6 +179,7 @@ __device__ __forceinline__ void load_v_major(const T* __restrict__ src,
 template <int ROWS>
 __device__ __forceinline__ void merge_chunks(float* __restrict__ nll,
                                              int* __restrict__ amax,
+                                             float* __restrict__ lse,
                                              const float* part,
                                              int* __restrict__ counter,
                                              int n_tok, int t0, int n_chunks,
@@ -200,21 +204,26 @@ __device__ __forceinline__ void merge_chunks(float* __restrict__ nll,
       merge_arg(AV, AI, __ldcg(part + 3 * plane + o),
                 __float_as_int(__ldcg(part + 4 * plane + o)));
     }
-    nll[t] = M + logf(S) - LL;
+    const float L = M + logf(S);
+    nll[t] = L - LL;
     amax[t] = AI;
+    lse[t] = L;
   }
 }
 
 // Writes one token's result (one chunk) or its chunk's partials.
 __device__ __forceinline__ void write_row(float* __restrict__ nll,
                                           int* __restrict__ amax,
+                                          float* __restrict__ lse,
                                           float* __restrict__ part, int t,
                                           int n_tok, int n_chunks, float m,
                                           float s, float ll, float av,
                                           int ai) {
   if (n_chunks == 1) {
-    nll[t] = m + logf(s) - ll;
+    const float l = m + logf(s);
+    nll[t] = l - ll;
     amax[t] = ai;
+    lse[t] = l;
   } else {
     const size_t plane = (size_t)n_chunks * n_tok;
     const size_t o = (size_t)blockIdx.y * n_tok + t;
@@ -234,8 +243,9 @@ template <typename T, bool VEC, bool EMB_DV>
 __global__ void __launch_bounds__(THREADS)
 xent_kernel(const T* __restrict__ x, const T* __restrict__ emb,
             const int* __restrict__ labels, float* __restrict__ nll,
-            int* __restrict__ amax, float* __restrict__ part,
-            int* __restrict__ counter, int n_tok, int V, int d, int chunk) {
+            int* __restrict__ amax, float* __restrict__ lse,
+            float* __restrict__ part, int* __restrict__ counter, int n_tok,
+            int V, int d, int chunk) {
   __shared__ __align__(16) float xs[BK][BT];
   __shared__ __align__(16) float es[BK][BV];
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
@@ -343,12 +353,13 @@ xent_kernel(const T* __restrict__ x, const T* __restrict__ emb,
     for (int i = 0; i < TM; ++i) {
       const int t = t0 + ty * TM + i;
       if (t < n_tok)
-        write_row(nll, amax, part, t, n_tok, n_chunks, m[i], s[i], ll[i],
-                  av[i], ai[i]);
+        write_row(nll, amax, lse, part, t, n_tok, n_chunks, m[i], s[i],
+                  ll[i], av[i], ai[i]);
     }
   }
   if (n_chunks > 1)
-    merge_chunks<BT>(nll, amax, part, counter, n_tok, t0, n_chunks, tid);
+    merge_chunks<BT>(nll, amax, lse, part, counter, n_tok, t0, n_chunks,
+                     tid);
 }
 
 using bf16 = __nv_bfloat16;
@@ -380,9 +391,9 @@ template <bool VEC, bool EMB_DV>
 __global__ void __launch_bounds__(THREADS, 1)
 xent_kernel_mma(const bf16* __restrict__ x, const bf16* __restrict__ emb,
                 const int* __restrict__ labels, float* __restrict__ nll,
-                int* __restrict__ amax, float* __restrict__ part,
-                int* __restrict__ counter, int n_tok, int V, int d,
-                int chunk) {
+                int* __restrict__ amax, float* __restrict__ lse,
+                float* __restrict__ part, int* __restrict__ counter,
+                int n_tok, int V, int d, int chunk) {
   constexpr int XLD = MK + mma::PAD;                 // x tile pitch
   constexpr int ELD = EMB_DV ? MV + mma::PAD : MK + mma::PAD;
   constexpr int XS = MT * XLD;                       // x stage, elements
@@ -568,16 +579,18 @@ xent_kernel_mma(const bf16* __restrict__ x, const bf16* __restrict__ emb,
     for (int w = 1; w < WN; ++w)
       merge_stats(M, S, LL, AI, red_m[w][tid], red_s[w][tid],
                   red_ll[w][tid], red_ai[w][tid]);
-    write_row(nll, amax, part, t0 + tid, n_tok, n_chunks, M, S, LL, M, AI);
+    write_row(nll, amax, lse, part, t0 + tid, n_tok, n_chunks, M, S, LL, M,
+              AI);
   }
   if (n_chunks > 1)
-    merge_chunks<MT>(nll, amax, part, counter, n_tok, t0, n_chunks, tid);
+    merge_chunks<MT>(nll, amax, lse, part, counter, n_tok, t0, n_chunks,
+                     tid);
 }
 
 template <bool VEC, bool EMB_DV>
 int launch_mma(const void* x, const void* emb, const void* labels, void* nll,
-               void* amax, void* part, void* counter, int n_tok, int V,
-               int d, int chunk, cudaStream_t st) {
+               void* amax, void* lse, void* part, void* counter, int n_tok,
+               int V, int d, int chunk, cudaStream_t st) {
   constexpr int bytes = mma_smem_bytes<EMB_DV>();
   cudaError_t err = cudaFuncSetAttribute(
       xent_kernel_mma<VEC, EMB_DV>,
@@ -587,18 +600,19 @@ int launch_mma(const void* x, const void* emb, const void* labels, void* nll,
   xent_kernel_mma<VEC, EMB_DV><<<grid, THREADS, bytes, st>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(emb),
       static_cast<const int*>(labels), static_cast<float*>(nll),
-      static_cast<int*>(amax), static_cast<float*>(part),
-      static_cast<int*>(counter), n_tok, V, d, chunk);
+      static_cast<int*>(amax), static_cast<float*>(lse),
+      static_cast<float*>(part), static_cast<int*>(counter), n_tok, V, d,
+      chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_bf16(const void* x, const void* emb, const void* labels,
-                void* nll, void* amax, void* part, void* counter, int n_tok,
-                int V, int d, int chunk, int emb_dv, int vector,
+                void* nll, void* amax, void* lse, void* part, void* counter,
+                int n_tok, int V, int d, int chunk, int emb_dv, int vector,
                 cudaStream_t st) {
-#define XENT_MMA(VEC, DV)                                                    \
-  launch_mma<VEC, DV>(x, emb, labels, nll, amax, part, counter, n_tok, V, d, \
-                      chunk, st)
+#define XENT_MMA(VEC, DV)                                                   \
+  launch_mma<VEC, DV>(x, emb, labels, nll, amax, lse, part, counter, n_tok, \
+                      V, d, chunk, st)
   if (vector && emb_dv) return XENT_MMA(true, true);
   if (vector) return XENT_MMA(true, false);
   if (emb_dv) return XENT_MMA(false, true);
@@ -607,16 +621,18 @@ int launch_bf16(const void* x, const void* emb, const void* labels,
 }
 
 int launch_f32(const void* x, const void* emb, const void* labels, void* nll,
-               void* amax, void* part, void* counter, int n_tok, int V,
-               int d, int chunk, int emb_dv, int vector, cudaStream_t st) {
+               void* amax, void* lse, void* part, void* counter, int n_tok,
+               int V, int d, int chunk, int emb_dv, int vector,
+               cudaStream_t st) {
   const dim3 grid((n_tok + BT - 1) / BT, (V + chunk - 1) / chunk);
   const dim3 block(THREADS);
 #define XENT_LAUNCH(VEC, DV)                                                \
   xent_kernel<float, VEC, DV><<<grid, block, 0, st>>>(                      \
       static_cast<const float*>(x), static_cast<const float*>(emb),         \
       static_cast<const int*>(labels), static_cast<float*>(nll),            \
-      static_cast<int*>(amax), static_cast<float*>(part),                   \
-      static_cast<int*>(counter), n_tok, V, d, chunk)
+      static_cast<int*>(amax), static_cast<float*>(lse),                    \
+      static_cast<float*>(part), static_cast<int*>(counter), n_tok, V, d,   \
+      chunk)
   if (vector && emb_dv) XENT_LAUNCH(true, true);
   else if (vector) XENT_LAUNCH(true, false);
   else if (emb_dv) XENT_LAUNCH(false, true);
@@ -628,24 +644,26 @@ int launch_f32(const void* x, const void* emb, const void* labels, void* nll,
 }  // namespace
 
 // x: (n_tok, d) row-major; emb: (V, d), or (d, V) when emb_dv; labels:
-// (n_tok,) int32; nll: (n_tok,) fp32; amax: (n_tok,) int32.  part and
-// counter as for xent_kernel, one counter per token tile (128 tokens in
-// bf16, 64 in fp32; unused with one chunk).  Returns the CUDA
-// error code of the launch (0 on success).
+// (n_tok,) int32; nll: (n_tok,) fp32; amax: (n_tok,) int32; lse: (n_tok,)
+// fp32.  part and counter as for xent_kernel, one counter per token tile
+// (128 tokens in bf16, 64 in fp32; unused with one chunk).  Returns the
+// CUDA error code of the launch (0 on success).
 extern "C" int blocked_xent_bf16(const void* x, const void* emb,
                                  const void* labels, void* nll, void* amax,
-                                 void* part, void* counter, int n_tok, int V,
-                                 int d, int chunk, int emb_dv, int vector,
-                                 void* stream) {
-  return launch_bf16(x, emb, labels, nll, amax, part, counter, n_tok, V, d,
-                     chunk, emb_dv, vector, static_cast<cudaStream_t>(stream));
+                                 void* lse, void* part, void* counter,
+                                 int n_tok, int V, int d, int chunk,
+                                 int emb_dv, int vector, void* stream) {
+  return launch_bf16(x, emb, labels, nll, amax, lse, part, counter, n_tok, V,
+                     d, chunk, emb_dv, vector,
+                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int blocked_xent_f32(const void* x, const void* emb,
                                 const void* labels, void* nll, void* amax,
-                                void* part, void* counter, int n_tok, int V,
-                                int d, int chunk, int emb_dv, int vector,
-                                void* stream) {
-  return launch_f32(x, emb, labels, nll, amax, part, counter, n_tok, V, d,
-                    chunk, emb_dv, vector, static_cast<cudaStream_t>(stream));
+                                void* lse, void* part, void* counter,
+                                int n_tok, int V, int d, int chunk,
+                                int emb_dv, int vector, void* stream) {
+  return launch_f32(x, emb, labels, nll, amax, lse, part, counter, n_tok, V,
+                    d, chunk, emb_dv, vector,
+                    static_cast<cudaStream_t>(stream));
 }

@@ -562,16 +562,18 @@ def _time_k10(torch, libs, rnd, gen, dev, stream):
                         dtype=torch.int32)
     nll = torch.empty(t, device=dev)
     amax = torch.empty(t, dtype=torch.int32, device=dev)
+    lse = torch.empty(t, device=dev)
     part = torch.empty((5, -(-vocab // chunk), t), device=dev)
     counter = torch.zeros(-(-t // 128), dtype=torch.int32, device=dev)
     for label, fn in _variants(libs, "xent", "blocked_xent_bf16",
-                               [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                               [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                                + [ctypes.c_void_p]):
         def call(fn=fn):
             counter.zero_()
             return fn(x.data_ptr(), w.data_ptr(), lab.data_ptr(),
-                      nll.data_ptr(), amax.data_ptr(), part.data_ptr(),
-                      counter.data_ptr(), t, vocab, d, chunk, 1, 1, stream)
+                      nll.data_ptr(), amax.data_ptr(), lse.data_ptr(),
+                      part.data_ptr(), counter.data_ptr(), t, vocab, d,
+                      chunk, 1, 1, stream)
         if call():
             raise RuntimeError(f"K10 {label}: launch failed")
         rows.append(("K10", f"x ({t},{d}) head ({d},{vocab})", label,

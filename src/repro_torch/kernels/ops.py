@@ -7,7 +7,10 @@ version on CPU tensors; there is no mode switch.
 
 `flash_attention` is differentiable, as the reference's `custom_vjp` is:
 K5 forward, saving (q, k, v, o, lse) in K5's contiguous layout, and K11
-(`flash_attention_bwd`) backward."""
+(`flash_attention_bwd`) backward.  `blocked_xent` is differentiable
+too: K10 forward, saving (x, emb, labels, lse) and never the logits, and
+K12a (`xent.blocked_xent_bwd`) backward, as the reference differentiates
+its blocked loss's checkpointed scan."""
 from __future__ import annotations
 
 from typing import Optional
@@ -71,9 +74,34 @@ def grouped_gemm(x, w, block_ids, block_m: int):
     return MG.grouped_gemm(x, w, block_ids, block_m)
 
 
+class BlockedXent(torch.autograd.Function):
+    """K10 forward and K12a backward.  The gradient reaches x and emb
+    only (the argmax has none); the logits are recomputed, never
+    saved."""
+
+    @staticmethod
+    def forward(ctx, x, emb, labels, transpose_emb, block_v):
+        nll, amax, lse = XE.blocked_xent(
+            x.detach(), emb.detach(), labels, transpose_emb=transpose_emb,
+            block_v=block_v)
+        ctx.mark_non_differentiable(amax)
+        if any(ctx.needs_input_grad[:2]):
+            ctx.save_for_backward(x, emb, labels, lse)
+            ctx.transpose_emb, ctx.block_v = transpose_emb, block_v
+        return nll, amax
+
+    @staticmethod
+    def backward(ctx, g, _):
+        x, emb, labels, lse = ctx.saved_tensors
+        dx, demb = XE.blocked_xent_bwd(
+            x.detach(), emb.detach(), labels, lse, g.float().contiguous(),
+            transpose_emb=ctx.transpose_emb, block_v=ctx.block_v)
+        return dx, demb, None, None, None
+
+
 def blocked_xent(x, emb, labels, *, transpose_emb: bool = False,
                  block_v: int = 8192):
     """x (T, d), emb (V, d) or (d, V) with `transpose_emb`, labels (T,)
-    -> (nll (T,) fp32, argmax (T,) int32), through K10 (forward only)."""
-    return XE.blocked_xent(x, emb, labels, transpose_emb=transpose_emb,
-                           block_v=block_v)
+    -> (nll (T,) fp32, argmax (T,) int32), through K10, differentiable in
+    x and emb through K12a."""
+    return BlockedXent.apply(x, emb, labels, transpose_emb, block_v)

@@ -1,24 +1,39 @@
 """K10: fused softmax cross-entropy over vocab tiles.  x (T, d), emb
 (V, d) or, with `transpose_emb`, the (d, V) head read in place, labels
-(T,) -> nll (T,) fp32 and the argmax (T,) int32, with the (T, V) logits
-never formed.
+(T,) -> nll (T,) fp32, the argmax (T,) int32 and each row's log-sum-exp
+lse (T,) fp32, with the (T, V) logits never formed.  K12a, its backward:
+x, emb, labels, lse and the gradient g (T,) of nll -> dx and d emb.
 
-It is the counterpart of the reference's Pallas kernel
+K10 is the counterpart of the reference's Pallas kernel
 `src/repro/kernels/xent.py::blocked_xent` and computes the same nll, the
 products in fp32 from the inputs' values; it also returns the first index
 of each row's maximum logit, which the reference's XLA twin
-`models/loss.py::blocked_cross_entropy` keeps for its accuracy.
+`models/loss.py::blocked_cross_entropy` keeps for its accuracy, and lse,
+which the backward reads.
 
-`block_v` is the vocab block: the plain version scans blocks of that many
-columns, as the reference's scan does; the kernel gives each CUDA block a
-chunk of that many columns (rounded up to its 128-column tile) and merges
-the chunks' partials as the scan merges blocks.
+K12a replaces the XLA code that differentiates that twin (the VJP of its
+`jax.checkpoint`-ed scan): per vocab chunk of `block_v` columns the
+kernel (csrc/xent_bwd.cu) recomputes the logits tile and writes dl =
+g (softmax - one-hot) into a (T, chunk) buffer: fp32 on the fp32 path,
+and on the bf16 path as hi and lo bf16 terms (dl rounded to bf16 alone
+misses one rounding step on dx where a row's softmax and one-hot terms
+cancel).  The chunk's two products dx += dl E_chunk and d E_chunk =
+dl^T x go to cuBLAS, as the reference leaves its einsums to XLA; in bf16
+each is taken over hi and lo with fp32 outputs and summed in fp32.  The
+chunks run from the last to the first, as the reference's reverse scan
+does, dx summed in fp32 and rounded once.
 
-On a CUDA tensor the wrapper launches the hand-written kernel
-(csrc/xent.cu: bf16 on the tensor cores, fp32 on FMAs) and counts the
-launch in `launches`; on a CPU tensor it runs `blocked_xent_plain`.  Any
-other device raises.  It refuses inputs that require grad: the backward
-comes with training.
+`block_v` is the vocab block: the plain versions scan blocks of that many
+columns, as the reference's scan does; the kernels take chunks of that
+many columns rounded up to their 128-column tile (K10 merges the chunks'
+partials as the scan merges blocks).
+
+On a CUDA tensor each wrapper launches its hand-written kernel (bf16 on
+the tensor cores, fp32 on FMAs) and counts each launch (`launches`,
+`bwd_launches`; a K12a call launches its kernel once a chunk); on a CPU
+tensor it runs its plain version.  Any other device raises.  The forward
+refuses inputs that require grad: `kernels/ops.py::BlockedXent` is the
+differentiable entry.
 """
 from __future__ import annotations
 
@@ -31,19 +46,23 @@ import torch
 from repro_torch.core.device import exact_fp32
 from repro_torch.kernels import _build
 
-#: kernel launches on CUDA tensors since import (or the last reset)
+#: kernel launches on CUDA tensors since import (or the last reset): K10's
+#: (one a call) and K12a's (one a vocab chunk)
 launches = 0
+bwd_launches = 0
 
 #: the kernels' token tile by dtype and their vocab tile (csrc/xent.cu)
 TILE_T = {torch.bfloat16: 128, torch.float32: 64}
 TILE_V = 128
 _FNS = {torch.bfloat16: "blocked_xent_bf16", torch.float32: "blocked_xent_f32"}
+_BWD_FNS = {torch.bfloat16: "blocked_xent_bwd_bf16",
+            torch.float32: "blocked_xent_bwd_f32"}
 
 
 def blocked_xent_plain(x: torch.Tensor, emb: torch.Tensor,
                        labels: torch.Tensor, *, transpose_emb: bool = False,
                        block_v: int = 8192
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The same function in tensor ops (any device): a scan over vocab
     blocks of `block_v` columns carrying the running max, sum-exp, label
     logit and argmax, as the reference's `blocked_cross_entropy`.  The
@@ -74,10 +93,11 @@ def blocked_xent_plain(x: torch.Tensor, emb: torch.Tensor,
         better = blk_max > best
         best = torch.where(better, blk_max, best)
         amax = torch.where(better, blk_arg + base, amax)
-    return m + torch.log(s) - ll, amax.to(torch.int32)
+    lse = m + torch.log(s)
+    return lse - ll, amax.to(torch.int32), lse
 
 
-def _check(x, emb, labels, transpose_emb, block_v):
+def _check(x, emb, labels, transpose_emb, block_v, grad=False):
     if x.dim() != 2 or emb.dim() != 2 or labels.dim() != 1:
         raise ValueError(f"blocked_xent takes x (T, d), emb (V, d) or (d, V) "
                          f"and labels (T,), got {tuple(x.shape)}, "
@@ -101,16 +121,17 @@ def _check(x, emb, labels, transpose_emb, block_v):
         raise ValueError("blocked_xent inputs must be on one device")
     if not (x.is_contiguous() and emb.is_contiguous()):
         raise ValueError("blocked_xent takes contiguous x and emb")
-    if x.requires_grad or emb.requires_grad:
-        raise RuntimeError("blocked_xent is forward only")
+    if not grad and (x.requires_grad or emb.requires_grad):
+        raise RuntimeError("blocked_xent is forward only (ops.BlockedXent "
+                           "differentiates it)")
 
 
 def blocked_xent(x: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor,
                  *, transpose_emb: bool = False, block_v: int = 8192
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (T, d) bf16 or fp32; emb (V, d), or (d, V) with `transpose_emb`,
-    of x's dtype; labels (T,) int32 or int64.  Returns nll (T,) fp32 and
-    the argmax (T,) int32."""
+    of x's dtype; labels (T,) int32 or int64.  Returns nll (T,) fp32, the
+    argmax (T,) int32 and lse (T,) fp32."""
     _check(x, emb, labels, transpose_emb, block_v)
     if x.device.type == "cpu":
         return blocked_xent_plain(x, emb, labels, transpose_emb=transpose_emb,
@@ -122,8 +143,9 @@ def blocked_xent(x: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor,
     v = emb.shape[1] if transpose_emb else emb.shape[0]
     nll = torch.empty((t,), dtype=torch.float32, device=x.device)
     amax = torch.empty((t,), dtype=torch.int32, device=x.device)
+    lse = torch.empty((t,), dtype=torch.float32, device=x.device)
     if t == 0:
-        return nll, amax
+        return nll, amax, lse
     chunk = -(-block_v // TILE_V) * TILE_V
     chunks = -(-v // chunk)
     if chunks > 1:
@@ -134,22 +156,148 @@ def blocked_xent(x: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor,
     else:
         part, counter = nll, amax                    # not read
     labels = labels.to(torch.int32).contiguous()
-    width = 16 // x.element_size()
-    vector = int(d % width == 0 and (not transpose_emb or v % width == 0)
-                 and x.data_ptr() % 16 == 0 and emb.data_ptr() % 16 == 0)
+    vector = _vector(x, emb, transpose_emb)
     fn = getattr(_library(), _FNS[x.dtype])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), emb.data_ptr(), labels.data_ptr(),
-                 nll.data_ptr(), amax.data_ptr(), part.data_ptr(),
-                 counter.data_ptr(), t, v, d, chunk, int(transpose_emb),
-                 vector, stream)
+                 nll.data_ptr(), amax.data_ptr(), lse.data_ptr(),
+                 part.data_ptr(), counter.data_ptr(), t, v, d, chunk,
+                 int(transpose_emb), vector, stream)
     if err:
         raise RuntimeError(f"blocked_xent kernel launch failed: CUDA error "
                            f"{err}")
     global launches
     launches += 1
-    return nll, amax
+    return nll, amax, lse
+
+
+def _vector(x, emb, transpose_emb) -> int:
+    """Whether the kernels may load x and emb in 16-byte pieces."""
+    width = 16 // x.element_size()
+    v = emb.shape[1] if transpose_emb else emb.shape[0]
+    return int(x.shape[1] % width == 0 and (not transpose_emb
+                                            or v % width == 0)
+               and x.data_ptr() % 16 == 0 and emb.data_ptr() % 16 == 0)
+
+
+def blocked_xent_bwd_plain(x: torch.Tensor, emb: torch.Tensor,
+                           labels: torch.Tensor, lse: torch.Tensor,
+                           g: torch.Tensor, *, transpose_emb: bool = False,
+                           block_v: int = 8192
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K12a's function in tensor ops (any device): the reference's block
+    scan in reverse, each block's logits recomputed in fp32, dl = g
+    (exp(logits - lse) - one-hot) in fp32, dx summed over the blocks and
+    each block's rows of d emb written, both products in fp32; dx and
+    d emb in the inputs' dtype.  The plain version the kernel is held
+    against."""
+    exact_fp32()
+    e = emb.t() if transpose_emb else emb                  # (V, d) view
+    v = e.shape[0]
+    xf = x.float()
+    labels = labels.long()
+    g = g.float()
+    lse = lse.float()
+    dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    de = torch.empty(e.shape, dtype=torch.float32, device=x.device)
+    rows = torch.arange(x.shape[0], device=x.device)
+    for base in reversed(range(0, v, block_v)):
+        eb = e[base:base + block_v].float()                  # (bv, d)
+        dl = torch.exp(xf @ eb.t() - lse[:, None])           # (T, bv)
+        bv = dl.shape[1]
+        in_blk = (labels >= base) & (labels < base + bv)
+        dl[rows[in_blk], labels[in_blk] - base] -= 1.0
+        dl.mul_(g[:, None])
+        dx += dl @ eb
+        de[base:base + bv] = dl.t() @ xf
+    de = de.t() if transpose_emb else de
+    return dx.to(x.dtype), de.to(emb.dtype).contiguous()
+
+
+def _check_bwd(x, emb, labels, lse, g, transpose_emb, block_v):
+    _check(x, emb, labels, transpose_emb, block_v, grad=True)
+    t = x.shape[0]
+    for name, a in (("lse", lse), ("g", g)):
+        if a.shape != (t,) or a.dtype != torch.float32:
+            raise ValueError(f"blocked_xent_bwd takes {name} ({t},) fp32, "
+                             f"got {tuple(a.shape)} {a.dtype}")
+        if a.device != x.device or not a.is_contiguous():
+            raise ValueError(f"blocked_xent_bwd takes {name} contiguous on "
+                             "x's device")
+
+
+def _bwd_chunks(x, emb, labels, lse, g, transpose_emb, block_v):
+    """K12a's launches of one call, the vocab chunks from the last to the
+    first: after each launch yields (first column, columns, dl) with dl
+    the chunk's (T, columns) fp32 buffer, or its (hi, lo) bf16 terms.
+    Counts each launch in `bwd_launches`."""
+    global bwd_launches
+    t, d = x.shape
+    v = emb.shape[1] if transpose_emb else emb.shape[0]
+    chunk = -(-block_v // TILE_V) * TILE_V
+    ld = min(chunk, -(-v // TILE_V) * TILE_V)
+    dl = torch.empty((t, ld), dtype=x.dtype, device=x.device)
+    lo = torch.empty_like(dl) if x.dtype == torch.bfloat16 else dl
+    labels = labels.to(torch.int32).contiguous()
+    vector = _vector(x, emb, transpose_emb)
+    fn = getattr(_bwd_library(), _BWD_FNS[x.dtype])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for base in reversed(range(0, v, chunk)):
+            w = min(chunk, v - base)
+            err = fn(x.data_ptr(), emb.data_ptr(), labels.data_ptr(),
+                     lse.data_ptr(), g.data_ptr(), dl.data_ptr(),
+                     lo.data_ptr(), t, v, d, base, w, ld,
+                     int(transpose_emb), vector, stream)
+            if err:
+                raise RuntimeError(f"blocked_xent_bwd kernel launch failed: "
+                                   f"CUDA error {err}")
+            bwd_launches += 1
+            yield base, w, (dl[:, :w] if lo is dl
+                            else (dl[:, :w], lo[:, :w]))
+
+
+def blocked_xent_bwd(x: torch.Tensor, emb: torch.Tensor,
+                     labels: torch.Tensor, lse: torch.Tensor,
+                     g: torch.Tensor, *, transpose_emb: bool = False,
+                     block_v: int = 8192
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K12a: the gradients (dx (T, d), d emb of emb's shape, both in x's
+    dtype) of sum_t g[t] nll[t] for `blocked_xent`'s inputs, given its lse
+    (T,) fp32 and g (T,) fp32."""
+    _check_bwd(x, emb, labels, lse, g, transpose_emb, block_v)
+    if x.device.type == "cpu":
+        return blocked_xent_bwd_plain(x, emb, labels, lse, g,
+                                      transpose_emb=transpose_emb,
+                                      block_v=block_v)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"blocked_xent_bwd runs on CUDA or CPU tensors, "
+                           f"not {x.device}")
+    exact_fp32()
+    f32 = torch.float32
+    dx = torch.zeros(x.shape, dtype=f32, device=x.device)
+    demb = torch.zeros_like(emb)
+    for base, w, dl in (_bwd_chunks(x, emb, labels, lse, g, transpose_emb,
+                                    block_v) if x.shape[0] else ()):
+        cols = slice(base, base + w)
+        rhs = emb[:, cols].t() if transpose_emb else emb[cols]   # (w, d)
+        if x.dtype == f32:
+            dx.addmm_(dl, rhs)
+            de = x.t() @ dl if transpose_emb else dl.t() @ x
+        else:            # hi and lo terms, each product summed in fp32
+            de = None
+            for part in dl:
+                dx += torch.mm(part, rhs, out_dtype=f32)
+                p = (torch.mm(x.t(), part, out_dtype=f32) if transpose_emb
+                     else torch.mm(part.t(), x, out_dtype=f32))
+                de = p if de is None else de.add_(p)
+        if transpose_emb:
+            demb[:, cols] = de
+        else:
+            demb[cols] = de
+        del de
+    return dx.to(x.dtype), demb
 
 
 @functools.lru_cache(maxsize=None)
@@ -157,7 +305,18 @@ def _library() -> ctypes.CDLL:
     lib = _build.library("xent")
     for name in _FNS.values():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + \
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_library() -> ctypes.CDLL:
+    lib = _build.library("xent_bwd")
+    for name in _BWD_FNS.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib

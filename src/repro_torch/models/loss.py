@@ -2,9 +2,12 @@
 
 `cross_entropy` takes full logits.  `blocked_cross_entropy` computes the
 cross-entropy of `x @ emb^T` without forming the (T, V) logits: it runs
-K10 (`kernels/ops.py::blocked_xent`), whose plain version is the
+`kernels/ops.py::BlockedXent`, K10 forward (whose plain version is the
 reference's scan over vocab blocks carrying the running (max, sum-exp,
-label logit, argmax).  Forward only: the backward comes with training.
+label logit, argmax)) and K12a backward (each vocab chunk's logits
+recomputed, as the reference's `jax.checkpoint` on its block body
+recomputes them).  The mask and the mean stay here, so autograd hands
+K12a the gradient mask_t / sum(mask) of each token's nll.
 """
 from __future__ import annotations
 

@@ -120,10 +120,11 @@ class Model(nn.Module):
         """The training objective on `batch` ({"tokens": (B, S)}, a tensor
         or a numpy array, as `SyntheticLM.batch_at` gives it).  Returns
         (loss, {"nll", "acc", "aux"}), fp32 scalars.  Differentiable
-        with full logits on the dense family: attention runs K5 forward
-        and K11 backward, every norm K8 and its backward
-        (`training/step.py` takes the gradients).  The MoE FFN (K9) and
-        `blocked_xent` (K10) are forward only: their kernels refuse
+        on the dense family: attention runs K5 forward and K11 backward,
+        every norm K8 and its backward, and with `blocked_xent` the loss
+        K10 forward and K12a backward (`training/step.py` takes the
+        gradients); with full logits the head and `cross_entropy` are
+        autograd's.  The MoE FFN (K9) is forward only: its kernel refuses
         inputs that require grad."""
         cfg = self.cfg
         if cfg.encdec:

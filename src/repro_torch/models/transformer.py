@@ -3,6 +3,8 @@
 a repeating block pattern, each segment's parameters stacked with a
 leading `repeats` axis.  The reference applies a segment with
 `jax.lax.scan`; the port runs a Python loop over the stacked layers.
+Under `cfg.remat` each layer is rematerialized in the backward
+(`_remat`), as the reference wraps its segment body.
 
 Ported block kinds: full attention (`ATTN`) and MLA, each with a dense
 SwiGLU MLP or an MoE FFN.  Mamba, RG-LRU and local attention raise
@@ -11,9 +13,11 @@ SwiGLU MLP or an MoE FFN.  Mamba, RG-LRU and local attention raise
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Tuple
+import functools
+from typing import Any, Callable, List, Tuple
 
 import torch
+from torch.utils import checkpoint as CK
 
 from repro_torch.configs.base import ATTN, MLA, ModelConfig
 from repro_torch.models import layers as L
@@ -141,19 +145,58 @@ def apply_block(x, p, cfg: ModelConfig, kind: str, is_moe: bool, *,
     return x + f, aux, (cache if collect_cache else None)
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the outputs of matrix products, recompute
+    the rest."""
+    return (CK.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CK.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn: Callable, mode: str) -> Callable:
+    """`fn` rematerialized in the backward, as the reference's `_remat`
+    (`src/repro/models/transformer.py:156`) wraps its segment body:
+    "none" keeps every activation; "full" saves only the layer's inputs
+    (`torch.utils.checkpoint`, non-reentrant) and runs the layer again in
+    the backward, kernels (K5, K8) and autograd Functions included, with
+    the same bits; "dots" saves the outputs of the layer's matrix products
+    (`aten.mm`, `aten.bmm`, `aten.addmm`: the projections and the MLP,
+    which einsum dispatches as a `bmm` over one flattened batch, and on
+    the CPU the plain attention's two products) and recomputes the rest:
+    on the card attention (K5, no aten product), the norms (K8), RoPE and
+    the activations.  That is the PyTorch counterpart of XLA's
+    `dots_with_no_batch_dims_saveable`, not the same policy op for op:
+    XLA chooses among its fused dots, PyTorch among dispatched aten ops."""
+    if mode == "none":
+        return fn
+    if mode not in ("dots", "full"):
+        raise ValueError(f"remat must be none, dots or full, got {mode!r}")
+    kw = {"use_reentrant": False}
+    if mode == "dots":
+        kw["context_fn"] = functools.partial(
+            CK.create_selective_checkpoint_contexts, _save_dots)
+    return lambda *a, **k: CK.checkpoint(fn, *a, **kw, **k)
+
+
 def apply_segments(x, params_segments, cfg: ModelConfig, *, causal=True,
                    positions=None, collect_cache=False):
     """Run all segments. Returns (x, total aux loss, caches or None); each
     cache entry is stacked (repeats, ...) as the reference's scan stacks
-    it."""
+    it.  Under autograd each layer is rematerialized by `cfg.remat`."""
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches: List[Any] = []
+    block = apply_block
+    if torch.is_grad_enabled() and not collect_cache:
+        block = _remat(apply_block, cfg.remat)
     for seg, seg_p in zip(layer_plan(cfg), params_segments):
         entries = [[] for _ in seg.pattern]
         blocks = [_layers(b, seg.repeats) for b in seg_p["blocks"]]
         for r in range(seg.repeats):
             for pos_i, (kind, m) in enumerate(seg.pattern):
-                x, aux, ce = apply_block(
+                x, aux, ce = block(
                     x, blocks[pos_i][r], cfg, kind, m,
                     causal=causal, positions=positions,
                     collect_cache=collect_cache)

@@ -4,7 +4,9 @@
 `make_train_step(model, opt_cfg)` -> train_step(state, batch) with:
   * the loss and its gradients through `torch.autograd` over
     `model.loss` (on the card: K5 and K11 for attention, K8 and its
-    backward for every norm; cuBLAS, autograd's own kernels elsewhere),
+    backward for every norm, K10 and K12a for the blocked loss; cuBLAS,
+    autograd's own kernels elsewhere), each layer rematerialized as
+    `cfg.remat` says,
   * optional microbatch gradient accumulation (a loop over splits; the
     gradients summed in fp32, then divided, the loss and metrics
     averaged, as the reference's scan does),
@@ -13,12 +15,13 @@
 
 `init_train_state` draws the parameters on the device and marks them
 trainable; the serving path's trees (`Model.init`) stay frozen.
+`abstract_train_state` is the state's shapes and dtypes as meta-device
+tensors (what `checkpoint.restore_checkpoint` fills).
 `make_prefill_step` / `make_decode_step` are the serving lowerings.
 
-Not ported yet (ROADMAP.md Queue 1): `remat` other than "none", a step
-over `blocked_xent` (K10's backward) or the MoE FFN (K9's backward),
-`abstract_train_state` (abstract shapes) and the explicit data-parallel
-`make_dp_compressed_step` / `init_dp_compressed_state` (`distributed/`).
+Not ported yet (ROADMAP.md Queue 1): a step over the MoE FFN (K9's
+backward) and the explicit data-parallel `make_dp_compressed_step` /
+`init_dp_compressed_state` (`distributed/`).
 """
 from __future__ import annotations
 
@@ -51,6 +54,23 @@ def init_train_state(model: Model, generator: torch.Generator,
     return {"params": params, "opt": init_opt_state(params, opt_cfg)}
 
 
+def abstract_train_state(model: Model, opt_cfg: AdamWConfig
+                         ) -> Dict[str, Any]:
+    """The train state's tree of shapes and dtypes, each leaf an empty
+    tensor on the meta device: bf16 parameters as the spec gives them,
+    moments in `opt_cfg.state_dtype`, the int32 step count."""
+    def meta(spec, dtype=None):
+        return torch.empty(spec.shape, dtype=dtype or spec.dtype,
+                           device="meta")
+    moment = getattr(torch, opt_cfg.state_dtype)
+    spec = model.spec()
+    return {"params": tree_map(meta, spec),
+            "opt": {"m": tree_map(lambda s: meta(s, moment), spec),
+                    "v": tree_map(lambda s: meta(s, moment), spec),
+                    "step": torch.empty((), dtype=torch.int32,
+                                        device="meta")}}
+
+
 def _split_microbatches(batch: Dict[str, Any], n: int):
     def split(x):
         b = x.shape[0]
@@ -62,10 +82,6 @@ def _split_microbatches(batch: Dict[str, Any], n: int):
 
 def _unported(cfg) -> list:
     out = []
-    if cfg.remat != "none":
-        out.append(f"remat={cfg.remat!r} (rematerialized layers)")
-    if cfg.blocked_xent:
-        out.append("blocked_xent=True (K10's backward, the blocked loss's)")
     if cfg.moe is not None:
         out.append("MoE layers (K9's backward)")
     return out

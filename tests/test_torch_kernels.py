@@ -1,7 +1,8 @@
 """The port's kernels K1 (`coupled_chunk`), K2 (`scan_chunk`), K3
 (`objective_scan`), K4 (`fleet_objective`), K5 (`flash_attention`), K6
 (`decode_attention`), K7 (`ssm_scan`), K8 (`rmsnorm`) and its backward, K9
-(`moe_gemm`), K10 (`xent`) and K11 (`flash_attention_bwd`):
+(`moe_gemm`), K10 (`xent`), K11 (`flash_attention_bwd`) and K12a
+(`xent_bwd`, the blocked loss's backward):
 their wrappers' dispatch and input checks, and — on a machine with an NVIDIA GPU — each CUDA kernel
 against its plain PyTorch version.
 
@@ -17,7 +18,8 @@ so for the objectives whose scans K3 and K4 are, and
 tests/test_torch_objective_kernels.py holds their autograd Functions to
 autograd of the plain versions on the CPU; tests/test_torch_serving.py
 does so for K5 and K8, tests/test_torch_moe.py for K9, tests/test_torch_loss.py
-for K10, tests/test_torch_ops.py for K6 and K7).
+for K10, tests/test_torch_train_loop.py for K12a, tests/test_torch_ops.py
+for K6 and K7).
 """
 import numpy as np
 import pytest
@@ -1370,11 +1372,13 @@ def xent_inputs(t, d, v, dtype, dv, device="cpu", seed=0, shift=0):
 def test_blocked_xent_wrapper_dispatch_and_checks():
     x, emb, lab = xent_inputs(70, 24, 300, torch.float32, dv=True)
     before = k10.launches
-    nll, amax = k10.blocked_xent(x, emb, lab, transpose_emb=True, block_v=128)
+    nll, amax, lse = k10.blocked_xent(x, emb, lab, transpose_emb=True,
+                                      block_v=128)
     ref = k10.blocked_xent_plain(x, emb, lab, transpose_emb=True, block_v=128)
-    assert torch.equal(nll, ref[0]) and torch.equal(amax, ref[1])
+    assert all(torch.equal(a, b) for a, b in zip((nll, amax, lse), ref))
     assert k10.launches == before                      # CPU: no launch
     logits = x.double() @ emb.double()
+    close(lse, torch.logsumexp(logits, 1), 1e-5, scale=1.0)
     close(nll, torch.logsumexp(logits, 1) - logits[torch.arange(70), lab],
           1e-5, scale=1.0)
     assert torch.equal(amax.long(), logits.argmax(1))
@@ -1401,6 +1405,96 @@ def test_blocked_xent_wrapper_dispatch_and_checks():
         k10.blocked_xent(x.requires_grad_(), emb, lab)
 
 
+def xent_bwd_inputs(t, d, v, dtype, dv, device="cpu", seed=0, shift=0):
+    """`xent_inputs` with K10's plain lse (fp32, from the inputs' values)
+    and the loss's gradient of each nll, g = mask / sum(mask), a quarter
+    of the mask zeros."""
+    x, emb, lab = xent_inputs(t, d, v, dtype, dv, device, seed, shift)
+    lse = k10.blocked_xent_plain(x, emb, lab, transpose_emb=dv)[2]
+    mask = torch.as_tensor(np.random.default_rng(seed + 1).random(t) > 0.25,
+                           dtype=torch.float32)
+    g = (mask / mask.sum().clamp(min=1.0)).to(device)
+    return x, emb, lab, lse, g
+
+
+def test_blocked_xent_bwd_wrapper_dispatch_and_checks():
+    x, emb, lab, lse, g = xent_bwd_inputs(70, 24, 300, torch.float32, True)
+    before = k10.bwd_launches
+    dx, de = k10.blocked_xent_bwd(x, emb, lab, lse, g, transpose_emb=True,
+                                  block_v=128)
+    ref = k10.blocked_xent_bwd_plain(x, emb, lab, lse, g,
+                                     transpose_emb=True, block_v=128)
+    assert torch.equal(dx, ref[0]) and torch.equal(de, ref[1])
+    assert k10.bwd_launches == before                  # CPU: no launch
+    assert dx.shape == x.shape and de.shape == emb.shape
+    # against the gradient of the fp64 loss sum_t g_t nll_t
+    xd, ed = (t.double().requires_grad_() for t in (x, emb))
+    logits = xd @ ed
+    nll = torch.logsumexp(logits, 1) - logits[torch.arange(70), lab]
+    rdx, rde = torch.autograd.grad((g.double() * nll).sum(), (xd, ed))
+    close(dx, rdx, 1e-5, scale=float(rdx.abs().max()))
+    close(de, rde, 1e-5, scale=float(rde.abs().max()))
+    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+        k10.blocked_xent_bwd(*(t.to("meta") for t in (x, emb, lab, lse, g)),
+                             transpose_emb=True)
+    with pytest.raises(ValueError, match="lse"):
+        k10.blocked_xent_bwd(x, emb, lab, lse[:5], g, transpose_emb=True)
+    with pytest.raises(ValueError, match="g "):
+        k10.blocked_xent_bwd(x, emb, lab, lse, g.double(),
+                             transpose_emb=True)
+    with pytest.raises(ValueError, match="do not fit"):
+        k10.blocked_xent_bwd(x, emb, lab, lse, g)           # (24, 300) as (V, d)
+    with pytest.raises(TypeError):
+        k10.blocked_xent_bwd(x, emb.bfloat16(), lab, lse, g,
+                             transpose_emb=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d,v,block_v,dv,shift", [
+    (8192, 2048, 32000, 8192, True, 0),    # the train step's call, 4 chunks
+    (1000, 2048, 32000, 8192, False, 0),   # the same as a tied (V, d) table
+    (300, 128, 5000, 2048, False, 0),      # T and V tails, 3 chunks
+    (77, 96, 1000, 8192, True, 0),         # one chunk, T and V tails
+    (64, 100, 777, 256, True, 0),          # d and V off the vector width
+    (130, 64, 1000, 100, False, 0),        # block_v rounded up to 128
+    (96, 256, 2000, 512, True, 1),         # x misaligned
+    (3, 64, 40, 8192, False, 0),           # fewer rows and columns than a tile
+    (129, 256, 3000, 1024, True, 0),       # one row past a 128-row tile
+    (200, 512, 5001, 2048, False, 0),      # tied table, V % 8 != 0
+    (255, 256, 8200, 8192, True, 0)])      # a last chunk of 8 columns
+def test_blocked_xent_bwd_kernel_matches_plain_on_card(t, d, v, block_v, dv,
+                                                       shift, dtype):
+    """K12a against its plain version on the same inputs: bf16 within one
+    rounding step, 2^-7 |x| + 1e-3 max |x| (the products sum bf16 dl in
+    fp32, dx over the chunks too, and round once); fp32 within 1e-4
+    max |x|; two launches bitwise equal."""
+    dev = _card()
+    x, emb, lab, lse, g = xent_bwd_inputs(t, d, v, dtype, dv, dev,
+                                          seed=t + v, shift=shift)
+    assert (x.data_ptr() % 16 != 0) == bool(shift)
+    before = k10.bwd_launches
+    got = k10.blocked_xent_bwd(x, emb, lab, lse, g, transpose_emb=dv,
+                               block_v=block_v)
+    want = k10.blocked_xent_bwd_plain(x, emb, lab, lse, g,
+                                      transpose_emb=dv, block_v=block_v)
+    again = k10.blocked_xent_bwd(x, emb, lab, lse, g, transpose_emb=dv,
+                                 block_v=block_v)
+    torch.cuda.synchronize()
+    chunk = -(-block_v // k10.TILE_V) * k10.TILE_V
+    assert k10.bwd_launches == before + 2 * -(-v // chunk)  # one a chunk
+    for a, w, b in zip(got, want, again):
+        assert a.dtype == dtype and a.shape == w.shape
+        assert torch.equal(a, b)                        # no atomics
+        a, w = a.float().cpu(), w.float().cpu()
+        assert bool(torch.isfinite(a).all())
+        scale = w.abs().max()
+        bar = (2.0 ** -7 * w.abs() + 1e-3 * scale if dtype == torch.bfloat16
+               else 1e-4 * scale)
+        assert bool(((a - w).abs() <= bar).all()), \
+            float(((a - w).abs() - bar).max())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t,d,v,block_v,dv,shift", [
@@ -1423,17 +1517,19 @@ def test_blocked_xent_kernel_matches_plain_on_card(t, d, v, block_v, dv,
                               shift=shift)
     assert x.is_contiguous() and (x.data_ptr() % 16 != 0) == bool(shift)
     before = k10.launches
-    nll, amax = k10.blocked_xent(x, emb, lab, transpose_emb=dv,
-                                 block_v=block_v)
-    pnll, pamax = k10.blocked_xent_plain(x, emb, lab, transpose_emb=dv,
-                                         block_v=block_v)
+    nll, amax, lse = k10.blocked_xent(x, emb, lab, transpose_emb=dv,
+                                      block_v=block_v)
+    pnll, pamax, plse = k10.blocked_xent_plain(x, emb, lab, transpose_emb=dv,
+                                               block_v=block_v)
     torch.cuda.synchronize()
     assert k10.launches == before + 1
-    assert nll.dtype == torch.float32 and amax.dtype == torch.int32
-    nll, pnll = nll.cpu(), pnll.cpu()
-    assert bool(torch.isfinite(nll).all())
-    assert bool(((nll - pnll).abs() <= 1e-4 + 1e-4 * pnll.abs()).all()), \
-        float((nll - pnll).abs().max())
+    assert nll.dtype == lse.dtype == torch.float32
+    assert amax.dtype == torch.int32
+    for got, ref in ((nll, pnll), (lse, plse)):
+        got, ref = got.cpu(), ref.cpu()
+        assert bool(torch.isfinite(got).all())
+        assert bool(((got - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all()), \
+            float((got - ref).abs().max())
     logits = (x.float() @ (emb.float() if dv else emb.float().T)).cpu()
     top2 = logits.topk(2, dim=1).values
     clear = top2[:, 0] - top2[:, 1] > 1e-4 * logits.abs().max()
@@ -1641,6 +1737,9 @@ def _forward_only_call(kernel, grad_arg, device):
     elif kernel == "ssm_scan":
         args = list(scan_inputs(1, 6, 4, torch.float32, device))
         fn = lambda a: k7.ssm_scan(*a)  # noqa: E731
+    elif kernel == "blocked_xent":
+        args = list(xent_inputs(5, 16, 40, torch.float32, True, device))
+        fn = lambda a: k10.blocked_xent(*a, transpose_emb=True)  # noqa: E731
     else:
         rng = np.random.default_rng(0)
         args = [torch.as_tensor(rng.normal(size=shape), dtype=torch.float32,
@@ -1652,14 +1751,16 @@ def _forward_only_call(kernel, grad_arg, device):
 
 _FORWARD_ONLY = [("decode_attention", 0), ("decode_attention", 1),
                  ("decode_attention", 2), ("ssm_scan", 0), ("ssm_scan", 1),
-                 ("rmsnorm", 0), ("rmsnorm", 1)]
+                 ("rmsnorm", 0), ("rmsnorm", 1), ("blocked_xent", 0),
+                 ("blocked_xent", 1)]
 
 
 @pytest.mark.parametrize("kernel,grad_arg", _FORWARD_ONLY)
 def test_forward_only_kernels_refuse_grad(kernel, grad_arg):
-    """K6, K7 and K8 refuse an input that requires grad before they pick
-    the device, as K5, K9 and K10 do: the CUDA kernels write into fresh
-    tensors and would drop the gradient without a word."""
+    """K6, K7, K8 and K10's raw wrappers refuse an input that requires
+    grad before they pick the device, as K5 and K9 do: the CUDA kernels
+    write into fresh tensors and would drop the gradient without a word
+    (`ops.BlockedXent` is K10's differentiable entry)."""
     with pytest.raises(RuntimeError, match="forward only"):
         _forward_only_call(kernel, grad_arg, "cpu")
 
@@ -1668,10 +1769,10 @@ def test_forward_only_kernels_refuse_grad(kernel, grad_arg):
 @pytest.mark.parametrize("kernel,grad_arg", _FORWARD_ONLY)
 def test_forward_only_kernels_refuse_grad_on_card(kernel, grad_arg):
     dev = _card()
-    before = (k6.launches, k7.launches, k8.launches)
+    before = (k6.launches, k7.launches, k8.launches, k10.launches)
     with pytest.raises(RuntimeError, match="forward only"):
         _forward_only_call(kernel, grad_arg, dev)
-    assert (k6.launches, k7.launches, k8.launches) == before
+    assert (k6.launches, k7.launches, k8.launches, k10.launches) == before
 
 
 @pytest.mark.cuda

@@ -136,13 +136,17 @@ def test_blocked_xent_plain_matches_pallas_and_oracle(t, d, v, bv, dtype, dv):
     px = torch.as_tensor(x).to(tdt)
     pe = torch.as_tensor(emb.T.copy() if dv else emb).to(tdt)
     before = k10.launches
-    nll, amax = k10.blocked_xent(px, pe, torch.as_tensor(lab),
-                                 transpose_emb=dv, block_v=bv)
+    nll, amax, lse = k10.blocked_xent(px, pe, torch.as_tensor(lab),
+                                      transpose_emb=dv, block_v=bv)
     assert k10.launches == before                      # CPU: no launch
-    assert nll.dtype == torch.float32 and amax.dtype == torch.int32
-    assert nll.shape == amax.shape == (t,)
+    assert nll.dtype == lse.dtype == torch.float32
+    assert amax.dtype == torch.int32
+    assert nll.shape == amax.shape == lse.shape == (t,)
     for ref in (pallas, oracle):
         np.testing.assert_allclose(_np(nll), _np(ref), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(                        # lse - the label logit
+        _np(lse) - logits[np.arange(t), lab], _np(oracle), rtol=1e-4,
+        atol=1e-4)
     top2 = np.sort(logits, axis=1)[:, -2:]
     clear = top2[:, 1] - top2[:, 0] > NEAR_TIE * np.abs(logits).max()
     assert clear.mean() > 0.9
@@ -158,8 +162,8 @@ def test_blocked_xent_plain_keeps_the_first_index_of_a_tie():
     x = torch.ones((3, 2))                 # logits -1, 2, 0, 2, 2
     emb = torch.tensor([[-1., 0.], [1., 1.], [-1., 1.], [1., 1.], [1., 1.]])
     for bv in (1, 2, 3, 8):
-        _, amax = k10.blocked_xent(x, emb, torch.zeros(3, dtype=torch.int64),
-                                   block_v=bv)
+        _, amax, _ = k10.blocked_xent(
+            x, emb, torch.zeros(3, dtype=torch.int64), block_v=bv)
         assert amax.tolist() == [1, 1, 1], bv
 
 
