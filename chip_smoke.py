@@ -219,6 +219,28 @@ the answers against the repo's own oracles:
      --arch tinyllama-1.1b --blocked-xent --steps 10 --batch 4 --seq
      2048` in a subprocess: exit 0, its device cuda, "done at
      step 10; restarts=0", its unit log verified and its host the H100;
+     then `phase_moe_train`: Moonlight-16B-A3B's AdamW step at its
+     published widths (d 2048, 16 heads of 128, 64 routed experts top-6
+     + 2 shared, d_ff_expert 1408, an untied 163,840-token head) with
+     the depth cut to 4 layers (layer 0 dense, 1-3 MoE), bf16 with the
+     blocked loss on `SyntheticLM(4, 2048)` and well-conditioned weights:
+     launch proof a step (K9 9 forward, K9's backward `grouped_gemm_dx` 9
+     and `grouped_gemm_dw` 9, K5 and K11 4, K8 9 + 9, K10 1, K12a 20),
+     six steps on one batch (three traced: the trace's launches against
+     the wrappers' counts, device ms by kernel group, idle share), step
+     ms, tokens/s and peak memory; dX and dW at the step's shapes and
+     packed layout against their plain versions (K9's bars, two launches
+     bitwise equal), timed beside their bound, plain version and one
+     `torch._grouped_mm` call; the first step's gradients against
+     plain-version runs, every run under the routing of the plain fp32
+     run (`forced_routing`): fp32 within 1e-4 per leaf in norm, bf16 by
+     the excess rule; then `phase_dense_serve`: `python -m
+     repro_torch.launch.serve --arch qwen2.5-14b --no-smoke` (48 layers,
+     QKV bias, head dim 128, GQA groups of 5; 4 slots, s_max 2048, 8
+     requests of 16 tokens) in a subprocess: exit 0, 8 requests
+     completed, K5 one launch a layer a prefill, K8 97 a step, K9 none;
+     its tokens/s, prefill ms and Wh; K5 and K8 at its shortest and
+     longest prefill's shapes against their plain versions;
   8. serving DeepSeek-V2-Lite-16B at its published widths and depth (27
      layers, MLA, 26 MoE layers of 64 routed + 2 shared experts, top-6;
      bf16 weights drawn on the card from seed 0) through the same engine,
@@ -235,8 +257,8 @@ the answers against the repo's own oracles:
      and the `ptxas -v` registers and shared memory of its kernels are
      printed;
   9. one JSON line of per-kernel numbers (K2, K1, K3 and K4 forward and
-     backward, K6, K7, K5, K8, K10, K11, K8's backward, K12a, K9), then
-     the result line.
+     backward, K6, K7, K5, K8, K10, K11, K8's backward, K12a, K9's dX and
+     dW, K9), then the result line.
 
 Every kernel time is by CUDA events (`cuda_ms`).  The profiler serves
 only the traced windows, and a window is used only when its trace shows
@@ -2578,6 +2600,8 @@ KERNEL_GROUPS = (("K1", ("coupled_chunk_kernel",)),
                  ("K5", ("flash_fwd",)),
                  ("K8", ("rmsnorm_rows", "rmsnorm_general")),
                  ("K9", ("grouped_gemm_kernel", "gg_prefill", "gg_tick")),
+                 ("K9 backward", ("gg_dx_rows", "gg_dx_tick", "gg_dw",
+                                  "gg_dx_f32")),
                  ("K10", ("xent_kernel",)),
                  ("K11", ("flash_bwd",)),
                  ("K8 backward", ("rms_bwd",)),
@@ -4721,6 +4745,452 @@ def phase_moe_serving(torch, k5, k8, k9, moe, build, dev):
 
 
 # --------------------------------------------------------------------------
+# MoE training (K9's backward) and a dense model through the serving CLI
+# --------------------------------------------------------------------------
+MOE_TRAIN = dict(batch=4, seq=2048, layers=4, steps=6, traced=3)
+
+
+@contextlib.contextmanager
+def counting(mod, names, counts):
+    """Count the calls of each `mod.<name>` in `counts[name]`."""
+    saved = {name: getattr(mod, name) for name in names}
+    for name, fn in saved.items():
+        def call(*args, _fn=fn, _name=name, **kwargs):
+            counts[_name] = counts.get(_name, 0) + 1
+            return _fn(*args, **kwargs)
+        setattr(mod, name, call)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def gg_bwd_bound(torch, a, b, ids, bm, n_experts, dw):
+    """Least time for one K9 backward call on these inputs: 2 d f
+    operations a row of a named block; dX (a = dy, b = w) reads those rows
+    of dy and the named experts' slabs and writes the whole dx, dW (a = x,
+    b = dy) reads the named rows of x and dy and writes every expert's
+    slab."""
+    ids = ids.cpu()
+    named = ids[ids >= 0]
+    rows = int(named.numel()) * bm
+    t = a.element_size()
+    if dw:
+        d, f = a.shape[1], b.shape[1]
+        bytes_ = (rows * (d + f) + n_experts * d * f) * t
+    else:
+        _, d, f = b.shape
+        bytes_ = (rows * f + int(torch.unique(named).numel()) * d * f
+                  + a.shape[0] * d) * t
+    return bound_ms(bytes_, 2.0 * rows * d * f, 0,
+                    str(a.dtype).split(".")[1], peak=PEAK_TC_S)
+
+
+def gg_bwd_library(torch, a, b, ids, bm, n_experts, dw):
+    """One `torch._grouped_mm` call computing the same product on the
+    packed rows, as a yardstick: dX is dy against each expert's slab
+    transposed, dW the rows' x^T against dy grouped along the rows; on
+    the views first, then on contiguous copies.  Returns (fn, text) or
+    (None, why)."""
+    if not hasattr(torch, "_grouped_mm"):
+        return None, "no torch._grouped_mm in this PyTorch"
+    ids_h = ids.cpu().long()
+    counts = torch.bincount(ids_h[ids_h >= 0], minlength=n_experts) * bm
+    offs = torch.cumsum(counts, 0).to(torch.int32).to(a.device)
+    views = (a.t(), b) if dw else (a, b.transpose(-2, -1))
+    errs = []
+    for how, (ma, mb) in (("", views),
+                          (" on contiguous copies",
+                           tuple(t.contiguous() for t in views))):
+        try:
+            torch._grouped_mm(ma, mb, offs=offs)
+            torch.cuda.synchronize()
+            return (lambda: torch._grouped_mm(ma, mb, offs=offs),
+                    "torch._grouped_mm" + how)
+        except RuntimeError as exc:
+            errs.append(str(exc).strip().splitlines()[0][:160])
+    return None, "torch._grouped_mm refused: " + " / ".join(errs)
+
+
+def phase_moe_train(torch, k5, k8, k9, k10, moe, build, dev):
+    """Moonlight-16B-A3B's AdamW step at its published widths, the depth
+    cut to 4 layers (layer 0 dense, 1-3 MoE), bf16 with the blocked loss
+    through `make_train_step` on well-conditioned weights: the launch
+    proof a step, six steps on one batch (three traced), K9's dX and dW
+    per call against their plain versions at the step's shapes and
+    packed layout, timed beside bound, plain version and
+    `torch._grouped_mm`, and the first step's gradients against
+    plain-version runs under one forced routing."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.model import build_model
+    from repro_torch.models.param import tree_leaves as flat_leaves
+    from repro_torch.models.param import tree_map
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.training import step as ST
+    t_phase = time.perf_counter()
+    full = get_config("moonshot-v1-16b-a3b")
+    cfg = dataclasses.replace(full, num_layers=MOE_TRAIN["layers"],
+                              blocked_xent=True)
+    model = build_model(cfg)
+    layers = cfg.num_layers
+    n_moe = sum(cfg.layer_is_moe(i) for i in range(layers))
+    check(n_moe == layers - 1, f"{n_moe} MoE layers of {layers}")
+    cut = (f"num_layers {full.num_layers} -> {layers} (layer 0 dense, "
+           f"layers 1-{layers - 1} MoE); every width as published")
+    fe, d_model = cfg.moe.d_ff_expert, cfg.d_model
+    opt = AdamWConfig(warmup_steps=2, total_steps=MOE_TRAIN["steps"] + 2)
+    bsz, seq = MOE_TRAIN["batch"], MOE_TRAIN["seq"]
+    batch = SyntheticLM(cfg, batch=bsz, seq=seq, seed=0).batch_at(0)
+    n_tok = bsz * seq
+    chunks = -(-cfg.vocab_size // cfg.vocab_block)
+
+    def fresh():
+        params = ST.trainable(conditioned_params(torch, model, dev))
+        return {"params": params, "opt": init_opt_state(params, opt)}
+
+    def timed_step(step, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        return state, {k: float(v) for k, v in met.items()}, \
+            (time.perf_counter() - t0) * 1e3
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    step = ST.make_train_step(model, opt)
+    state, _, warm_ms = timed_step(step, fresh())             # warm-up
+    del state
+    free()
+
+    # the main path: counts zeroed just before the first step, read just
+    # after; the first and last dX and dW call of each shape recorded
+    state = fresh()
+    n_params = sum(t.numel() for t in flat_leaves(state["params"]))
+    calls = {"dx": {}, "dw": {}}
+    n_calls = {}
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with recording(k9, "grouped_gemm_dx", calls["dx"],
+                   lambda a: tuple(a[0].shape)), \
+            recording(k9, "grouped_gemm_dw", calls["dw"],
+                      lambda a: tuple(a[0].shape)), \
+            counting(k9, ("grouped_gemm_dx", "grouped_gemm_dw"), n_calls):
+        k5.launches = k5.bwd_launches = k8.launches = k8.bwd_launches = 0
+        k9.launches = k9.bwd_launches = k10.launches = k10.bwd_launches = 0
+        state, met, ms1 = timed_step(step, state)
+        n = {"K9": k9.launches, "dX": n_calls.get("grouped_gemm_dx", 0),
+             "dW": n_calls.get("grouped_gemm_dw", 0),
+             "K9 backward": k9.bwd_launches, "K5": k5.launches,
+             "K11": k5.bwd_launches, "K8": k8.launches,
+             "K8 backward": k8.bwd_launches, "K10": k10.launches,
+             "K12a": k10.bwd_launches}
+    peak = torch.cuda.max_memory_allocated()
+    want = {"K9": 3 * n_moe, "dX": 3 * n_moe, "dW": 3 * n_moe,
+            "K9 backward": 6 * n_moe, "K5": layers, "K11": layers,
+            "K8": 2 * layers + 1, "K8 backward": 2 * layers + 1, "K10": 1,
+            "K12a": chunks}
+    check(n == want, f"a Moonlight step launched {n}; expected {want}")
+    losses, walls = [met["loss"]], [ms1]
+    for _ in range(MOE_TRAIN["steps"] - MOE_TRAIN["traced"] - 1):
+        state, m, ms = timed_step(step, state)
+        losses.append(m["loss"])
+        walls.append(ms)
+    plan11 = k5.bwd_plan(bsz, cfg.num_heads, cfg.num_kv_heads, seq, seq,
+                         cfg.resolved_head_dim, True, torch.bfloat16)
+
+    def traced():
+        nonlocal state
+        for _ in range(MOE_TRAIN["traced"]):
+            state, m, _ = timed_step(step, state)
+            losses.append(m["loss"])
+    # K8's forward is checked apart: `torch.profiler` on the card machine
+    # drops a K8 record or two a window, and 1 % of this window's 27 is 0
+    n8_before = k8.launches
+    busy = profile_window(
+        torch, traced,
+        {"K5": launch_count(k5), "K9": launch_count(k9),
+         "K9 backward": lambda: k9.bwd_launches, "K10": launch_count(k10),
+         "K11": lambda: plan11["launches"] * k5.bwd_launches,
+         "K8 backward": lambda: 2 * k8.bwd_launches,
+         "K12a": lambda: k10.bwd_launches})
+    n8_traced = k8.launches - n8_before
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    check(losses[-1] < losses[0], f"six steps on one batch: loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f}, not below the first")
+    check(all(bool(torch.isfinite(t.float()).all())
+              for t in flat_leaves(state["params"])),
+          "a parameter leaf went non-finite")
+    step_ms = float(np.median(walls[1:]))
+    idle = f"not measured ({busy})"
+    if not isinstance(busy, str):
+        twall, dev_s, n_kern, groups, table = busy
+        per = MOE_TRAIN["traced"]
+        check(0 <= n8_traced - groups["K8"][1] <= 2, f"the trace shows K8 "
+              f"{groups['K8'][1]} of {n8_traced} launches")
+        idle = (f"{1.0 - dev_s / twall:.3f} (device busy {dev_s:.3f} s over "
+                f"{twall:.3f} s wall, {per} traced steps, their launches "
+                f"equal to the wrappers' counts within 1 %, K8 "
+                f"{groups['K8'][1]} of {n8_traced}; device ms / activities "
+                f"a step by group: {groups_text(groups, per)})")
+        with open(os.path.join(OUT, "moe_train_profile.txt"), "w") as fh:
+            fh.write(f"{per} Moonlight train steps: wall {twall:.3f} s, "
+                     f"device busy {dev_s:.3f} s, {n_kern} device "
+                     f"activities\n{table}\n")
+    del state
+    free()
+
+    # dX and dW per call: the first and last call of each shape against
+    # the plain version, twice launched; timed at each shape's first call
+    rows, texts = {}, []
+    for which, kern, plain_fn in (
+            ("dX", k9.grouped_gemm_dx, k9.grouped_gemm_dx_plain),
+            ("dW", k9.grouped_gemm_dw, k9.grouped_gemm_dw_plain)):
+        store = calls["dx" if which == "dX" else "dw"]
+        worst, parts = 0.0, []
+        for key, (first, last) in store.items():
+            for args, kw in (first, last):
+                got = kern(*args, **kw)
+                ref = plain_fn(*args, **kw)
+                again = kern(*args, **kw)
+                torch.cuda.synchronize()
+                diff = (got.float() - ref.float()).abs()
+                err = float(diff.max())
+                check(bool(torch.isfinite(got.float()).all()) and bool(
+                    (diff <= k9_bar(ref)).all()), f"K9 {which} {key}: max "
+                    f"err {err:.3e}, max |out| "
+                    f"{float(ref.float().abs().max()):.4g} "
+                    f"({K9_BAR_TEXT[str(got.dtype).split('.')[1]]})")
+                check(torch.equal(got, again), f"K9 {which} {key}: two "
+                      "launches on the same inputs differ")
+                worst = max(worst, err)
+                del got, ref, again, diff
+            args, kw = first
+            a, b, ids, bm = args[:4]
+            gate = a.shape[1] == (fe if which == "dX" else d_model)
+            label = "gate/up" if gate else "down"
+            lib, lib_name = gg_bwd_library(torch, a, b, ids, bm,
+                                           full.moe.num_experts,
+                                           which == "dW")
+            ms = cuda_ms(torch, lambda: kern(*args, **kw), 10)
+            plain = cuda_ms(torch, lambda: plain_fn(*args, **kw), 2)
+            lib_ms = cuda_ms(torch, lib, 10) if lib else None
+            b_ms, b_by = gg_bwd_bound(torch, a, b, ids, bm,
+                                      full.moe.num_experts, which == "dW")
+            named = int((ids >= 0).sum())
+            parts.append(
+                f"{label} {tuple(a.shape)} x {tuple(b.shape)}, {named} of "
+                f"{ids.numel()} blocks of {bm} named: {ms:.4f} ms (plain "
+                f"{plain:.3f}, " + (f"{lib_name} {lib_ms:.4f}" if lib else
+                                    f"library not measured: {lib_name}")
+                + f", bound {b_ms:.4f} {b_by})")
+            if gate:
+                rows[which] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                               "bound_by": b_by, "library_ms": lib_ms}
+            del lib
+        rows[which]["max_abs_err"] = worst
+        texts.append(f"{which} ({n[which]} launches a step; max err "
+                     f"{worst:.3e} over each shape's first and last call, "
+                     f"two launches bitwise equal): " + "; ".join(parts))
+    del calls
+    free()
+
+    # the first step's gradients against plain-version runs swapped in by
+    # name, every run under the routing the plain fp32 run took (so that
+    # a last-bit difference cannot move a token to another expert): the
+    # fp32 kernel run within GRAD_FP32 of it per leaf in norm, the bf16
+    # kernel run at most GRAD_EXCESS further from it than the plain bf16
+    # run
+    def plain():
+        return plain_versions(
+            (k5, "flash_attention_fwd"), (k5, "flash_attention_bwd"),
+            (k8, "rmsnorm"), (k8, "rmsnorm_bwd"), (k9, "grouped_gemm"),
+            (k9, "grouped_gemm_dx"), (k9, "grouped_gemm_dw"),
+            (k10, "blocked_xent"), (k10, "blocked_xent_bwd"))
+    routes = []
+
+    def grads(fp32=False, forced=True):
+        params = conditioned_params(torch, model, dev)
+        if fp32:
+            params = tree_map(lambda t: t.float(), params)
+        params = ST.trainable(params)
+        queue = [r[3] for r in routes]
+        with (forced_routing(torch, moe, queue) if forced
+              else contextlib.nullcontext()):
+            loss, _ = model.loss(params, batch)
+            out = torch.autograd.grad(loss, flat_leaves(params))
+        check(not forced or not queue, f"{len(queue)} routings left over")
+        del params, loss
+        return list(out)
+    t0 = time.perf_counter()
+    with plain(), routing_log(torch, moe, routes):
+        truth = grads(fp32=True, forced=False)
+    check(len(routes) == n_moe, f"{len(routes)} routings recorded")
+    k32 = grads(fp32=True)
+    fp32_worst = max(rel_norm(torch, a, t) for a, t in zip(k32, truth))
+    del k32
+    free()
+    with plain():
+        p16 = grads()
+    d_p = [rel_norm(torch, a, t) for a, t in zip(p16, truth)]
+    del p16
+    free()
+    k16 = grads()
+    d_k = [rel_norm(torch, a, t) for a, t in zip(k16, truth)]
+    del k16, truth, routes
+    free()
+    excess = max(a - b for a, b in zip(d_k, d_p))
+    t_grads = time.perf_counter() - t0
+    check(fp32_worst <= GRAD_FP32, f"Moonlight fp32 gradients kernel vs "
+          f"plain {fp32_worst:.3e} > {GRAD_FP32} (relative in norm, worst "
+          "leaf)")
+    check(excess <= GRAD_EXCESS, f"Moonlight bf16 gradients: the kernel run "
+          f"is {excess:.3e} further from the plain fp32 run than the plain "
+          f"bf16 run (worst leaf), > {GRAD_EXCESS}")
+
+    limit = smi("power.limit")[0]
+    print(f"train Moonlight-16B-A3B ({n_params:,} params, bf16, "
+          f"well-conditioned weights, blocked loss; cut: {cut}) on "
+          f"{torch.cuda.get_device_name(0)} at {limit:.2f} W: "
+          f"make_train_step on SyntheticLM {bsz} x {seq} (seed 0, step 0) "
+          f"{MOE_TRAIN['steps']} times ({MOE_TRAIN['traced']} traced): "
+          f"losses {[round(v, 4) for v in losses]}; launches a step {n}; "
+          f"step {step_ms:.1f} ms (median of steps 2-"
+          f"{MOE_TRAIN['steps'] - MOE_TRAIN['traced']}; first {ms1:.1f}, "
+          f"warm-up {warm_ms:.1f}), {n_tok / step_ms * 1e3:.0f} tokens/s; "
+          f"peak memory of the first step {peak / 1e9:.2f} GB "
+          f"({(peak - base) / 1e9:.2f} above the {base / 1e9:.2f} GB of "
+          f"state); device idle share {idle}; first-step gradients per "
+          f"leaf, relative in norm, routing forced to the plain fp32 run's "
+          f"({t_grads:.1f} s for the four runs): fp32 kernel vs plain worst "
+          f"{fp32_worst:.3e} (bar {GRAD_FP32}), bf16 kernel vs fp32 plain "
+          f"worst {max(d_k):.3e}, plain bf16 vs fp32 plain worst "
+          f"{max(d_p):.3e}, the kernel run's excess {excess:.3e} (bar "
+          f"{GRAD_EXCESS}); K9 backward per call (ms by CUDA events): "
+          + "; ".join(texts) + f"; phase {time.perf_counter() - t_phase:.1f}"
+          " s", flush=True)
+    lib9 = k9._library()
+    lib9.grouped_gemm_bwd_smem.restype = ctypes.c_int
+    smem = (f"dX tile 64 {lib9.grouped_gemm_bwd_smem(0, 64)} B, tile 8 "
+            f"{lib9.grouped_gemm_bwd_smem(0, 8)} B; dW block_m 64 "
+            f"{lib9.grouped_gemm_bwd_smem(1, 64)} B, 8 "
+            f"{lib9.grouped_gemm_bwd_smem(1, 8)} B")
+    report = ptxas_report(build, "moe_gemm", ("gg_dx_rows", "gg_dx_tick",
+                                              "gg_dw", "gg_dx_f32"))
+    print(f"K9 backward ptxas: {report}; bf16 dynamic shared memory per "
+          f"block ({smem})", flush=True)
+    src = {"route": "cuda", "source": "src/repro_torch/csrc/moe_gemm.cu",
+           "replaces": "src/repro/models/moe.py:105"}
+    return [dict(name="grouped_gemm_dx", **src, launches=n["dX"],
+                 **rows["dX"]),
+            dict(name="grouped_gemm_dw", **src, launches=n["dW"],
+                 **rows["dW"])]
+
+
+def phase_dense_serve(torch, k5, k8, dev):
+    """Qwen2.5-14B at its published widths and depth through the serving
+    CLI in a subprocess (QKV bias, head dim 128, GQA groups of 5, which
+    take K5's one-head-a-block path), then K5 and K8 at its shortest and
+    longest prefill's shapes against their plain versions."""
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen2.5-14b")
+    hd = cfg.resolved_head_dim
+    check(cfg.qkv_bias and hd == 128 and cfg.num_heads // cfg.num_kv_heads
+          == 5, "Qwen2.5-14B: QKV bias, head dim 128, groups of 5")
+    cwd = os.path.join(OUT, "serve_cli")
+    os.makedirs(cwd, exist_ok=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           cfg.name, "--no-smoke", "--slots", str(SERVE["slots"]),
+           "--s-max", str(SERVE["s_max"]), "--requests",
+           str(SERVE["requests"]), "--max-new", str(SERVE["max_new"])]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (SRC, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=600)
+    took = time.perf_counter() - t0
+    with open(os.path.join(cwd, "serve_cli.log"), "w") as fh:
+        fh.write(proc.stdout + proc.stderr)
+    check(proc.returncode == 0, f"the serving CLI exited "
+          f"{proc.returncode}: {(proc.stdout + proc.stderr)[-2000:]}")
+    out = proc.stdout
+    head = out.splitlines()[0]
+    check(head.startswith(f"serving {cfg.name} ") and " on cuda" in head,
+          f"the CLI's first line: {head}")
+    lens = [int(v) for v in re.search(r"prompts \[([\d, ]+)\]",
+                                      out).group(1).split(",")]
+    done = re.search(r"completed (\d+) requests, (\d+) tokens in ([\d.]+) s: "
+                     r"([\d.]+) tokens/s; prefill ([\d.]+) ms .*?; (\d+) "
+                     r"ticks; energy ([\d.e+-]+) Wh; CO2e ([\d.e+-]+) g", out)
+    check(done is not None, f"no result line in the CLI's output: {out}")
+    n_req, n_new, wall, tps, pre_ms, ticks = (
+        int(done.group(1)), int(done.group(2)), float(done.group(3)),
+        float(done.group(4)), float(done.group(5)), int(done.group(6)))
+    wh, co2 = float(done.group(7)), float(done.group(8))
+    check(n_req == SERVE["requests"] and n_new == n_req * SERVE["max_new"],
+          f"{n_req} requests, {n_new} tokens completed")
+    k = re.search(r"kernel launches: K5 (\d+), K8 (\d+), K9 (\d+)", out)
+    check(k is not None, "the CLI printed no launch counts")
+    n5, n8, n9 = (int(v) for v in k.groups())
+    layers = cfg.num_layers
+    check(n5 == layers * n_req and n9 == 0
+          and n8 == (2 * layers + 1) * (n_req + ticks),
+          f"the CLI launched K5 {n5}, K8 {n8}, K9 {n9}; expected "
+          f"{layers * n_req}, {(2 * layers + 1) * (n_req + ticks)}, 0")
+
+    # K5 and K8 at the prefill shapes, on seeded inputs
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def rand(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std
+                ).to(torch.bfloat16)
+    parts, worst5, worst8 = [], 0.0, 0.0
+    for s in sorted({min(lens), max(lens)}):
+        q = rand(1, cfg.num_heads, s, hd)
+        kk, v = (rand(1, cfg.num_kv_heads, s, hd) for _ in range(2))
+        o, lse = k5.flash_attention_fwd(q, kk, v, causal=True)
+        po, plse = k5.flash_attention_fwd_plain(q, kk, v, causal=True)
+        x, sc = rand(s, cfg.d_model), rand(cfg.d_model, std=0.1)
+        y, py = k8.rmsnorm(x, sc, cfg.norm_eps), k8.rmsnorm_plain(
+            x, sc, cfg.norm_eps)
+        torch.cuda.synchronize()
+        d_o, d_y = (o.float() - po.float()).abs(), (y.float() - py.float()
+                                                     ).abs()
+        check(bool((d_o <= k5_bar(po, "bfloat16")).all()) and bool(
+            ((lse - plse).abs() <= 1e-3 + 1e-3 * plse.abs()).all()),
+              f"K5 at Qwen's {s}-token prefill: o max err "
+              f"{float(d_o.max()):.3e}")
+        check(bool((d_y <= 2e-2 + 2e-2 * py.float().abs()).all()),
+              f"K8 at Qwen's {s}-token prefill: max err "
+              f"{float(d_y.max()):.3e}")
+        worst5, worst8 = max(worst5, float(d_o.max())), max(
+            worst8, float(d_y.max()))
+        ms5 = cuda_ms(torch, lambda: k5.flash_attention_fwd(
+            q, kk, v, causal=True), 20)
+        ms8 = cuda_ms(torch, lambda: k8.rmsnorm(x, sc, cfg.norm_eps), 20)
+        parts.append(f"{s} tokens: K5 {tuple(q.shape)}x{tuple(kk.shape)} "
+                     f"{ms5:.4f} ms, K8 {tuple(x.shape)} {ms8:.4f} ms")
+    limit = smi("power.limit")[0]
+    print(f"serve Qwen2.5-14B ({head.split('(')[1].split(')')[0]}, bf16, "
+          f"random weights from seed 0) through `python -m "
+          f"repro_torch.launch.serve --arch {cfg.name} --no-smoke` on "
+          f"{torch.cuda.get_device_name(0)} at {limit:.2f} W: exit 0 in "
+          f"{took:.1f} s; {n_req} requests (prompts {min(lens)}-{max(lens)} "
+          f"tokens), {n_new} tokens in {wall:.3f} s, {tps:.1f} tokens/s, "
+          f"prefill {pre_ms:.2f} ms per request (median), {ticks} ticks, "
+          f"{wh:.4e} Wh, {co2:.4e} g CO2e (the CLI's session); launches K5 "
+          f"{n5}, K8 {n8}, K9 {n9}; at its prefill shapes vs plain (bf16 "
+          f"o 2^-7 |o| + 1e-3 max |o|, K8 2e-2 + 2e-2 |y|): K5 max err "
+          f"{worst5:.3e}, K8 {worst8:.3e}; " + "; ".join(parts)
+          + f"; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# --------------------------------------------------------------------------
 # K6 and K7 through the kernel API (`repro_torch.kernels.ops`), the only
 # entry by which the reference reaches them
 # --------------------------------------------------------------------------
@@ -5020,7 +5490,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     kernels.append(phase_train_loop(torch, k5, k8, k10, _build, dev))
-    gc.collect()                    # TinyLlama's tensors, before DeepSeek's
+    gc.collect()                    # TinyLlama's tensors, before Moonlight's
+    torch.cuda.empty_cache()
+    kernels += phase_moe_train(torch, k5, k8, k9, k10, moe, _build, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_dense_serve(torch, k5, k8, dev)
+    gc.collect()                    # before DeepSeek's tensors
     torch.cuda.empty_cache()
     kernels.append(phase_moe_serving(torch, k5, k8, k9, moe, _build, dev))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

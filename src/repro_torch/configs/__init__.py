@@ -1,23 +1,27 @@
 """Architecture registry of the port: the architectures it serves so far.
 
 The reference registers ten architectures; the port serves the dense
-`tinyllama-1.1b` and the MoE `deepseek-v2-lite-16b` (MLA) and
+`tinyllama-1.1b`, `granite-34b` (MQA), `qwen2.5-14b` (QKV bias) and
+`llama3-405b`, and the MoE `deepseek-v2-lite-16b` (MLA) and
 `moonshot-v1-16b-a3b` (full attention), full and smoke, and raises
-`NotImplementedError` for the other seven until their families are
+`NotImplementedError` for the other four until their families are
 ported (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
-from repro_torch.configs import (deepseek_v2_lite_16b, moonshot_v1_16b_a3b,
-                                 tinyllama_1_1b)
+from repro_torch.configs import (deepseek_v2_lite_16b, granite_34b,
+                                 llama3_405b, moonshot_v1_16b_a3b,
+                                 qwen2_5_14b, tinyllama_1_1b)
 from repro_torch.configs.base import (ModelConfig,  # noqa: F401
                                       smoke_variant)
 
-_PORTED = {"tinyllama-1.1b": tinyllama_1_1b,
+_PORTED = {"granite-34b": granite_34b,
+           "qwen2.5-14b": qwen2_5_14b,
+           "llama3-405b": llama3_405b,
+           "tinyllama-1.1b": tinyllama_1_1b,
            "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b,
            "deepseek-v2-lite-16b": deepseek_v2_lite_16b}
-_NOT_PORTED = ("granite-34b", "qwen2.5-14b", "llama3-405b",
-               "falcon-mamba-7b", "recurrentgemma-9b", "qwen2-vl-7b",
+_NOT_PORTED = ("falcon-mamba-7b", "recurrentgemma-9b", "qwen2-vl-7b",
                "whisper-small")
 
 ARCH_NAMES = tuple(_PORTED)

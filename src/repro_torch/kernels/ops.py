@@ -10,7 +10,10 @@ K5 forward, saving (q, k, v, o, lse) in K5's contiguous layout, and K11
 (`flash_attention_bwd`) backward.  `blocked_xent` is differentiable
 too: K10 forward, saving (x, emb, labels, lse) and never the logits, and
 K12a (`xent.blocked_xent_bwd`) backward, as the reference differentiates
-its blocked loss's checkpointed scan."""
+its blocked loss's checkpointed scan.  `grouped_gemm` is differentiable
+in x and w: K9 forward, saving (x, w, block_ids), and K9's backward
+(`moe_gemm.grouped_gemm_dx` and `grouped_gemm_dw`), as XLA differentiates
+the reference's expert einsums."""
 from __future__ import annotations
 
 from typing import Optional
@@ -68,10 +71,36 @@ def ssm_scan(a, b):
     return SS.ssm_scan(a, b)
 
 
+class GroupedGemm(torch.autograd.Function):
+    """K9 forward; its backward dX (`grouped_gemm_dx`) and dW
+    (`grouped_gemm_dw`), each launched only where its input needs it."""
+
+    @staticmethod
+    def forward(ctx, x, w, block_ids, block_m):
+        out = MG.grouped_gemm(x.detach(), w.detach(), block_ids, block_m)
+        if any(ctx.needs_input_grad[:2]):
+            ctx.save_for_backward(x, w, block_ids)
+            ctx.block_m = block_m
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, block_ids = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = MG.grouped_gemm_dx(dy, w.detach(), block_ids, ctx.block_m)
+        if ctx.needs_input_grad[1]:
+            dw = MG.grouped_gemm_dw(x.detach(), dy, block_ids, ctx.block_m,
+                                    w.shape[0])
+        return dx, dw, None, None
+
+
 def grouped_gemm(x, w, block_ids, block_m: int):
     """x (T, d) block-sorted rows, w (E, d, f), block_ids (T // block_m,)
-    -> (T, f), through K9; a block of id -1 comes out as zeros."""
-    return MG.grouped_gemm(x, w, block_ids, block_m)
+    -> (T, f), through K9; a block of id -1 comes out as zeros.
+    Differentiable in x and w through K9's backward."""
+    return GroupedGemm.apply(x, w, block_ids, block_m)
 
 
 class BlockedXent(torch.autograd.Function):

@@ -120,12 +120,14 @@ class Model(nn.Module):
         """The training objective on `batch` ({"tokens": (B, S)}, a tensor
         or a numpy array, as `SyntheticLM.batch_at` gives it).  Returns
         (loss, {"nll", "acc", "aux"}), fp32 scalars.  Differentiable
-        on the dense family: attention runs K5 forward and K11 backward,
-        every norm K8 and its backward, and with `blocked_xent` the loss
-        K10 forward and K12a backward (`training/step.py` takes the
+        on both families: attention runs K5 forward and K11 backward
+        (MLA's q/k head dim 192 against v's 128 keeps DeepSeek on the
+        dense path, autograd's backward, as in the reference), every norm
+        K8 and its backward, every routed-expert product K9 and its
+        backward (`ops.GroupedGemm`), and with `blocked_xent` the loss K10
+        forward and K12a backward (`training/step.py` takes the
         gradients); with full logits the head and `cross_entropy` are
-        autograd's.  The MoE FFN (K9) is forward only: its kernel refuses
-        inputs that require grad."""
+        autograd's."""
         cfg = self.cfg
         if cfg.encdec:
             raise NotImplementedError("the encoder-decoder loss is not "

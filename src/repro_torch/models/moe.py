@@ -11,13 +11,23 @@ k) is dropped (GShard semantics).
 The routed experts run on a packed layout instead of the reference's
 (B, E, C, d) capacity buffers: the kept copies of the whole batch, sorted
 by expert into `block_m`-row blocks, each block multiplied by its
-expert's weights through K9 (`kernels/ops.py::grouped_gemm`).  A kept
+expert's weights through K9 (`kernels/ops.py::grouped_gemm`, which is
+differentiable through K9's backward).  A kept
 copy gives the same output in either layout and a dropped one adds
 exactly 0 in both.  The buffer is sized from shapes alone
 (ceil(copies / block_m) + E blocks) and its counts, offsets and block
 ids are computed on the tensors' device, so no MoE layer copies anything
 to the host.  The shared experts are a dense SwiGLU in tensor ops, as the
 reference computes them outside any kernel.
+
+`moe_block` is differentiable as the reference's is: the scatter into the
+buffer and the gather out of it are autograd's index ops, the expert
+products K9 forward and backward, and the router and gates take their
+gradient through `torch.topk`'s values and the auxiliary loss.  Every
+dropped copy points at the buffer's last row, in a block of id -1: K9
+writes zeros there and its backward gives that block zero dX and no dW
+term, and the copy's gate weight is 0, so a dropped copy carries no
+gradient to x or to any weight.
 """
 from __future__ import annotations
 

@@ -4,9 +4,10 @@
 `make_train_step(model, opt_cfg)` -> train_step(state, batch) with:
   * the loss and its gradients through `torch.autograd` over
     `model.loss` (on the card: K5 and K11 for attention, K8 and its
-    backward for every norm, K10 and K12a for the blocked loss; cuBLAS,
-    autograd's own kernels elsewhere), each layer rematerialized as
-    `cfg.remat` says,
+    backward for every norm, K9 and its backward (`grouped_gemm_dx`,
+    `grouped_gemm_dw`) for every routed-expert product of the MoE
+    family, K10 and K12a for the blocked loss; cuBLAS, autograd's own
+    kernels elsewhere), each layer rematerialized as `cfg.remat` says,
   * optional microbatch gradient accumulation (a loop over splits; the
     gradients summed in fp32, then divided, the loss and metrics
     averaged, as the reference's scan does),
@@ -19,9 +20,14 @@ trainable; the serving path's trees (`Model.init`) stay frozen.
 tensors (what `checkpoint.restore_checkpoint` fills).
 `make_prefill_step` / `make_decode_step` are the serving lowerings.
 
-Not ported yet (ROADMAP.md Queue 1): a step over the MoE FFN (K9's
-backward) and the explicit data-parallel `make_dp_compressed_step` /
-`init_dp_compressed_state` (`distributed/`).
+It trains both families the port serves: the dense one and the MoE one
+(deepseek-v2-lite-16b, moonshot-v1-16b-a3b).  DeepSeek's MLA prefill has
+q/k head dim 192 and v head dim 128, so its attention stays on the dense
+path (autograd's own backward) as in the reference.
+
+Not ported yet (ROADMAP.md Queue 1): the explicit data-parallel
+`make_dp_compressed_step` / `init_dp_compressed_state`
+(`distributed/`).
 """
 from __future__ import annotations
 
@@ -80,20 +86,8 @@ def _split_microbatches(batch: Dict[str, Any], n: int):
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
-def _unported(cfg) -> list:
-    out = []
-    if cfg.moe is not None:
-        out.append("MoE layers (K9's backward)")
-    return out
-
-
 def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
                     grad_accum: int = 1):
-    unported = _unported(model.cfg)
-    if unported:
-        raise NotImplementedError(
-            f"{model.cfg.name}: a training step with "
-            f"{', '.join(unported)} is not ported yet (ROADMAP.md Queue 1)")
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
 

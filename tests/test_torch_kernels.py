@@ -1,7 +1,7 @@
 """The port's kernels K1 (`coupled_chunk`), K2 (`scan_chunk`), K3
 (`objective_scan`), K4 (`fleet_objective`), K5 (`flash_attention`), K6
 (`decode_attention`), K7 (`ssm_scan`), K8 (`rmsnorm`) and its backward, K9
-(`moe_gemm`), K10 (`xent`), K11 (`flash_attention_bwd`) and K12a
+(`moe_gemm`) and its backward (`grouped_gemm_dx`, `grouped_gemm_dw`), K10 (`xent`), K11 (`flash_attention_bwd`) and K12a
 (`xent_bwd`, the blocked loss's backward):
 their wrappers' dispatch and input checks, and — on a machine with an NVIDIA GPU — each CUDA kernel
 against its plain PyTorch version.
@@ -1346,6 +1346,176 @@ def test_grouped_gemm_kernel_matches_plain_on_card(ids, bm, d, f, e, shift,
         bar = 2.0 ** -7 * ref.abs() + 1e-3 * ref.abs().max()
         assert bool(((got - ref).abs() <= bar).all()), \
             float((got - ref).abs().max())
+
+
+def gg_bwd_inputs(ids, bm, d, f, e, dtype, device="cpu", seed=0, shift=0):
+    """`gg_inputs` plus dy (T, f) of std 1, shifted like x."""
+    x, w, bid = gg_inputs(ids, bm, d, f, e, dtype, device, seed, shift)
+    rng = np.random.default_rng(seed + 1)
+    dy = torch.as_tensor(rng.normal(size=(len(ids) * bm, f)),
+                         dtype=torch.float32).to(dtype).to(device)
+    if shift:
+        pad = torch.zeros(shift, dtype=dtype, device=device)
+        dy = torch.cat([pad, dy.reshape(-1)])[shift:].view(dy.shape)
+    return x, w, bid, dy
+
+
+def assert_k9_close(got, ref):
+    """K9's bars, forward and backward: fp32 within 2e-5 of max |ref| (fp32
+    sums in another order); bf16 one rounding step, 2^-7 |ref| plus a floor
+    of 1e-3 max |ref| for entries near 0 (both sum bf16 products in fp32
+    and round once)."""
+    bf16 = got.dtype == torch.bfloat16
+    got, ref = got.float().cpu(), ref.float().cpu()
+    scale = float(ref.abs().max())
+    bar = 2.0 ** -7 * ref.abs() + 1e-3 * scale if bf16 else 2e-5 * scale
+    assert bool(((got - ref).abs() <= bar).all()), \
+        float((got - ref).abs().max())
+
+
+def test_grouped_gemm_backward_wrappers_dispatch_and_checks():
+    x, w, ids, dy = gg_bwd_inputs([1, -1, 1], 8, 24, 40, 3, torch.float32)
+    before = (k9.launches, k9.bwd_launches)
+    dx = k9.grouped_gemm_dx(dy, w, ids, 8)
+    dw = k9.grouped_gemm_dw(x, dy, ids, 8, 3)
+    assert (k9.launches, k9.bwd_launches) == before     # CPU: no launch
+    assert torch.equal(dx, k9.grouped_gemm_dx_plain(dy, w, ids, 8))
+    assert torch.equal(dw, k9.grouped_gemm_dw_plain(x, dy, ids, 8, 3))
+    assert dx.shape == (24, 24) and not dx[8:16].any()
+    close(dx[16:], dy[16:].double() @ w[1].double().T, 1e-5, scale=1.0)
+    rows = [*range(8), *range(16, 24)]
+    close(dw[1], x[rows].double().T @ dy[rows].double(), 1e-5, scale=1.0)
+    assert dw.shape == (3, 24, 40) and not dw[0].any() and not dw[2].any()
+    assert k9.grouped_gemm_dw(x.bfloat16(), dy.bfloat16(), ids, 8,
+                              3).dtype == torch.bfloat16
+    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+        k9.grouped_gemm_dx(dy.to("meta"), w.to("meta"), ids.to("meta"), 8)
+    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+        k9.grouped_gemm_dw(x.to("meta"), dy.to("meta"), ids.to("meta"), 8, 3)
+    with pytest.raises(ValueError, match="does not fit"):
+        k9.grouped_gemm_dx(dy[:, :20].contiguous(), w, ids, 8)
+    with pytest.raises(ValueError, match="does not fit"):
+        k9.grouped_gemm_dw(x, dy[:16].contiguous(), ids, 8, 3)
+    with pytest.raises(ValueError, match="experts"):
+        k9.grouped_gemm_dw(x, dy, ids, 8, 0)
+    with pytest.raises(TypeError):
+        k9.grouped_gemm_dw(x, dy.bfloat16(), ids, 8, 3)   # mixed dtypes
+    with pytest.raises(TypeError, match="int32"):
+        k9.grouped_gemm_dx(dy, w, ids.long(), 8)
+    with pytest.raises(ValueError, match="multiple"):
+        k9.grouped_gemm_dw(x, dy, ids, 7, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        k9.grouped_gemm_dx(dy.T.contiguous().T, w, ids, 8)
+    with pytest.raises(ValueError, match="block ids"):
+        k9.grouped_gemm_dw(x, dy, torch.tensor([1, 3, 0], dtype=torch.int32),
+                           8, 3)
+    with pytest.raises(RuntimeError, match="forward only"):
+        k9.grouped_gemm_dx(dy.clone().requires_grad_(), w, ids, 8)
+
+
+def test_grouped_gemm_autograd_is_the_plain_versions_on_cpu():
+    """`ops.grouped_gemm`'s backward on CPU tensors is `grouped_gemm_dx_plain`
+    and `grouped_gemm_dw_plain`, and agrees with autograd of the plain
+    forward; an input that needs no gradient gets none."""
+    x, w, ids, dy = gg_bwd_inputs([2, -1, 0, 2], 8, 24, 40, 4, torch.float32)
+    xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+    out = ops.grouped_gemm(xl, wl, ids, 8)
+    assert torch.equal(out.detach(), k9.grouped_gemm_plain(x, w, ids, 8))
+    gx, gw = torch.autograd.grad(out, (xl, wl), dy)
+    assert torch.equal(gx, k9.grouped_gemm_dx_plain(dy, w, ids, 8))
+    assert torch.equal(gw, k9.grouped_gemm_dw_plain(x, dy, ids, 8, 4))
+    xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+    ax, aw = torch.autograd.grad(k9.grouped_gemm_plain(xa, wa, ids, 8),
+                                 (xa, wa), dy)
+    close(gx, ax, 1e-6, scale=float(ax.abs().max()))
+    close(gw, aw, 1e-6, scale=float(aw.abs().max()))
+    out = ops.grouped_gemm(x, wl, ids, 8)                 # dW only
+    (gw2,) = torch.autograd.grad(out, (wl,), dy)
+    assert torch.equal(gw2, gw)
+
+
+def moe_train_ids(blocks=26, experts=8, seed=0):
+    """A training step's packed ids in miniature: experts in order with
+    0 to 6 blocks each (some none), then the -1 tail."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 7, experts)
+    counts[rng.integers(experts)] = 0
+    ids = [e for e in range(experts) for _ in range(counts[e])]
+    return ids + [-1] * (blocks - len(ids)) if len(ids) < blocks else ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ids,bm,d,f,e,shift", [
+    ([0, 1, 2, 3, -1], 64, 2048, 1408, 5, 0),        # gate/up, expert 4 empty
+    ([3, 0, -1, 1], 64, 1408, 2048, 5, 0),           # the down product
+    (moe_train_ids(), 64, 2048, 1408, 8, 0),         # uneven experts
+    (moe_train_ids(seed=1), 64, 256, 200, 8, 1),     # shifted, ragged tile
+    ([5, 2, 2, -1, 0, -1, -1], 8, 2048, 1408, 8, 0),  # block_m 8
+    ([5, 2, 2, -1, 0, -1, -1], 8, 2048, 1408, 8, 1),  # misaligned
+    (tick_ids(), 8, 1408, 2048, 64, 0),              # 8-row blocks, 64 experts
+    ([1, -1, 0, 1], 16, 100, 77, 3, 0),              # ragged d and f
+    ([0, -1, 1], 128, 33, 130, 3, 0),                # ragged, bm 128
+    ([-1, -1], 8, 64, 64, 2, 0),                     # every block empty
+    ([2, 0, 0, -1, 1, 0], 64, 2048, 1000, 4, 0)])    # ragged column tile
+def test_grouped_gemm_backward_kernels_match_plain_on_card(ids, bm, d, f, e,
+                                                           shift, dtype):
+    dev = _card()
+    x, w, bid, dy = gg_bwd_inputs(ids, bm, d, f, e, dtype, dev, seed=d + f,
+                                  shift=shift)
+    assert (x.data_ptr() % 16 != 0) == (dy.data_ptr() % 16 != 0) == \
+        bool(shift)
+    # leave non-zero garbage where the outputs will be allocated, so an
+    # expert left unwritten shows
+    torch.full((x.numel() + e * d * f,), float("nan"), device=dev)
+    before = (k9.launches, k9.bwd_launches)
+    dx = k9.grouped_gemm_dx(dy, w, bid, bm)
+    dw = k9.grouped_gemm_dw(x, dy, bid, bm, e)
+    dx2 = k9.grouped_gemm_dx(dy, w, bid, bm)
+    dw2 = k9.grouped_gemm_dw(x, dy, bid, bm, e)
+    ref_x = k9.grouped_gemm_dx_plain(dy, w, bid, bm)
+    ref_w = k9.grouped_gemm_dw_plain(x, dy, bid, bm, e)
+    torch.cuda.synchronize()
+    assert (k9.launches, k9.bwd_launches) == (before[0], before[1] + 4)
+    assert dx.dtype == dw.dtype == dtype
+    assert dx.shape == (len(ids) * bm, d) and dw.shape == (e, d, f)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)   # same bits
+    empty = np.repeat(np.asarray(ids) < 0, bm)
+    assert not dx.cpu()[empty].any()                     # -1 blocks: zeros
+    for i in set(range(e)) - set(ids):                   # experts owning none
+        assert not dw[i].any()
+    assert_k9_close(dx, ref_x)
+    assert_k9_close(dw, ref_w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_gemm_autograd_launches_the_kernels_on_card(dtype):
+    """Through `ops.grouped_gemm` on the card: one K9 forward, one dX and
+    one dW launch, never a plain version; the gradients within K9's bars
+    of the plain versions'."""
+    dev = _card()
+    x, w, bid, dy = gg_bwd_inputs(moe_train_ids(), 64, 512, 384, 8, dtype,
+                                  dev)
+    xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = (k9.launches, k9.bwd_launches)
+    plain = (k9.grouped_gemm_plain, k9.grouped_gemm_dx_plain,
+             k9.grouped_gemm_dw_plain)
+
+    def refuse(*_):
+        raise AssertionError("a plain version ran on CUDA tensors")
+    k9.grouped_gemm_plain = k9.grouped_gemm_dx_plain = \
+        k9.grouped_gemm_dw_plain = refuse
+    try:
+        out = ops.grouped_gemm(xl, wl, bid, 64)
+        gx, gw = torch.autograd.grad(out, (xl, wl), dy)
+    finally:
+        (k9.grouped_gemm_plain, k9.grouped_gemm_dx_plain,
+         k9.grouped_gemm_dw_plain) = plain
+    torch.cuda.synchronize()
+    assert (k9.launches, k9.bwd_launches) == (before[0] + 1, before[1] + 2)
+    assert_k9_close(gx, k9.grouped_gemm_dx_plain(dy, w, bid, 64))
+    assert_k9_close(gw, k9.grouped_gemm_dw_plain(x, dy, bid, 64, 8))
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,8 @@ MoE) with the reference's weights carried across (`params_from_numpy`):
 * (e) `ServingEngine` tokens and session totals against the reference's
   engine on the DeepSeek smoke model (the MLA `_write_slot`);
 * (f) `param_count` and `active_param_count` equal to the reference's for
-  every ported config, and the full DeepSeek-V2-Lite tree of shapes.
+  every ported config (the three dense configs granite-34b, qwen2.5-14b
+  and llama3-405b too), and the full DeepSeek-V2-Lite tree of shapes.
 """
 import dataclasses
 
@@ -506,7 +507,9 @@ def test_engine_matches_reference_on_deepseek(weights, dtype):
 # ---------------------------------------------------------------------------
 # (f) configs
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", DEEPSEEK, MOONLIGHT])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", DEEPSEEK, MOONLIGHT,
+                                  "granite-34b", "qwen2.5-14b",
+                                  "llama3-405b"])
 @pytest.mark.parametrize("smoke", [False, True])
 def test_param_counts_match_reference(arch, smoke):
     cfg, rcfg = get_config(arch, smoke), ref_get_config(arch, smoke)

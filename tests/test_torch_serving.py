@@ -436,7 +436,7 @@ def _long_prompt():
 
 
 UNPORTED = {
-    "arch": lambda: get_config("llama3-405b"),
+    "arch": lambda: get_config("falcon-mamba-7b"),
     "family": lambda: build_model(dataclasses.replace(_smoke(), family="ssm")),
     "encdec": lambda: build_model(dataclasses.replace(_smoke(), encdec=True)),
     "mla": lambda: T.lm_spec(dataclasses.replace(   # q-LoRA MLA
