@@ -273,6 +273,7 @@ import contextlib
 import ctypes
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import os
@@ -2601,7 +2602,7 @@ KERNEL_GROUPS = (("K1", ("coupled_chunk_kernel",)),
                  ("K8", ("rmsnorm_rows", "rmsnorm_general")),
                  ("K9", ("grouped_gemm_kernel", "gg_prefill", "gg_tick")),
                  ("K9 backward", ("gg_dx_rows", "gg_dx_tick", "gg_dw",
-                                  "gg_dx_f32")),
+                                  "gg_dx_f32", "gg_dx_sm90")),
                  ("K10", ("xent_kernel",)),
                  ("K11", ("flash_bwd",)),
                  ("K8 backward", ("rms_bwd",)),
@@ -4490,9 +4491,11 @@ def ptxas_report(build, source, kernels):
         elif "spill" in ln:
             spill = ln.strip()
         elif name and "Used" in ln and "registers" in ln:
-            label = next((k for k in kernels if k + "I" in name), None)
+            label = next((k for k in kernels if k + "I" in name
+                          or k + "E" in name), None)
             if label:
-                args = name.split(label + "I", 1)[1].split("EEv", 1)[0]
+                args = (name.split(label + "I", 1)[1].split("EEv", 1)[0]
+                        if label + "I" in name else "")
                 args = (args.replace("13__nv_bfloat16", "bf16 ")
                         .replace("Lb1E", "vec ").replace("Lb0E", "elem "))
                 args = re.sub(r"Li(\d+)E", r"HPT \1 " if label == "split_kernel"
@@ -4813,15 +4816,28 @@ def gg_bwd_library(torch, a, b, ids, bm, n_experts, dw):
     return None, "torch._grouped_mm refused: " + " / ".join(errs)
 
 
+#: K9's backward per call at Moonlight's step, its first design (the
+#: `mma.sync` kernels, now route "mma"; PERF.md §6, H100 80GB HBM3 at
+#: 700.00 W), printed beside this run's sm90 kernels
+K9_BWD_FIRST_DESIGN_MS = {("dX", "gate/up"): 1.2177, ("dX", "down"): 1.2045,
+                          ("dW", "gate/up"): 1.4012, ("dW", "down"): 1.3700}
+K9_BWD_DESIGN = ("sm90: wgmma m64n256k16 from a 3-stage TMA ring under "
+                 "mbarriers, 128 x 256 tiles (two consumer warpgroups and "
+                 "a producer warp) stored by TMA from shared memory, one "
+                 "persistent block an SM on a static stride, no atomics")
+
+
 def phase_moe_train(torch, k5, k8, k9, k10, moe, build, dev):
     """Moonlight-16B-A3B's AdamW step at its published widths, the depth
     cut to 4 layers (layer 0 dense, 1-3 MoE), bf16 with the blocked loss
     through `make_train_step` on well-conditioned weights: the launch
-    proof a step, six steps on one batch (three traced), K9's dX and dW
-    per call against their plain versions at the step's shapes and
-    packed layout, timed beside bound, plain version and
-    `torch._grouped_mm`, and the first step's gradients against
-    plain-version runs under one forced routing."""
+    proof a step (every K9 backward launch on route "sm90"), six steps on
+    one batch (three traced), K9's dX and dW per call against their plain
+    versions at the step's shapes and packed layout, timed beside the
+    first design (its recorded time, and its kernels, route "mma", on the
+    same inputs now), bound, plain version and `torch._grouped_mm`, and
+    the first step's gradients against plain-version runs under one
+    forced routing."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models.model import build_model
@@ -4882,7 +4898,9 @@ def phase_moe_train(torch, k5, k8, k9, k10, moe, build, dev):
             counting(k9, ("grouped_gemm_dx", "grouped_gemm_dw"), n_calls):
         k5.launches = k5.bwd_launches = k8.launches = k8.bwd_launches = 0
         k9.launches = k9.bwd_launches = k10.launches = k10.bwd_launches = 0
+        k9.bwd_launches_by_route.update(sm90=0, mma=0, fma=0)
         state, met, ms1 = timed_step(step, state)
+        by_route = dict(k9.bwd_launches_by_route)
         n = {"K9": k9.launches, "dX": n_calls.get("grouped_gemm_dx", 0),
              "dW": n_calls.get("grouped_gemm_dw", 0),
              "K9 backward": k9.bwd_launches, "K5": k5.launches,
@@ -4895,6 +4913,9 @@ def phase_moe_train(torch, k5, k8, k9, k10, moe, build, dev):
             "K8": 2 * layers + 1, "K8 backward": 2 * layers + 1, "K10": 1,
             "K12a": chunks}
     check(n == want, f"a Moonlight step launched {n}; expected {want}")
+    check(by_route == {"sm90": 6 * n_moe, "mma": 0, "fma": 0},
+          f"a Moonlight step's K9 backward launches by route {by_route}; "
+          f"expected all {6 * n_moe} on route sm90")
     losses, walls = [met["loss"]], [ms1]
     for _ in range(MOE_TRAIN["steps"] - MOE_TRAIN["traced"] - 1):
         state, m, ms = timed_step(step, state)
@@ -4927,11 +4948,15 @@ def phase_moe_train(torch, k5, k8, k9, k10, moe, build, dev):
           "a parameter leaf went non-finite")
     step_ms = float(np.median(walls[1:]))
     idle = f"not measured ({busy})"
+    k9_bwd_step = "not measured"
     if not isinstance(busy, str):
         twall, dev_s, n_kern, groups, table = busy
         per = MOE_TRAIN["traced"]
         check(0 <= n8_traced - groups["K8"][1] <= 2, f"the trace shows K8 "
               f"{groups['K8'][1]} of {n8_traced} launches")
+        k9_bwd_step = (f"{groups['K9 backward'][0] / per:.3f} ms in "
+                       f"{groups['K9 backward'][1] / per:.0f} launches a "
+                       f"step")
         idle = (f"{1.0 - dev_s / twall:.3f} (device busy {dev_s:.3f} s over "
                 f"{twall:.3f} s wall, {per} traced steps, their launches "
                 f"equal to the wrappers' counts within 1 %, K8 "
@@ -4945,30 +4970,45 @@ def phase_moe_train(torch, k5, k8, k9, k10, moe, build, dev):
     free()
 
     # dX and dW per call: the first and last call of each shape against
-    # the plain version, twice launched; timed at each shape's first call
+    # the plain version, twice launched, on the step's route ("sm90") and
+    # on the first design's kernels (route "mma"); timed at each shape's
+    # first call, both routes.  The step's ids go to OUT for `ablate --ids`
+    os.makedirs(OUT, exist_ok=True)
+    step_args = next(iter(calls["dx"].values()))[0][0]
+    np.savez(os.path.join(OUT, "moonlight_step_ids.npz"),
+             block_ids=step_args[2].cpu().numpy(), block_m=step_args[3])
+    sms = build.sm_count(dev)
+    plan = (ctypes.c_int * 6)()
+    k9._library().grouped_gemm_sm90_plan(0, 0, plan)
+    tile_m, tile_n = plan[0], plan[1]
     rows, texts = {}, []
     for which, kern, plain_fn in (
-            ("dX", k9.grouped_gemm_dx, k9.grouped_gemm_dx_plain),
-            ("dW", k9.grouped_gemm_dw, k9.grouped_gemm_dw_plain)):
+            ("dX", k9._grouped_gemm_dx, k9.grouped_gemm_dx_plain),
+            ("dW", k9._grouped_gemm_dw, k9.grouped_gemm_dw_plain)):
         store = calls["dx" if which == "dX" else "dw"]
-        worst, parts = 0.0, []
+        worst, worst_mma, parts = 0.0, 0.0, []
         for key, (first, last) in store.items():
             for args, kw in (first, last):
-                got = kern(*args, **kw)
                 ref = plain_fn(*args, **kw)
-                again = kern(*args, **kw)
-                torch.cuda.synchronize()
-                diff = (got.float() - ref.float()).abs()
-                err = float(diff.max())
-                check(bool(torch.isfinite(got.float()).all()) and bool(
-                    (diff <= k9_bar(ref)).all()), f"K9 {which} {key}: max "
-                    f"err {err:.3e}, max |out| "
-                    f"{float(ref.float().abs().max()):.4g} "
-                    f"({K9_BAR_TEXT[str(got.dtype).split('.')[1]]})")
-                check(torch.equal(got, again), f"K9 {which} {key}: two "
-                      "launches on the same inputs differ")
-                worst = max(worst, err)
-                del got, ref, again, diff
+                for route in ("sm90", "mma"):
+                    got = kern(*args, route=route, **kw)
+                    again = kern(*args, route=route, **kw)
+                    torch.cuda.synchronize()
+                    diff = (got.float() - ref.float()).abs()
+                    err = float(diff.max())
+                    check(bool(torch.isfinite(got.float()).all()) and bool(
+                        (diff <= k9_bar(ref)).all()), f"K9 {which} {key} "
+                        f"route {route}: max err {err:.3e}, max |out| "
+                        f"{float(ref.float().abs().max()):.4g} "
+                        f"({K9_BAR_TEXT[str(got.dtype).split('.')[1]]})")
+                    check(torch.equal(got, again), f"K9 {which} {key} route "
+                          f"{route}: two launches on the same inputs differ")
+                    if route == "sm90":
+                        worst = max(worst, err)
+                    else:
+                        worst_mma = max(worst_mma, err)
+                    del got, again, diff
+                del ref
             args, kw = first
             a, b, ids, bm = args[:4]
             gate = a.shape[1] == (fe if which == "dX" else d_model)
@@ -4977,25 +5017,52 @@ def phase_moe_train(torch, k5, k8, k9, k10, moe, build, dev):
                                            full.moe.num_experts,
                                            which == "dW")
             ms = cuda_ms(torch, lambda: kern(*args, **kw), 10)
+            ms_mma = cuda_ms(torch, lambda: kern(*args, route="mma", **kw),
+                             10)
             plain = cuda_ms(torch, lambda: plain_fn(*args, **kw), 2)
             lib_ms = cuda_ms(torch, lib, 10) if lib else None
             b_ms, b_by = gg_bwd_bound(torch, a, b, ids, bm,
                                       full.moe.num_experts, which == "dW")
             named = int((ids >= 0).sum())
+            d, f = ((a.shape[1], b.shape[1]) if which == "dW"
+                    else tuple(b.shape[1:]))
+            if which == "dX":
+                # a run of n 64-row chunks of one id: ceil(n / pair) row
+                # tiles, the last a half tile where pair does not divide n
+                pair = tile_m // 64
+                runs = [len(list(g)) for _, g in itertools.groupby(
+                    ids.repeat_interleave(bm // 64).tolist())]
+                n_rows = sum(-(-n // pair) for n in runs)
+                grid = (f"{n_rows * -(-d // tile_n)} tiles of {tile_m} x "
+                        f"{tile_n} over {sms} persistent blocks ({n_rows} "
+                        f"row tiles, {sum(n % pair > 0 for n in runs)} of "
+                        f"them half)")
+            else:
+                n_tiles = (full.moe.num_experts * -(-d // tile_m)
+                           * -(-f // tile_n))
+                grid = (f"{n_tiles} tiles of {tile_m} x {tile_n} over {sms} "
+                        f"persistent blocks")
+            first_ms = K9_BWD_FIRST_DESIGN_MS[(which, label)]
             parts.append(
                 f"{label} {tuple(a.shape)} x {tuple(b.shape)}, {named} of "
-                f"{ids.numel()} blocks of {bm} named: {ms:.4f} ms (plain "
-                f"{plain:.3f}, " + (f"{lib_name} {lib_ms:.4f}" if lib else
-                                    f"library not measured: {lib_name}")
-                + f", bound {b_ms:.4f} {b_by})")
+                f"{ids.numel()} blocks of {bm} named: {ms:.4f} ms, "
+                f"{2.0 * named * bm * d * f / ms / 1e9:.0f} TFLOP/s (first "
+                f"design {first_ms:.4f}, its kernels in this run "
+                f"{ms_mma:.4f}; plain {plain:.3f}, "
+                + (f"{lib_name} {lib_ms:.4f}" if lib else
+                   f"library not measured: {lib_name}")
+                + f", bound {b_ms:.4f} {b_by}; {grid})")
             if gate:
                 rows[which] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-                               "bound_by": b_by, "library_ms": lib_ms}
+                               "bound_by": b_by, "library_ms": lib_ms,
+                               "design": K9_BWD_DESIGN,
+                               "first_design_ms": first_ms}
             del lib
         rows[which]["max_abs_err"] = worst
         texts.append(f"{which} ({n[which]} launches a step; max err "
-                     f"{worst:.3e} over each shape's first and last call, "
-                     f"two launches bitwise equal): " + "; ".join(parts))
+                     f"{worst:.3e}, route mma {worst_mma:.3e}, over each "
+                     f"shape's first and last call, two launches bitwise "
+                     f"equal on each route): " + "; ".join(parts))
     del calls
     free()
 
@@ -5058,13 +5125,15 @@ def phase_moe_train(torch, k5, k8, k9, k10, moe, build, dev):
           f"{torch.cuda.get_device_name(0)} at {limit:.2f} W: "
           f"make_train_step on SyntheticLM {bsz} x {seq} (seed 0, step 0) "
           f"{MOE_TRAIN['steps']} times ({MOE_TRAIN['traced']} traced): "
-          f"losses {[round(v, 4) for v in losses]}; launches a step {n}; "
+          f"losses {[round(v, 4) for v in losses]}; launches a step {n}, "
+          f"K9 backward by route {by_route}; "
           f"step {step_ms:.1f} ms (median of steps 2-"
           f"{MOE_TRAIN['steps'] - MOE_TRAIN['traced']}; first {ms1:.1f}, "
           f"warm-up {warm_ms:.1f}), {n_tok / step_ms * 1e3:.0f} tokens/s; "
           f"peak memory of the first step {peak / 1e9:.2f} GB "
           f"({(peak - base) / 1e9:.2f} above the {base / 1e9:.2f} GB of "
-          f"state); device idle share {idle}; first-step gradients per "
+          f"state); device idle share {idle}; K9 backward device time "
+          f"{k9_bwd_step}; first-step gradients per "
           f"leaf, relative in norm, routing forced to the plain fp32 run's "
           f"({t_grads:.1f} s for the four runs): fp32 kernel vs plain worst "
           f"{fp32_worst:.3e} (bar {GRAD_FP32}), bf16 kernel vs fp32 plain "
@@ -5075,11 +5144,19 @@ def phase_moe_train(torch, k5, k8, k9, k10, moe, build, dev):
           " s", flush=True)
     lib9 = k9._library()
     lib9.grouped_gemm_bwd_smem.restype = ctypes.c_int
-    smem = (f"dX tile 64 {lib9.grouped_gemm_bwd_smem(0, 64)} B, tile 8 "
+    shape = (ctypes.c_int * 6)()
+    sm90_dx = lib9.grouped_gemm_sm90_plan(0, 0, shape)
+    sm90_dw = lib9.grouped_gemm_sm90_plan(1, full.moe.num_experts, shape)
+    smem = (f"sm90 dX {sm90_dx} B, dW over {full.moe.num_experts} experts "
+            f"{sm90_dw} B ({shape[3]} stages of {shape[5]} B, tiles "
+            f"{shape[0]} x {shape[1]}, K steps of {shape[2]}, {shape[4]} "
+            f"threads, 1 block an SM); mma dX tile 64 "
+            f"{lib9.grouped_gemm_bwd_smem(0, 64)} B, tile 8 "
             f"{lib9.grouped_gemm_bwd_smem(0, 8)} B; dW block_m 64 "
             f"{lib9.grouped_gemm_bwd_smem(1, 64)} B, 8 "
             f"{lib9.grouped_gemm_bwd_smem(1, 8)} B")
-    report = ptxas_report(build, "moe_gemm", ("gg_dx_rows", "gg_dx_tick",
+    report = ptxas_report(build, "moe_gemm", ("gg_dx_sm90", "gg_dw_sm90",
+                                              "gg_dx_rows", "gg_dx_tick",
                                               "gg_dw", "gg_dx_f32"))
     print(f"K9 backward ptxas: {report}; bf16 dynamic shared memory per "
           f"block ({smem})", flush=True)

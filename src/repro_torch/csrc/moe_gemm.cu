@@ -52,10 +52,65 @@
 // for it): dX (t, d) = dY W[e]^T block by block, and dW[e] (d, f) = the
 // sum over the blocks of id e of X_blk^T dY_blk, in fp32, rounded once at
 // the store.  What bounds it, at Moonlight-16B-A3B's training step (4 x
-// 2,048 tokens, top 6: 832 blocks of 64 rows, 49,152 token copies, d 2048,
-// f 1408): each product is 2 x 49,152 x 2,048 x 1,408 = 283 GFLOP (0.29 ms
-// at 989 TFLOP/s) against 0.5-0.7 GB of rows and slabs (0.15-0.22 ms):
-// operations.  Design, simple first:
+// 2,048 tokens, top 6: 832 blocks of 64 rows, 603 of them named, 38,592
+// rows, d 2,048, f 1,408): each product is 2 x 38,592 x 2,048 x 1,408 =
+// 222.6 GFLOP (0.225 ms at 989 TFLOP/s) against 0.64-0.70 GB read and
+// written in memory (rows, slabs, the output; 0.19-0.21 ms at 3.35 TB/s):
+// operations, the bytes close behind, the tiles fed from L2.
+//
+// bf16 with block_m a multiple of 64, d and f multiples of 8 and 16-byte
+// aligned bases (the wrapper's route "sm90", TMA's rules): two Hopper
+// kernels, namespace sm90 below, built on csrc/wgmma.cuh.
+//   gg_dx_sm90: a tile is 128 token rows x 256 columns of d, two
+//     consecutive 64-row chunks of one expert (an expert's odd last chunk
+//     a half tile, for one warpgroup), both warpgroups sharing W[e]'s
+//     tile.  A is dy's rows (K = f, K-major), B W[e]'s (d, f) slab as it
+//     lies (N = d, K-major): no transpose.  L2 reads at the gate/up shape:
+//     dy's named rows once a column tile (8 x 109 MB) and W[e]'s 256-row
+//     tile once a named row tile (319 x 8 x 0.72 MB), 2.7 GB a call (the
+//     first design's 64 x 128 tiles: 5.2 GB).
+//   gg_dw_sm90: a tile is 128 rows of d x 256 columns of f of one dW[e];
+//     K is the expert's rows, walked in block order.  A is x's rows (M =
+//     d, MN-major), B dy's rows (N = f, MN-major): wgmma's transpose flags
+//     read both as they lie.  x is read once a column tile (6 times), dy
+//     once a row tile of d (16 times): 2.7 GB a call (5.2).  A tile's
+//     whole sum is one warpgroup's registers: no split over K, no
+//     atomics, the same bits every launch.
+//   Both: three warpgroups, 384 threads.  A producer warp issues TMA
+//   loads (128-byte swizzle) into a 3-stage ring of 48 KB stages, each
+//   reporting to its `full` mbarrier; two consumer warpgroups (setmaxnreg
+//   232 registers, the producer 40) each multiply their 64-row A box by
+//   the shared B with four wgmma m64n256k16 a stage (128 fp32 sums a
+//   thread) and release the stage on its `empty` mbarrier.  At a tile's
+//   end a consumer writes its sums in bf16 into a 32 KB staging tile and
+//   one thread hands it to TMA stores, so the next tile's products start
+//   at once (the stores skip what lies past the output's bounds: ragged
+//   d and f need no mask).  The producer writes each stage's work (tile,
+//   expert, first/last, zeros, end) beside it, so the consumers need no
+//   schedule of their own.
+//   Schedule: one persistent block an SM (`sms`), tile i to block i mod
+//   grid, a static stride (no tile counter, so no atomics at all).  dX's
+//   tiles run row tile by row tile, a row tile's column tiles together,
+//   so dy's rows and W[e]'s tiles are read from L2 by neighbours; the
+//   producer pairs chunks as it walks the ids.  dW's tiles run in expert
+//   order, an expert's 96 tiles (at the gate/up shape) spread over every
+//   block by the stride, so each block's depth is near the mean of the
+//   experts' sizes; its blocks each count every expert's chunks at their
+//   start (3.3 KB of ids, no launch and no host read).  An order by
+//   expert size, largest first, was no faster on a Moonlight step's own
+//   routing on an H100 (expert order 1.4 % faster at gate/up, 2.4 %
+//   slower at down) and was taken out.  A tile of -1 chunks (dX) or of an expert with no chunk
+//   (dW) loads nothing and stores zeros.
+//   Against the first design (route "mma" below): `mma.sync` became wgmma
+//   (the way to the full tensor-core rate); 64 x 128 tiles that read 5.2
+//   GB from L2 became 128 x 256 tiles at 2.7 GB; the cp.async copies by
+//   all threads and the `ldmatrix` (.trans for dW) loads became TMA boxes
+//   that the wgmma descriptors read in place; dX's 3,664 blocks of -1
+//   rows and dW's blocks of uneven depth, each scanning all ids, became a
+//   persistent grid on a balanced static stride.
+//
+// Every other bf16 launch (route "mma": 8-row decode blocks, ragged or
+// unaligned shapes) takes the first design's `mma.sync` kernels:
 //   gg_dx_rows / gg_dx_tick: the forward's two row tiles with the slab
 //     read the other way round: W[e]'s row-major (d, f) storage is the
 //     (N, K) layout of an mma B operand (rows) or the (M, K) layout of an
@@ -63,8 +118,7 @@
 //   gg_dw: one block per (expert, 64 x 128 tile of dW[e]); it walks
 //     block_ids in order and accumulates only its own expert's blocks,
 //     both operands by `ldmatrix.trans`.  No atomics, a fixed order: two
-//     launches give the same bits.  Experts own 0 to ~20 blocks, so the
-//     blocks' work is uneven.
+//     launches give the same bits.
 //   fp32: FMA kernels, as the forward's.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,6 +127,7 @@
 #include <type_traits>
 
 #include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -976,6 +1031,389 @@ int launch_dw_f32(const void* x, const void* dy, const void* ids, void* dw,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// -------------------------------------------------------------------------
+// bf16 backward on Hopper (route "sm90"): wgmma fed by TMA through an
+// mbarrier ring, persistent blocks; the design is in the note at the top.
+// -------------------------------------------------------------------------
+namespace sm90 {
+
+constexpr int CONSUMERS = 2;       // consumer warpgroups, 64 tile rows each
+constexpr int BN = 256;            // tile columns: the wgmma's N
+constexpr int BK = 64;             // K step: one 128-byte swizzle row of bf16
+constexpr int STAGES = 3;          // depth of the TMA ring
+constexpr int BM = 64 * CONSUMERS;
+constexpr int THREADS = 128 * (CONSUMERS + 1);  // + one producer warpgroup
+constexpr int BOX_BYTES = 64 * BK * 2;          // one 64 x 64 TMA box
+constexpr int B_BYTES = BN * BK * 2;            // the shared B operand
+constexpr int STAGE_BYTES = CONSUMERS * BOX_BYTES + B_BYTES;
+constexpr int OUT_BYTES = 64 * BN * 2;          // a warpgroup's staged sums
+// 40 + 2 x 232 = 3 x 168, the registers a thread that __launch_bounds__
+// (384, 1) leaves: the producer gives back what the accumulators take
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr int ALIGN = 1024;        // 128-byte swizzled tiles start on 1 KB
+
+// One ring stage's work, written by the producer before the stage's
+// arrival: the tile (dX: its first token row; dW: its first row of d),
+// its first column, the expert, and flags; bits 4.. hold how many
+// consumer warpgroups the tile has rows for (dX's half tiles: 1).
+struct Item {
+  int row0, n0, e, flags;
+};
+constexpr int FIRST = 1, LAST = 2, ZERO = 4, DONE = 8, SPAN = 4;
+
+// The flags of stage k of a tile's `steps`.
+__device__ __forceinline__ int stage_flags(int k, int steps, int span) {
+  return (k == 0 ? FIRST : 0) | (k == steps - 1 ? LAST : 0) | span << SPAN;
+}
+
+constexpr int smem_bytes(int extra_ints) {
+  return ALIGN + STAGES * STAGE_BYTES + CONSUMERS * OUT_BYTES +
+         STAGES * (16 + (int)sizeof(Item)) + 4 * extra_ints;
+}
+
+struct Smem {
+  unsigned char* ring;  // [STAGES][CONSUMERS A boxes | B], on 1,024 bytes
+  unsigned char* out;   // [CONSUMERS] bf16 tiles for the TMA stores
+  uint64_t* full;       // [STAGES] TMA bytes landed (one arrival: producer)
+  uint64_t* empty;      // [STAGES] released (an arrival a consumer warp)
+  Item* items;          // [STAGES]
+  int* ints;            // dW: the experts' chunk counts
+};
+
+__device__ __forceinline__ Smem carve(unsigned char* raw) {
+  Smem s;
+  s.ring = raw + (ALIGN - wg::smem_u32(raw) % ALIGN) % ALIGN;
+  s.out = s.ring + STAGES * STAGE_BYTES;
+  s.full = reinterpret_cast<uint64_t*>(s.out + CONSUMERS * OUT_BYTES);
+  s.empty = s.full + STAGES;
+  s.items = reinterpret_cast<Item*>(s.empty + STAGES);
+  s.ints = reinterpret_cast<int*>(s.items + STAGES);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      wg::bar_init(&s.full[i], 1);
+      wg::bar_init(&s.empty[i], CONSUMERS * 4);
+    }
+    wg::bar_fence_init();
+  }
+  return s;
+}
+
+// The expert of 64-row chunk c (block_m a multiple of 64).
+__device__ __forceinline__ int chunk_id(const int* ids, int c, int block_m) {
+  return __ldg(ids + (size_t)c * 64 / block_m);
+}
+
+// Producer side of the ring: stage `it` is free once both consumer
+// warpgroups released its previous use (a fresh slot passes at once).
+__device__ __forceinline__ int acquire(const Smem& sm, int it) {
+  const int s = it % STAGES;
+  wg::bar_wait(&sm.empty[s], ((it / STAGES) & 1) ^ 1);
+  return s;
+}
+// An item with no loads: a tile of zeros, or the end.
+__device__ __forceinline__ void push_plain(const Smem& sm, int it, Item m) {
+  const int s = acquire(sm, it);
+  sm.items[s] = m;
+  wg::bar_arrive(&sm.full[s]);
+}
+
+// A consumer's 64 x BN sums (or zeros) in bf16 into its staging tile, as
+// BN / 64 swizzled boxes of 64 x 64 (conflict-free: the 8 rows a store
+// instruction writes land in 8 different 16-byte columns).
+__device__ __forceinline__ void stage_out(unsigned char* buf,
+                                          const float (&acc)[BN / 2],
+                                          bool zero) {
+  const int t = threadIdx.x % 128, row = t / 32 * 16 + t % 32 / 4;
+  const int col = t % 4 * 2;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const __nv_bfloat162 v =
+          zero ? __floats2bfloat162_rn(0.f, 0.f)
+               : __floats2bfloat162_rn(acc[4 * j + 2 * h],
+                                       acc[4 * j + 2 * h + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(
+          buf + wg::sw128_offset(row + 8 * h, 8 * j + col, 64)) = v;
+    }
+}
+
+// Consumer warpgroup `wgi`: takes the ring's items in order, multiplies
+// its 64-row A box of each stage by the shared B (TR: both MN-major, else
+// both K-major) into 64 x BN fp32 sums and releases the stage.  At a
+// tile's last stage (or a tile of zeros) it stages the tile in shared
+// memory and its first thread hands it to `epi`, which issues the TMA
+// stores; the next tile's products start while they run (the staging
+// tile is written again only once the stores have read it).
+template <int TR, class Epilogue>
+__device__ __forceinline__ void consume(const Smem& sm, int wgi,
+                                        const Epilogue& epi) {
+  float acc[BN / 2];
+#pragma unroll
+  for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
+  const bool signal = threadIdx.x % 32 == 0;
+  const bool leader = threadIdx.x % 128 == 0;
+  unsigned char* buf = sm.out + wgi * OUT_BYTES;
+  // a k16 step moves the descriptors 32 bytes along a K-major row, or 16
+  // rows (2,048 bytes) down an MN-major box; in 16-byte units
+  constexpr int STEP = TR ? 128 : 2;
+  for (int it = 0;; ++it) {
+    const int s = it % STAGES;
+    wg::bar_wait(&sm.full[s], (it / STAGES) & 1);
+    const Item m = sm.items[s];
+    if (m.flags & DONE) break;
+    const bool mine = wgi < m.flags >> SPAN;
+    if (mine && !(m.flags & ZERO)) {
+      const unsigned char* st = sm.ring + s * STAGE_BYTES;
+      const unsigned char* a = st + wgi * BOX_BYTES;
+      const unsigned char* b = st + CONSUMERS * BOX_BYTES;
+      const uint64_t da = TR ? wg::desc_mn_major(a, BOX_BYTES)
+                             : wg::desc_k_major(a);
+      const uint64_t db = TR ? wg::desc_mn_major(b, BOX_BYTES)
+                             : wg::desc_k_major(b);
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wg::mma<BN, TR, TR>(acc, da + kk * STEP, db + kk * STEP,
+                            kk > 0 || !(m.flags & FIRST));
+      wg::commit();
+      wg::wait<0>();
+    }
+    if (signal) wg::bar_arrive(&sm.empty[s]);
+    if (mine && (m.flags & (LAST | ZERO))) {
+      if (leader) wg::store_wait_read<0>();
+      wg::warpgroup_sync(1 + wgi);         // the last tile's stores read buf
+      stage_out(buf, acc, m.flags & ZERO);
+      wg::fence_async();
+      wg::warpgroup_sync(1 + wgi);
+      if (leader) {
+        epi(m, buf);
+        wg::store_commit();
+      }
+    }
+  }
+  if (leader) wg::store_wait_all();
+}
+
+// The TMA stores of a consumer's staged tile: its 64 rows x BN columns
+// from (row0 + 64 wgi, n0), one {64, 64} box a 64 columns; TMA leaves
+// out what lies past the output's bounds, and boxes wholly past them are
+// not issued.
+struct DxEpilogue {
+  const CUtensorMap* map;  // dx (t, d), boxes {64 d, 64 rows}
+  int d, wgi;
+  __device__ __forceinline__ void operator()(const Item& m,
+                                             const unsigned char* buf) const {
+    for (int b = 0; b < BN / 64 && m.n0 + 64 * b < d; ++b)
+      wg::tma_store_2d(map, buf + b * BOX_BYTES, m.n0 + 64 * b,
+                       m.row0 + wgi * 64);
+  }
+};
+
+struct DwEpilogue {
+  const CUtensorMap* map;  // dw (E, d, f), boxes {64 f, 64 d, 1}
+  int d, f, wgi;
+  __device__ __forceinline__ void operator()(const Item& m,
+                                             const unsigned char* buf) const {
+    if (m.row0 + wgi * 64 >= d) return;
+    for (int b = 0; b < BN / 64 && m.n0 + 64 * b < f; ++b)
+      wg::tma_store_3d(map, buf + b * BOX_BYTES, m.n0 + 64 * b,
+                       m.row0 + wgi * 64, m.e);
+  }
+};
+
+// dX = dY W[e]^T.  A: dy's rows (64 a warpgroup, K = f, K-major boxes
+// {64 f, 64 rows}); B: W[e]'s (d, f) slab as it lies, N = d rows of
+// K-major {64 f, BN d, 1} boxes.  Tile i of the static stride is row tile
+// i / tiles_n (consecutive chunks of one id, at most CONSUMERS; an odd
+// last one a half tile) and column tile i % tiles_n; the producer finds
+// row tiles by walking the ids as it goes.
+__global__ void __launch_bounds__(THREADS, 1)
+gg_dx_sm90(const __grid_constant__ CUtensorMap dy_map,
+           const __grid_constant__ CUtensorMap w_map,
+           const __grid_constant__ CUtensorMap dx_map,
+           const int* __restrict__ block_ids, int n_chunks, int block_m,
+           int n_experts, int d, int f) {
+  extern __shared__ unsigned char smem_raw[];
+  const Smem sm = carve(smem_raw);
+  __syncthreads();
+  const int wgi = threadIdx.x / 128;
+  if (wgi == CONSUMERS) {
+    wg::reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x % 128) return;
+    wg::prefetch_map(&dy_map);
+    wg::prefetch_map(&w_map);
+    const int tiles_n = (d + BN - 1) / BN, ksteps = (f + BK - 1) / BK;
+    auto span_at = [&](int c) {
+      const int e = chunk_id(block_ids, c, block_m);
+      int n = 1;
+      while (n < CONSUMERS && c + n < n_chunks &&
+             chunk_id(block_ids, c + n, block_m) == e)
+        ++n;
+      return n;
+    };
+    int it = 0, c = 0, r = 0, span = span_at(0);
+    for (int i = blockIdx.x;; i += gridDim.x) {
+      for (; r < i / tiles_n && c < n_chunks; ++r) {
+        c += span;
+        if (c < n_chunks) span = span_at(c);
+      }
+      if (c >= n_chunks) break;
+      const int e = chunk_id(block_ids, c, block_m), n0 = i % tiles_n * BN;
+      if (e < 0 || e >= n_experts) {
+        push_plain(sm, it++, Item{c * 64, n0, e, ZERO | span << SPAN});
+        continue;
+      }
+      for (int k = 0; k < ksteps; ++k, ++it) {
+        const int s = acquire(sm, it);
+        sm.items[s] = Item{c * 64, n0, e, stage_flags(k, ksteps, span)};
+        unsigned char* st = sm.ring + s * STAGE_BYTES;
+        wg::bar_arrive_expect_tx(&sm.full[s], span * BOX_BYTES + B_BYTES);
+        for (int h = 0; h < span; ++h)
+          wg::tma_load_2d(st + h * BOX_BYTES, &dy_map, &sm.full[s], k * BK,
+                          (c + h) * 64);
+        wg::tma_load_3d(st + CONSUMERS * BOX_BYTES, &w_map, &sm.full[s],
+                        k * BK, n0, e);
+      }
+    }
+    push_plain(sm, it, Item{0, 0, 0, DONE});
+  } else {
+    wg::reg_alloc<CONSUMER_REGS>();
+    consume<0>(sm, wgi, DxEpilogue{&dx_map, d, wgi});
+  }
+}
+
+// dW[e] = sum over e's chunks of x_c^T dy_c, in chunk order.  A: x's rows
+// as they lie, an MN-major {64 d, 64 rows} box a warpgroup (M = d, K =
+// rows); B: dy's rows, BN / 64 MN-major {64 f, 64 rows} boxes side by
+// side (N = f).  Tile i of the static stride is tile i % per of expert
+// i / per; every block first counts each expert's chunks.  A producer
+// warp finds an expert's chunks by ballots over the ids in order.
+__global__ void __launch_bounds__(THREADS, 1)
+gg_dw_sm90(const __grid_constant__ CUtensorMap x_map,
+           const __grid_constant__ CUtensorMap dy_map,
+           const __grid_constant__ CUtensorMap dw_map,
+           const int* __restrict__ block_ids, int n_chunks, int block_m,
+           int n_experts, int d, int f) {
+  extern __shared__ unsigned char smem_raw[];
+  const Smem sm = carve(smem_raw);
+  int* counts = sm.ints;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int e = warp; e < n_experts; e += THREADS / 32) {
+    int n = 0;
+    for (int c0 = 0; c0 < n_chunks; c0 += 32) {
+      const int c = c0 + lane;
+      n += __popc(__ballot_sync(
+          ~0u, c < n_chunks && chunk_id(block_ids, c, block_m) == e));
+    }
+    if (lane == 0) counts[e] = n;
+  }
+  __syncthreads();
+  const int wgi = threadIdx.x / 128;
+  if (wgi == CONSUMERS) {
+    wg::reg_dealloc<PRODUCER_REGS>();
+    if (warp != CONSUMERS * 4) return;
+    if (lane == 0) {
+      wg::prefetch_map(&x_map);
+      wg::prefetch_map(&dy_map);
+    }
+    const int tiles_n = (f + BN - 1) / BN;
+    const int per = (d + BM - 1) / BM * tiles_n;
+    int it = 0;
+    for (int i = blockIdx.x; i < n_experts * per; i += gridDim.x) {
+      const int e = i / per, m0 = i % per / tiles_n * BM,
+                n0 = i % per % tiles_n * BN, nk = counts[e];
+      if (nk == 0) {
+        if (lane == 0)
+          push_plain(sm, it, Item{m0, n0, e, ZERO | CONSUMERS << SPAN});
+        ++it;
+        continue;
+      }
+      int k = 0;
+      for (int c0 = 0; k < nk && c0 < n_chunks; c0 += 32) {
+        unsigned hits = __ballot_sync(
+            ~0u, c0 + lane < n_chunks &&
+                     chunk_id(block_ids, c0 + lane, block_m) == e);
+        for (; hits; hits &= hits - 1, ++k, ++it) {
+          if (lane) continue;
+          const int row = (c0 + __ffs(hits) - 1) * 64;
+          const int s = acquire(sm, it);
+          sm.items[s] = Item{m0, n0, e, stage_flags(k, nk, CONSUMERS)};
+          unsigned char* st = sm.ring + s * STAGE_BYTES;
+          wg::bar_arrive_expect_tx(&sm.full[s], STAGE_BYTES);
+          for (int h = 0; h < CONSUMERS; ++h)
+            wg::tma_load_2d(st + h * BOX_BYTES, &x_map, &sm.full[s],
+                            m0 + h * 64, row);
+          for (int q = 0; q < BN / 64; ++q)
+            wg::tma_load_2d(st + (CONSUMERS + q) * BOX_BYTES, &dy_map,
+                            &sm.full[s], n0 + q * 64, row);
+        }
+      }
+    }
+    if (lane == 0) push_plain(sm, it, Item{0, 0, 0, DONE});
+  } else {
+    wg::reg_alloc<CONSUMER_REGS>();
+    consume<1>(sm, wgi, DwEpilogue{&dw_map, d, f, wgi});
+  }
+}
+
+template <typename Kernel>
+int launch(Kernel kernel, const CUtensorMap& a, const CUtensorMap& b,
+           const CUtensorMap& out, const void* ids, int t, int block_m,
+           int n_experts, int d, int f, int smem, int sms, cudaStream_t st) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<sms, THREADS, smem, st>>>(a, b, out, static_cast<const int*>(ids),
+                                     t / 64, block_m, n_experts, d, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The row-major (rows, cols) bf16 matrix at `p` as TMA boxes {64, 64}.
+int rows_map(CUtensorMap* map, const void* p, int rows, int cols) {
+  const uint64_t dims[2] = {(uint64_t)cols, (uint64_t)rows};
+  const uint64_t strides[1] = {(uint64_t)cols * 2};
+  const uint32_t box[2] = {64, 64};
+  return wg::make_map_bf16(map, p, 2, dims, strides, box);
+}
+
+// The (E, rows, cols) bf16 slabs at `p` as boxes {64, box_rows, 1}: a box
+// never reaches into the next slab.
+int slabs_map(CUtensorMap* map, const void* p, int n, int rows, int cols,
+              int box_rows) {
+  const uint64_t dims[3] = {(uint64_t)cols, (uint64_t)rows, (uint64_t)n};
+  const uint64_t strides[2] = {(uint64_t)cols * 2, (uint64_t)rows * cols * 2};
+  const uint32_t box[3] = {64, (uint32_t)box_rows, 1};
+  return wg::make_map_bf16(map, p, 3, dims, strides, box);
+}
+
+int launch_dx(const void* dy, const void* w, const void* ids, void* dx, int t,
+              int block_m, int n_experts, int d, int f, int sms,
+              cudaStream_t st) {
+  CUtensorMap dy_map, w_map, dx_map;
+  int err = rows_map(&dy_map, dy, t, f);
+  if (!err) err = slabs_map(&w_map, w, n_experts, d, f, BN);
+  if (!err) err = rows_map(&dx_map, dx, t, d);
+  if (err) return err;
+  return launch(gg_dx_sm90, dy_map, w_map, dx_map, ids, t, block_m,
+                n_experts, d, f, smem_bytes(0), sms, st);
+}
+
+int launch_dw(const void* x, const void* dy, const void* ids, void* dw, int t,
+              int block_m, int n_experts, int d, int f, int sms,
+              cudaStream_t st) {
+  CUtensorMap x_map, dy_map, dw_map;
+  int err = rows_map(&x_map, x, t, d);
+  if (!err) err = rows_map(&dy_map, dy, t, f);
+  if (!err) err = slabs_map(&dw_map, dw, n_experts, d, f, 64);
+  if (err) return err;
+  return launch(gg_dw_sm90, x_map, dy_map, dw_map, ids, t, block_m,
+                n_experts, d, f, smem_bytes(n_experts), sms, st);
+}
+
+}  // namespace sm90
+
 }  // namespace
 
 // x (t, d), w (n_experts, d, f), block_ids (t / block_m,) int32, out (t, f);
@@ -1049,4 +1487,34 @@ extern "C" int grouped_gemm_dw_f32(const void* x, const void* dy,
 extern "C" int grouped_gemm_bwd_smem(int dw, int tile_m) {
   if (dw) return tile_m % 32 == 0 ? DwTile<32>::SMEM : DwTile<8>::SMEM;
   return tile_m == PM ? DX_SMEM : tile_m == TR ? DXT_SMEM : -1;
+}
+
+// The bf16 backward on Hopper (route "sm90"): dX and dW as above, for
+// block_m a multiple of 64, d and f multiples of 8 and every base on 16
+// bytes (TMA's rules); `sms` persistent blocks.  Returns the CUDA error
+// code of the launch, or of the tensor maps' encoding (0 on success).
+extern "C" int grouped_gemm_dx_sm90(const void* dy, const void* w,
+                                    const void* block_ids, void* dx, int t,
+                                    int block_m, int n_experts, int d, int f,
+                                    int sms, void* stream) {
+  return sm90::launch_dx(dy, w, block_ids, dx, t, block_m, n_experts, d, f,
+                         sms, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int grouped_gemm_dw_sm90(const void* x, const void* dy,
+                                    const void* block_ids, void* dw, int t,
+                                    int block_m, int n_experts, int d, int f,
+                                    int sms, void* stream) {
+  return sm90::launch_dw(x, dy, block_ids, dw, t, block_m, n_experts, d, f,
+                         sms, static_cast<cudaStream_t>(stream));
+}
+
+// The sm90 kernels' shape: out[0..5] = tile rows, tile columns, K step,
+// ring stages, threads a block, bytes a stage; returns the dynamic shared
+// memory of a dX block (dw 0) or of a dW block over n_experts (dw 1).
+extern "C" int grouped_gemm_sm90_plan(int dw, int n_experts, int* out) {
+  const int shape[6] = {sm90::BM, sm90::BN, sm90::BK, sm90::STAGES,
+                        sm90::THREADS, sm90::STAGE_BYTES};
+  for (int i = 0; i < 6; ++i) out[i] = shape[i];
+  return sm90::smem_bytes(dw ? n_experts : 0);
 }

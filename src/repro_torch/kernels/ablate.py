@@ -1,23 +1,30 @@
 """Where the kernels' time goes: K5 (csrc/flash_attention.cu), K11
-(csrc/flash_attention_bwd.cu), K10 (csrc/xent.cu) and K9
-(csrc/moe_gemm.cu) in bf16, K6 (csrc/decode_attention.cu), the chunk
+(csrc/flash_attention_bwd.cu), K10 (csrc/xent.cu), K9 (csrc/moe_gemm.cu)
+and its Hopper backward (`moe_gemm_bwd`: `gg_dx_sm90` and `gg_dw_sm90` of
+the same source, at Moonlight-16B-A3B's train step) in bf16, K6
+(csrc/decode_attention.cu), the chunk
 kernels K2 (csrc/scan_chunk.cu) and K1 (csrc/coupled_chunk.cu) in fp64
 and fp32, K7 (csrc/ssm_scan.cu) and K8 (csrc/rmsnorm.cu), built beside
 variants with one part removed, each timed at the main path's shapes on
 one card.
 
     PYTHONPATH=src python -m repro_torch.kernels.ablate [--baseline DIR]
-        [source ...]
+        [--ids FILE] [source ...]
 
 (sources: flash_attention, flash_attention_bwd, xent, moe_gemm,
-decode_attention, scan_chunk, coupled_chunk, ssm_scan, rmsnorm; all by
-default).  With
+moe_gemm_bwd, decode_attention, scan_chunk, coupled_chunk, ssm_scan,
+rmsnorm; all by default).  With
 --baseline, the same sources of another checkout rooted at DIR (a `git
 archive` of an earlier commit, say) are built and timed beside them as
 the variant "baseline", so two versions are compared within one call;
-K9 is then also timed in fp32, both versions, and K2's and K1's
-variants are applied to the baseline too (`BASELINE_VARIANTS`,
-"baseline: <variant>").
+K9 is then also timed in fp32, both versions, K9's backward of a
+checkout without the sm90 kernels by its bf16 `mma.sync` kernels, and
+K2's and K1's variants are applied to the baseline too
+(`BASELINE_VARIANTS`, "baseline: <variant>").  With --ids, K9's
+backward takes its block ids and block_m from FILE, the .npz that
+chip_smoke.py writes from a Moonlight step's routing
+(chiprun_out/chip_smoke/moonlight_step_ids.npz), in place of uniformly
+routed ids.
 
 A variant computes a wrong result by design: it is timed, never checked.
 The gap between a variant and the unchanged kernel is what that part costs
@@ -47,6 +54,9 @@ from typing import Dict, List, Tuple
 from repro_torch.kernels import _build
 
 Edit = Tuple[str, str]
+
+#: variant sets that edit another set's source file
+SOURCE_FILE = {"moe_gemm_bwd": "moe_gemm"}
 
 #: source -> variant name -> substitutions (each must match exactly once)
 VARIANTS: Dict[str, Dict[str, List[Edit]]] = {
@@ -189,6 +199,53 @@ VARIANTS: Dict[str, Dict[str, List[Edit]]] = {
              "    acc[0] += __bfloat162float(cw[lane]) + "
              "__bfloat162float(cx[lane]);\n"
              "    for (int kp = 0; kp < 0; ++kp) {")],
+    },
+    "moe_gemm_bwd": {                   # gg_dx_sm90 and gg_dw_sm90
+        "no products (the TMA ring alone)": [
+            ("        wg::mma<BN, TR, TR>(acc, da + kk * STEP, db + kk * STEP,\n"
+             "                            kk > 0 || !(m.flags & FIRST));\n",
+             "        acc[kk] += __uint_as_float((unsigned)(da ^ db));\n")],
+        "no loads after the ring's first (the wgmmas alone)": [
+            ("        wg::bar_arrive_expect_tx(&sm.full[s], span * BOX_BYTES + "
+             "B_BYTES);\n",
+             "        if (it >= STAGES) {\n"
+             "          wg::bar_arrive(&sm.full[s]);\n"
+             "          continue;\n"
+             "        }\n"
+             "        wg::bar_arrive_expect_tx(&sm.full[s], span * BOX_BYTES + "
+             "B_BYTES);\n"),
+            ("          wg::bar_arrive_expect_tx(&sm.full[s], STAGE_BYTES);\n",
+             "          if (it >= STAGES) {\n"
+             "            wg::bar_arrive(&sm.full[s]);\n"
+             "            continue;\n"
+             "          }\n"
+             "          wg::bar_arrive_expect_tx(&sm.full[s], STAGE_BYTES);\n")],
+        "no output stores (the staging into shared memory kept)": [
+            ("        epi(m, buf);\n", "")],
+        "alt: one consumer warpgroup (64-row tiles)": [
+            ("constexpr int CONSUMERS = 2;", "constexpr int CONSUMERS = 1;")],
+        "alt: 2-stage ring": [
+            ("constexpr int STAGES = 3;          // depth of the TMA ring",
+             "constexpr int STAGES = 2;          // depth of the TMA ring")],
+        "alt: wait<1>, a stage released one step late": [
+            ("  for (int it = 0;; ++it) {\n    const int s = it % STAGES;\n"
+             "    wg::bar_wait(&sm.full[s], (it / STAGES) & 1);",
+             "  int pending = -1;\n  for (int it = 0;; ++it) {\n"
+             "    const int s = it % STAGES;\n"
+             "    wg::bar_wait(&sm.full[s], (it / STAGES) & 1);"),
+            ("      wg::commit();\n      wg::wait<0>();\n    }\n"
+             "    if (signal) wg::bar_arrive(&sm.empty[s]);\n",
+             "      wg::commit();\n"
+             "      if (m.flags & LAST) wg::wait<0>(); else wg::wait<1>();\n"
+             "      if (signal && pending >= 0) "
+             "wg::bar_arrive(&sm.empty[pending]);\n"
+             "      pending = m.flags & LAST ? -1 : s;\n"
+             "      if (signal && (m.flags & LAST)) "
+             "wg::bar_arrive(&sm.empty[s]);\n"
+             "    } else if (signal) {\n"
+             "      wg::bar_arrive(&sm.empty[s]);\n    }\n")],
+        "alt: 128-wide N": [
+            ("constexpr int BN = 256;", "constexpr int BN = 128;")],
     },
     "decode_attention": {
         "no score FMAs": [
@@ -424,12 +481,13 @@ def variant_sources(names=None, baseline=None) -> Dict[Tuple[str, str], str]:
     for name, variants in VARIANTS.items():
         if names is not None and name not in names:
             continue
-        src = _inline_headers((_build.CSRC / f"{name}.cu").read_text(),
+        file = SOURCE_FILE.get(name, name)
+        src = _inline_headers((_build.CSRC / f"{file}.cu").read_text(),
                               _build.CSRC)
         out[(name, "unchanged")] = src
         if baseline is not None:
             bdir = Path(baseline) / "src" / "repro_torch" / "csrc"
-            base = _inline_headers((bdir / f"{name}.cu").read_text(), bdir)
+            base = _inline_headers((bdir / f"{file}.cu").read_text(), bdir)
             out[(name, "baseline")] = base
             for label, edits in BASELINE_VARIANTS.get(name, {}).items():
                 out[(name, f"baseline: {label}")] = _apply(
@@ -629,6 +687,63 @@ def _time_k9(torch, libs, rnd, dev, stream):
                              f"{named} of {ids.numel()} blocks of {bm}",
                              label, _event_ms(torch, call, 20)))
         del x32, w32, out32
+    return rows
+
+
+def _time_k9_bwd(torch, libs, rnd, dev, stream, ids_file=None):
+    """K9's backward in bf16 at Moonlight-16B-A3B's train step (4 x 2,048
+    tokens, top 6 of 64 experts: 832 blocks of 64 rows, routed uniformly
+    at random, or as `ids_file` holds), its gate/up (d 2,048, f 1,408)
+    and down (d 1,408, f 2,048) products: dX and dW by `gg_dx_sm90` /
+    `gg_dw_sm90` and their variants; a baseline checkout without them by
+    its `mma.sync` kernels (row tile 64)."""
+    import numpy as np
+    rows = []
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bm, routing = 64, "uniform routing"
+    ids = packed_ids(4 * 2048 * 6, bm, 64, 0)
+    if ids_file:
+        held = np.load(ids_file)
+        ids, bm, routing = held["block_ids"], int(held["block_m"]), ids_file
+    ids = torch.as_tensor(np.asarray(ids), dtype=torch.int32, device=dev)
+    t = ids.numel() * bm
+    named = int((ids >= 0).sum())
+    args = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    for what, d, f in (("gate/up", 2048, 1408), ("down", 1408, 2048)):
+        x, dy = rnd(t, d), rnd(t, f)
+        w = rnd(64, d, f, std=d ** -0.5)
+        dx = torch.empty((t, d), dtype=torch.bfloat16, device=dev)
+        dw = torch.empty((64, d, f), dtype=torch.bfloat16, device=dev)
+        for kind, sm90, mma, ins, out in (
+                ("dX", "grouped_gemm_dx_sm90", "grouped_gemm_dx_bf16",
+                 (dy, w), dx),
+                ("dW", "grouped_gemm_dw_sm90", "grouped_gemm_dw_bf16",
+                 (x, dy), dw)):
+            for (src, label), lib in libs.items():
+                if src != "moe_gemm_bwd":
+                    continue
+                fn = getattr(lib, sm90, None)
+                last = (sms,)
+                if fn is None:                  # a checkout before sm90
+                    fn = getattr(lib, mma)
+                    last = (64, 1) if kind == "dX" else (1,)
+                fn.argtypes = args[:10] + [ctypes.c_int] * (len(last) - 1) \
+                    + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+
+                def call(fn=fn, ins=ins, out=out, last=last):
+                    return fn(ins[0].data_ptr(), ins[1].data_ptr(),
+                              ids.data_ptr(), out.data_ptr(), t, bm, 64, d,
+                              f, *last, stream)
+                if call():
+                    raise RuntimeError(f"K9 {kind} {label}: launch failed")
+                ms = _event_ms(torch, call, 10)
+                rows.append(("K9 backward", f"{kind} {what} ({t},{d}) x "
+                             f"f {f}, {named} of {ids.numel()} blocks of "
+                             f"{bm} ({routing}); "
+                             f"{2.0 * named * bm * d * f / ms / 1e9:.0f} "
+                             f"TFLOP/s", label, ms))
+        del x, dy, w, dx, dw
     return rows
 
 
@@ -897,18 +1012,22 @@ def spills(log: str) -> Dict[str, str]:
     return out
 
 
-def _registers_line(logs, src):
+def _registers_line(logs, src, only=None):
     """`ptxas -v` registers (and spills) of every kernel of each built
-    variant."""
+    variant (those whose name holds `only`, if given)."""
     lines = []
     for (name, label), log in logs.items():
         if name == src:
             parts = []
             spilled = spills(log)
             for k, n in registers(log).items():
-                m = re.search(r"_cu_[0-9a-f]{8}\d+([A-Za-z_]+)I(.*?)EEv", k)
+                if only and only not in k:
+                    continue
+                m = (re.search(r"_cu_[0-9a-f]{8}\d+([A-Za-z_]+)I(.*?)EEv", k)
+                     or re.search(r"(gg_\w+?_sm90)()E", k))
                 extra = f" ({spilled[k]})" if k in spilled else ""
-                parts.append(f"{m.group(1)}<{m.group(2)}> {n}{extra}" if m
+                tmpl = f"<{m.group(2)}>" if m and m.group(2) else ""
+                parts.append(f"{m.group(1)}{tmpl} {n}{extra}" if m
                              else f"{k} {n}{extra}")
             lines.append(f"{src} {label}: " + ", ".join(parts))
     return lines
@@ -959,6 +1078,11 @@ def main(argv=None) -> int:
         i = args.index("--baseline")
         baseline = args[i + 1]
         del args[i:i + 2]
+    ids_file = None
+    if "--ids" in args:
+        i = args.index("--ids")
+        ids_file = args[i + 1]
+        del args[i:i + 2]
     names = args or list(VARIANTS)
     unknown = set(names) - set(VARIANTS)
     if unknown:
@@ -986,6 +1110,8 @@ def main(argv=None) -> int:
                                                        stream),
               "xent": lambda: _time_k10(torch, libs, rnd, gen, dev, stream),
               "moe_gemm": lambda: _time_k9(torch, libs, rnd, dev, stream),
+              "moe_gemm_bwd": lambda: _time_k9_bwd(torch, libs, rnd, dev,
+                                                   stream, ids_file),
               "decode_attention": lambda: _time_k6(torch, libs, rnd, dev,
                                                    stream),
               "scan_chunk": lambda: _time_k2(torch, libs, gen, dev, stream),
@@ -999,6 +1125,9 @@ def main(argv=None) -> int:
         if src in names:
             for line in _registers_line(logs, src):
                 print(line, flush=True)
+    if "moe_gemm_bwd" in names:
+        for line in _registers_line(logs, "moe_gemm_bwd", only="gg_d"):
+            print(line, flush=True)
     rows = [row for name in names for row in timers[name]()]
     for kernel, shape, label, ms in rows:
         print(f"{kernel} {shape} {label}: {ms:.4f} ms", flush=True)

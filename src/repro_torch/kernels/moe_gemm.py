@@ -23,8 +23,16 @@ forward's two row tiles) and `grouped_gemm_dw` (dW[e] = the sum over the
 blocks of id e of X_blk^T dY_blk, one block per expert and output tile
 walking the ids in order: no atomics, so two launches give the same
 bits).  Both accumulate in fp32 and round once, count their launches in
-`bwd_launches`, run `*_plain` on CPU tensors and raise elsewhere.
-`kernels/ops.py::GroupedGemm` puts the three under autograd.
+`bwd_launches` (and by route in `bwd_launches_by_route`), run `*_plain`
+on CPU tensors and raise elsewhere.  `bwd_route` picks the kernels of a
+launch from the shapes and alignment alone: "sm90" (bf16, block_m a
+multiple of 64, d and f multiples of 8, 16-byte aligned bases: TMA's
+rules) takes the Hopper kernels `gg_dx_sm90` / `gg_dw_sm90` (`wgmma` fed
+by TMA through an `mbarrier` ring, persistent blocks, 128 x 256 tiles
+stored by TMA); "mma" every other bf16 launch (the `mma.sync` kernels
+`gg_dx_rows`, `gg_dx_tick`, `gg_dw`: 8-row decode blocks, ragged or
+unaligned shapes); "fma" fp32.  `kernels/ops.py::GroupedGemm` puts the
+three under autograd.
 """
 from __future__ import annotations
 
@@ -40,6 +48,8 @@ from repro_torch.kernels import _build
 launches = 0
 #: backward launches (dX and dW) on CUDA tensors, counted the same way
 bwd_launches = 0
+#: the same launches by route (`bwd_route`)
+bwd_launches_by_route = {"sm90": 0, "mma": 0, "fma": 0}
 
 #: the kernels' row tiles (csrc/moe_gemm.cu: the bf16 `gg_prefill` and
 #: `gg_tick`, dX's `gg_dx_rows` and `gg_dx_tick`, the fp32 kernels' two
@@ -50,6 +60,24 @@ _DX_FNS = {torch.bfloat16: "grouped_gemm_dx_bf16",
            torch.float32: "grouped_gemm_dx_f32"}
 _DW_FNS = {torch.bfloat16: "grouped_gemm_dw_bf16",
            torch.float32: "grouped_gemm_dw_f32"}
+#: dW's sm90 kernel keeps an int an expert in shared memory beside its
+#: 144 KiB ring and 64 KiB of staged output
+SM90_MAX_EXPERTS = 2048
+
+
+def bwd_route(dtype, block_m: int, d: int, f: int, aligned: bool,
+              n_experts: int = 1) -> str:
+    """The backward kernels a launch takes, from shapes and alignment
+    only: "sm90" for bf16 with block_m a multiple of 64, d and f multiples
+    of 8 (rows on 16 bytes) and 16-byte aligned bases (`aligned`), with at
+    most SM90_MAX_EXPERTS experts (dW); "fma" for fp32; "mma" otherwise.
+    Every route is a hand-written kernel."""
+    if dtype == torch.float32:
+        return "fma"
+    if (dtype == torch.bfloat16 and block_m % 64 == 0 and d % 8 == 0
+            and f % 8 == 0 and aligned and n_experts <= SM90_MAX_EXPERTS):
+        return "sm90"
+    return "mma"
 
 
 def _expert_rows(block_ids: torch.Tensor, block_m: int, n_experts: int):
@@ -197,24 +225,67 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, block_ids: torch.Tensor,
     return out
 
 
+def _bwd_route(name, a, b, block_m, d, f, n_experts, route):
+    """The route of a backward launch on the card: `bwd_route`'s, or
+    "mma" where that is "sm90" and `route` asks for it (the card tests
+    and chip_smoke.py hold both routes to the plain versions on the same
+    inputs)."""
+    aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    auto = bwd_route(a.dtype, block_m, d, f, aligned, n_experts)
+    if route is None or route == auto:
+        return auto
+    if route == "mma" and auto == "sm90":
+        return route
+    raise ValueError(f"{name}: route {route!r} does not take these inputs "
+                     f"(bwd_route gives {auto!r})")
+
+
+def _launch_bwd(name, route, fns, a, b, block_ids, out, block_m, n_experts,
+                d, f, tile):
+    """One backward launch by `route`, counted in `bwd_launches` and
+    `bwd_launches_by_route`."""
+    if route == "sm90":
+        fn = getattr(_library(), fns)
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = fn(a.data_ptr(), b.data_ptr(), block_ids.data_ptr(),
+                     out.data_ptr(), a.shape[0], block_m, n_experts, d, f,
+                     _build.sm_count(a.device), stream)
+        if err:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error "
+                               f"{err}")
+    else:
+        _launch(name, fns, a, b, block_ids, out, block_m, n_experts, d, f,
+                *tile)
+    global bwd_launches
+    bwd_launches += 1
+    bwd_launches_by_route[route] += 1
+
+
 def grouped_gemm_dx(dy: torch.Tensor, w: torch.Tensor,
                     block_ids: torch.Tensor, block_m: int) -> torch.Tensor:
     """dX of `grouped_gemm`: dy (T, f), w (E, d, f), block_ids (T //
     block_m,) int32 in [-1, E) -> (T, d) in dy's dtype, row block i
     dy_i w[block_ids[i]]^T, a -1 block zeros."""
+    return _grouped_gemm_dx(dy, w, block_ids, block_m)
+
+
+def _grouped_gemm_dx(dy, w, block_ids, block_m, route=None):
+    """`grouped_gemm_dx` on the route `_bwd_route` takes."""
     _check("grouped_gemm_dx", dy, w, block_ids, block_m,
            lambda dy, w: w.dim() == 3 and w.shape[2] == dy.shape[1])
     tile = _tile("grouped_gemm_dx", dy, block_m)
     if tile is None:
         return grouped_gemm_dx_plain(dy, w, block_ids, block_m)
     n_experts, d, f = w.shape
+    route = _bwd_route("grouped_gemm_dx", dy, w, block_m, d, f, 1, route)
     out = torch.empty((dy.shape[0], d), dtype=dy.dtype, device=dy.device)
     if out.numel() == 0:
         return out
-    _launch("grouped_gemm_dx", _DX_FNS[dy.dtype], dy, w, block_ids, out,
-            block_m, n_experts, d, f, tile)
-    global bwd_launches
-    bwd_launches += 1
+    _launch_bwd("grouped_gemm_dx", route,
+                "grouped_gemm_dx_sm90" if route == "sm90"
+                else _DX_FNS[dy.dtype], dy, w, block_ids, out, block_m,
+                n_experts, d, f, (tile,))
     return out
 
 
@@ -224,6 +295,11 @@ def grouped_gemm_dw(x: torch.Tensor, dy: torch.Tensor,
     """dW of `grouped_gemm`: x (T, d), dy (T, f), block_ids (T //
     block_m,) int32 in [-1, E) -> (E, d, f) in x's dtype, dw[e] the sum
     of x_blk^T dy_blk over the blocks of id e (zeros if none)."""
+    return _grouped_gemm_dw(x, dy, block_ids, block_m, n_experts)
+
+
+def _grouped_gemm_dw(x, dy, block_ids, block_m, n_experts, route=None):
+    """`grouped_gemm_dw` on the route `_bwd_route` takes."""
     _check("grouped_gemm_dw", x, dy, block_ids, block_m,
            lambda x, dy: dy.dim() == 2 and dy.shape[0] == x.shape[0])
     if n_experts < 1:
@@ -232,23 +308,30 @@ def grouped_gemm_dw(x: torch.Tensor, dy: torch.Tensor,
     if _tile("grouped_gemm_dw", x, block_m) is None:
         return grouped_gemm_dw_plain(x, dy, block_ids, block_m, n_experts)
     d, f = x.shape[1], dy.shape[1]
+    route = _bwd_route("grouped_gemm_dw", x, dy, block_m, d, f, n_experts,
+                       route)
     out = torch.empty((n_experts, d, f), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    _launch("grouped_gemm_dw", _DW_FNS[x.dtype], x, dy, block_ids, out,
-            block_m, n_experts, d, f)
-    global bwd_launches
-    bwd_launches += 1
+    _launch_bwd("grouped_gemm_dw", route,
+                "grouped_gemm_dw_sm90" if route == "sm90"
+                else _DW_FNS[x.dtype], x, dy, block_ids, out, block_m,
+                n_experts, d, f, ())
     return out
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.library("moe_gemm")
-    for names, ints in ((_FNS, 7), (_DX_FNS, 7), (_DW_FNS, 6)):
-        for name in names.values():
+    sm90 = ("grouped_gemm_dx_sm90", "grouped_gemm_dw_sm90")
+    for names, ints in ((_FNS.values(), 7), (_DX_FNS.values(), 7),
+                        (_DW_FNS.values(), 6), (sm90, 6)):
+        for name in names:
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * ints + \
                 [ctypes.c_void_p]
             fn.restype = ctypes.c_int
+    lib.grouped_gemm_sm90_plan.argtypes = [ctypes.c_int] * 2 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.grouped_gemm_sm90_plan.restype = ctypes.c_int
     return lib

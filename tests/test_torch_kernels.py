@@ -1444,6 +1444,17 @@ def moe_train_ids(blocks=26, experts=8, seed=0):
     return ids + [-1] * (blocks - len(ids)) if len(ids) < blocks else ids
 
 
+def moonlight_ids(copies=49_152, block_m=64, experts=64, seed=0):
+    """A Moonlight-16B-A3B train step's packed ids (4 x 2,048 tokens, top
+    6): `copies` token copies routed at random with seeded counts, each
+    expert's copies in whole blocks in expert order, then -1 up to
+    ceil(copies / block_m) + experts blocks (832)."""
+    counts = np.random.default_rng(seed).multinomial(
+        copies, [1.0 / experts] * experts)
+    ids = [e for e, c in enumerate(counts) for _ in range(-(-c // block_m))]
+    return ids + [-1] * (-(-copies // block_m) + experts - len(ids))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("ids,bm,d,f,e,shift", [
@@ -1457,35 +1468,94 @@ def moe_train_ids(blocks=26, experts=8, seed=0):
     ([1, -1, 0, 1], 16, 100, 77, 3, 0),              # ragged d and f
     ([0, -1, 1], 128, 33, 130, 3, 0),                # ragged, bm 128
     ([-1, -1], 8, 64, 64, 2, 0),                     # every block empty
-    ([2, 0, 0, -1, 1, 0], 64, 2048, 1000, 4, 0)])    # ragged column tile
+    ([2, 0, 0, -1, 1, 0], 64, 2048, 1000, 4, 0),     # ragged column tile
+    ([0, 1, -1, 1, 2], 128, 512, 384, 3, 0),         # block_m 128
+    ([2, 0, -1, 0], 192, 256, 320, 3, 0),            # block_m 192
+    ([0, 0, 0, 1, 1, -1, 2], 64, 512, 256, 3, 0),    # an odd expert, then one
+    ([0, 0, 0, 2, -1], 64, 1408, 2048, 3, 0),        # down: d 1,408, odd
+    ([3] * 24 + [-1, -1], 64, 256, 512, 4, 0),       # one expert, 24 blocks
+    ([17] * 5 + [-1], 64, 256, 256, 64, 0),          # 63 of 64 experts empty
+    (moonlight_ids(), 64, 2048, 1408, 64, 0),        # Moonlight's gate/up
+    (moe_train_ids(), 64, 200, 264, 8, 0),           # d 200: boxes cut short
+    ([0, 0, 1, -1], 64, 1000, 1408, 2, 0),           # d 1,000, an odd expert
+    ([1, 1, 1, -1, 0], 64, 168, 264, 2, 0)])         # dW rows 192.. past d
 def test_grouped_gemm_backward_kernels_match_plain_on_card(ids, bm, d, f, e,
                                                            shift, dtype):
+    """Each applicable route (`bwd_route`'s, and "mma" where that is
+    "sm90") against the plain versions: the route counted, -1 rows and
+    empty experts zeros over NaN-filled memory, K9's bars, two launches
+    bitwise equal."""
     dev = _card()
     x, w, bid, dy = gg_bwd_inputs(ids, bm, d, f, e, dtype, dev, seed=d + f,
                                   shift=shift)
     assert (x.data_ptr() % 16 != 0) == (dy.data_ptr() % 16 != 0) == \
         bool(shift)
-    # leave non-zero garbage where the outputs will be allocated, so an
-    # expert left unwritten shows
-    torch.full((x.numel() + e * d * f,), float("nan"), device=dev)
-    before = (k9.launches, k9.bwd_launches)
-    dx = k9.grouped_gemm_dx(dy, w, bid, bm)
-    dw = k9.grouped_gemm_dw(x, dy, bid, bm, e)
-    dx2 = k9.grouped_gemm_dx(dy, w, bid, bm)
-    dw2 = k9.grouped_gemm_dw(x, dy, bid, bm, e)
+    auto = k9.bwd_route(dtype, bm, d, f, not shift, e)
+    assert auto == ("fma" if dtype == torch.float32 else
+                    "sm90" if bm % 64 == 0 and d % 8 == 0 and f % 8 == 0
+                    and not shift else "mma")
     ref_x = k9.grouped_gemm_dx_plain(dy, w, bid, bm)
     ref_w = k9.grouped_gemm_dw_plain(x, dy, bid, bm, e)
-    torch.cuda.synchronize()
-    assert (k9.launches, k9.bwd_launches) == (before[0], before[1] + 4)
-    assert dx.dtype == dw.dtype == dtype
-    assert dx.shape == (len(ids) * bm, d) and dw.shape == (e, d, f)
-    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)   # same bits
-    empty = np.repeat(np.asarray(ids) < 0, bm)
-    assert not dx.cpu()[empty].any()                     # -1 blocks: zeros
-    for i in set(range(e)) - set(ids):                   # experts owning none
-        assert not dw[i].any()
-    assert_k9_close(dx, ref_x)
-    assert_k9_close(dw, ref_w)
+    for route in [auto] + (["mma"] if auto == "sm90" else []):
+        # leave non-zero garbage where the outputs will be allocated, so a
+        # row or an expert left unwritten shows
+        torch.full((x.numel() + e * d * f,), float("nan"), device=dev)
+        before = (k9.launches, k9.bwd_launches,
+                  k9.bwd_launches_by_route[route])
+        dx = k9._grouped_gemm_dx(dy, w, bid, bm, route)
+        dw = k9._grouped_gemm_dw(x, dy, bid, bm, e, route)
+        dx2 = k9._grouped_gemm_dx(dy, w, bid, bm, route)
+        dw2 = k9._grouped_gemm_dw(x, dy, bid, bm, e, route)
+        torch.cuda.synchronize()
+        assert (k9.launches, k9.bwd_launches,
+                k9.bwd_launches_by_route[route]) == \
+            (before[0], before[1] + 4, before[2] + 4), route
+        assert dx.dtype == dw.dtype == dtype
+        assert dx.shape == (len(ids) * bm, d) and dw.shape == (e, d, f)
+        assert torch.equal(dx, dx2) and torch.equal(dw, dw2), route
+        empty = np.repeat(np.asarray(ids) < 0, bm)
+        assert not dx.cpu()[empty].any(), route          # -1 blocks: zeros
+        for i in set(range(e)) - set(ids):               # experts owning none
+            assert not dw[i].any(), (route, i)
+        assert_k9_close(dx, ref_x)
+        assert_k9_close(dw, ref_w)
+        del dx, dw, dx2, dw2
+
+
+@pytest.mark.cuda
+def test_grouped_gemm_sm90_plan_on_card():
+    """The sm90 kernels' tile, as the C library builds it, is 128 x 256
+    with K steps of 64; a block's shared memory fits the card's 232,448
+    bytes up to `SM90_MAX_EXPERTS`."""
+    _card()
+    import ctypes
+    lib = k9._library()
+    out = (ctypes.c_int * 6)()
+    dx_smem = lib.grouped_gemm_sm90_plan(0, 0, out)
+    assert (out[0], out[1], out[2]) == (128, 256, 64)
+    assert out[5] * out[3] < dx_smem <= 232_448
+    assert lib.grouped_gemm_sm90_plan(1, k9.SM90_MAX_EXPERTS, out) <= 232_448
+
+
+@pytest.mark.parametrize("dtype,bm,d,f,aligned,e,route", [
+    (torch.bfloat16, 64, 2048, 1408, True, 64, "sm90"),    # Moonlight gate/up
+    (torch.bfloat16, 64, 1408, 2048, True, 64, "sm90"),    # its down
+    (torch.bfloat16, 128, 512, 384, True, 3, "sm90"),
+    (torch.bfloat16, 192, 8, 8, True, 1, "sm90"),
+    (torch.bfloat16, 64, 200, 264, True, 8, "sm90"),       # d off 64
+    (torch.bfloat16, 64, 1000, 1408, True, 2, "sm90"),
+    (torch.bfloat16, 8, 2048, 1408, True, 64, "mma"),      # decode blocks
+    (torch.bfloat16, 16, 2048, 1408, True, 8, "mma"),
+    (torch.bfloat16, 96, 2048, 1408, True, 8, "mma"),      # block_m off 64
+    (torch.bfloat16, 64, 33, 130, True, 3, "mma"),         # d off 8
+    (torch.bfloat16, 64, 256, 200 + 4, True, 3, "mma"),    # f off 8
+    (torch.bfloat16, 64, 256, 200, False, 8, "mma"),       # misaligned
+    (torch.bfloat16, 64, 2048, 1408, True, 2048, "sm90"),
+    (torch.bfloat16, 64, 2048, 1408, True, 2049, "mma"),   # too many experts
+    (torch.float32, 64, 2048, 1408, True, 64, "fma"),
+    (torch.float32, 8, 100, 77, False, 3, "fma")])
+def test_bwd_route_table(dtype, bm, d, f, aligned, e, route):
+    assert k9.bwd_route(dtype, bm, d, f, aligned, e) == route
 
 
 @pytest.mark.cuda
@@ -1709,15 +1779,17 @@ def test_blocked_xent_kernel_matches_plain_on_card(t, d, v, block_v, dv,
 
 def test_ablation_variants_apply_to_the_sources():
     """Every part-removed variant of `kernels.ablate` still matches the
-    current K1, K2, K5, K6, K7, K8, K9, K10 and K11 sources, with their
-    headers inlined (the tool is run on the card; here only its
-    substitutions are checked)."""
+    current K1, K2, K5, K6, K7, K8, K9 (forward, and the sm90 backward
+    kernels of the same source), K10 and K11 sources, with their headers
+    inlined (the tool is run on the card; here only its substitutions are
+    checked)."""
     from repro_torch.kernels import ablate
     srcs = ablate.variant_sources()
     assert set(ablate.VARIANTS) == {"scan_chunk", "coupled_chunk",
                                     "flash_attention", "decode_attention",
-                                    "moe_gemm", "xent", "ssm_scan",
-                                    "rmsnorm", "flash_attention_bwd"}
+                                    "moe_gemm", "moe_gemm_bwd", "xent",
+                                    "ssm_scan", "rmsnorm",
+                                    "flash_attention_bwd"}
     for name, variants in ablate.VARIANTS.items():
         base = srcs[(name, "unchanged")]
         assert len(variants) >= 3
