@@ -195,14 +195,18 @@ the answers against the repo's own oracles:
      loss and gradient norm within 1e-2);
   7c. training with the blocked loss (`phase_train_loop`): (a) K12a
      (`blocked_xent_bwd`, the blocked loss's backward) at the main
-     path's first and last call and the first on fp32 inputs against its
-     plain version (bf16 2^-7 |x| + 1e-3 max |x|, fp32 1e-4 max |x|, two
-     launches bitwise equal), timed whole, its kernel alone and the
-     chunks' cuBLAS products, beside its bound, the plain version and
-     autograd's backward of `x @ W` + `F.cross_entropy`; (b) ten
+     path's first and last call on both bf16 routes (`bwd_route`'s
+     "sm90", the Hopper kernel, and "mma", the first design, forced
+     through the private `_blocked_xent_bwd`) and the first on fp32
+     inputs against its plain version (bf16 2^-7 |x| + 1e-3 max |x|,
+     fp32 1e-4 max |x|, two launches bitwise equal), timed whole, its
+     kernel alone and the chunks' cuBLAS products on both routes, beside
+     the first design's time, its bound, the plain version and autograd's
+     backward of `x @ W` + `F.cross_entropy`; (b) ten
      `make_train_step` steps with `blocked_xent=True` on 7b's batch
-     (K10 1, K12a 4 (a launch a vocab chunk), K5 22, K11 22, K8 45 + 45
-     launches a step) against ten with full logits: step ms, tokens/s,
+     (K10 1, K12a 4 (a launch a vocab chunk, all on route "sm90"), K5
+     22, K11 22, K8 45 + 45 launches a step) against ten with full
+     logits: step ms, tokens/s,
      peak memory, the idle share of traced steps; the first step's
      gradients against a plain-version run and the full-logits step's
      (the excess rule); the loss falls, every leaf finite; `remat`
@@ -225,7 +229,9 @@ the answers against the repo's own oracles:
      the depth cut to 4 layers (layer 0 dense, 1-3 MoE), bf16 with the
      blocked loss on `SyntheticLM(4, 2048)` and well-conditioned weights:
      launch proof a step (K9 9 forward, K9's backward `grouped_gemm_dx` 9
-     and `grouped_gemm_dw` 9, K5 and K11 4, K8 9 + 9, K10 1, K12a 20),
+     and `grouped_gemm_dw` 9, K5 and K11 4, K8 9 + 9, K10 1, K12a 20,
+     all 20 on route "sm90"; K12a's call held against its plain version
+     on both bf16 routes and timed on both),
      six steps on one batch (three traced: the trace's launches against
      the wrappers' counts, device ms by kernel group, idle share), step
      ms, tokens/s and peak memory; dX and dW at the step's shapes and
@@ -2606,7 +2612,7 @@ KERNEL_GROUPS = (("K1", ("coupled_chunk_kernel",)),
                  ("K10", ("xent_kernel",)),
                  ("K11", ("flash_bwd",)),
                  ("K8 backward", ("rms_bwd",)),
-                 ("K12a", ("xent_bwd_kernel",)),
+                 ("K12a", ("xent_bwd_kernel", "xent_bwd_sm90")),
                  ("cuBLAS", ("nvjet", "gemv", "gemm", "splitK", "cutlass")),
                  ("copies and casts", ("copy", "Copy")),
                  ("softmax", ("softmax",)),
@@ -3729,6 +3735,14 @@ def recording_copies(torch, mod, name, store):
         setattr(mod, name, fn)
 
 
+def on_device(torch, call, device):
+    """A recorded `(args, kwargs)` call with its tensors moved to
+    `device`."""
+    args, kw = call
+    return (tuple(a.to(device) if isinstance(a, torch.Tensor) else a
+                  for a in args), kw)
+
+
 @contextlib.contextmanager
 def step_memory(torch, model, st, out):
     """Record in `out` the device memory of a train step of `model`:
@@ -3770,6 +3784,72 @@ def xent_bwd_bound(torch, x, emb, kernel_only=False):
         bytes_, ops = 2 * (t + v) * d * e + 12 * t, 6.0 * t * v * d
     return bound_ms(bytes_, ops, 0, str(x.dtype).split(".")[1],
                     peak=PEAK_TC_S)
+
+
+#: K12a's first design (the `mma.sync` kernel, route "mma" now) at the
+#: TinyLlama train step's call, H100 80GB HBM3 at 700.00 W: a call and its
+#: kernel's four launches, ms by CUDA events
+K12A_FIRST_DESIGN_MS = {"call": 11.6950, "kernel": 4.7799, "products": 6.9151}
+K12A_DESIGN = ("sm90: wgmma m64n256k16 from a 3-stage TMA ring under "
+               "mbarriers, 128 x 256 logits tiles (two consumer warpgroups "
+               "and a producer warp), dl formed in registers and stored as "
+               "hi + lo bf16 terms by TMA, one persistent block an SM on a "
+               "static stride, no atomics")
+
+
+def k12a_hold(torch, k10, calls):
+    """K12a at recorded `(where, (args, kwargs))` calls against its plain
+    version, on every route the inputs take (`bwd_route`'s, and "mma"
+    where that is "sm90"): PERF.md's bar (`bwd_bar`), two launches
+    bitwise equal.  Returns the worst error by route."""
+    worst = {}
+    for where, (args, kw) in calls:
+        want = k10.blocked_xent_bwd_plain(*args, **kw)
+        auto = k10._bwd_route(args[0], args[1], kw["transpose_emb"], None)
+        for route in [auto] + (["mma"] if auto == "sm90" else []):
+            got = k10._blocked_xent_bwd(*args, route=route, **kw)
+            again = k10._blocked_xent_bwd(*args, route=route, **kw)
+            torch.cuda.synchronize()
+            for a, w, b in zip(got, want, again):
+                err = (a.float() - w.float()).abs()
+                check(bool(torch.isfinite(a).all()) and bool(
+                    (err <= bwd_bar(w, a.dtype == torch.bfloat16)).all()),
+                      f"K12a {where} call, route {route}: max err "
+                      f"{float(err.max()):.3e} (max |x| "
+                      f"{float(w.float().abs().max()):.4g})")
+                check(torch.equal(a, b), f"K12a {where} call, route "
+                      f"{route}: two launches on the same inputs differ")
+                worst[route] = max(worst.get(route, 0.0), float(err.max()))
+            del got, again
+        del want
+    return worst
+
+
+def k12a_times(torch, k10, args, kw, reps, routes=("sm90", "mma")):
+    """ms by CUDA events of K12a on these inputs by route: (the whole
+    call, its kernel's launches alone)."""
+    x, emb, lab, lse, g = args
+    dv, bv = kw["transpose_emb"], kw["block_v"]
+    out = {}
+    for route in routes:
+        out[route] = (
+            cuda_ms(torch, lambda r=route: k10._blocked_xent_bwd(
+                *args, route=r, **kw), reps),
+            cuda_ms(torch, lambda r=route: [None for _ in k10._bwd_chunks(
+                x, emb, lab, lse, g, dv, bv, r)], reps))
+    return out
+
+
+def k12a_sm90_shape(k10, build, dev, n_tok, ld):
+    """The sm90 kernel's tile, ring, dynamic shared memory and grid at a
+    launch of n_tok tokens and ld columns, as the C library builds them."""
+    shape = (ctypes.c_int * 7)()
+    smem = k10._bwd_library().blocked_xent_bwd_sm90_plan(
+        n_tok, ld, build.sm_count(dev), shape)
+    return (f"sm90 {smem:,} B of dynamic shared memory ({shape[3]} stages "
+            f"of {shape[5]:,} B, tiles {shape[0]} x {shape[1]}, d steps of "
+            f"{shape[2]}, {shape[4]} threads, 1 block an SM, {shape[6]} "
+            f"persistent blocks at {n_tok} tokens x {ld} columns)")
 
 
 def state_diff(torch, a, b):
@@ -3835,6 +3915,7 @@ def phase_train_loop(torch, k5, k8, k10, build, dev):
     def zero_counts():
         k10.launches = k10.bwd_launches = k5.launches = k5.bwd_launches = 0
         k8.launches = k8.bwd_launches = 0
+        k10.bwd_launches_by_route.update(sm90=0, mma=0, fma=0)
 
     def free():
         gc.collect()
@@ -3864,6 +3945,7 @@ def phase_train_loop(torch, k5, k8, k10, build, dev):
                 zero_counts()
                 state, met, ms1 = timed_step(step, state)
                 n = counts()
+                by_route = dict(k10.bwd_launches_by_route)
             peak = torch.cuda.max_memory_allocated()
             g_first[name] = flat_leaves(upd[0][0][1])
             del upd
@@ -3872,6 +3954,9 @@ def phase_train_loop(torch, k5, k8, k10, build, dev):
             check(n == want, f"a {name} step launched K10 {n[0]}, K12a "
                   f"{n[1]}, K5 {n[2]}, K11 {n[3]}, K8 {n[4]} forward and "
                   f"{n[5]} backward; expected {want}")
+            check(by_route == {"sm90": want[1], "mma": 0, "fma": 0},
+                  f"a {name} step's K12a launches by route {by_route}; "
+                  f"expected all {want[1]} on route sm90")
             losses, walls = [met["loss"]], [ms1]
             for _ in range(TRAIN["steps"] - 1):               # one batch
                 state, mt, ms = timed_step(step, state)
@@ -4000,44 +4085,25 @@ def phase_train_loop(torch, k5, k8, k10, build, dev):
         free()
     del g_first
 
-    # (a) K12a per call: the main path's first and last call, and the
-    # first again with its inputs in fp32
+    # (a) K12a per call: the main path's first and last call on both bf16
+    # routes, and the first again with its inputs in fp32; timed on both
+    # routes, whole calls and the kernel's launches alone
     def fp32(args):
         return tuple(t.float() if isinstance(t, torch.Tensor)
                      and t.dtype == torch.bfloat16 else t for t in args)
-    worst = worst32 = 0.0
     first, last = calls12["first"], calls12["last"]
-    for where, (args, kw) in (("first", first), ("last", last),
-                              ("first, fp32", (fp32(first[0]), first[1]))):
-        got = k10.blocked_xent_bwd(*args, **kw)
-        want = k10.blocked_xent_bwd_plain(*args, **kw)
-        again = k10.blocked_xent_bwd(*args, **kw)
-        torch.cuda.synchronize()
-        for a, w, b in zip(got, want, again):
-            err = (a.float() - w.float()).abs()
-            check(bool(torch.isfinite(a).all()) and bool(
-                (err <= bwd_bar(w, a.dtype == torch.bfloat16)).all()),
-                  f"K12a {where} call: max err {float(err.max()):.3e} "
-                  f"(max |x| {float(w.float().abs().max()):.4g})")
-            check(torch.equal(a, b), f"K12a {where} call: two launches "
-                  "on the same inputs differ")
-            if where.endswith("fp32"):
-                worst32 = max(worst32, float(err.max()))
-            else:
-                worst = max(worst, float(err.max()))
-        del got, want, again
+    worst = k12a_hold(torch, k10, [("first", first), ("last", last)])
+    worst32 = k12a_hold(torch, k10, [("first, fp32", (fp32(first[0]),
+                                                      first[1]))])["fma"]
     args, kw = first
     x, emb, lab, lse, g = args
-    dv, bv = kw["transpose_emb"], kw["block_v"]
-    ms = cuda_ms(torch, lambda: k10.blocked_xent_bwd(*args, **kw), 10)
-    kern_ms = cuda_ms(torch, lambda: [None for _ in k10._bwd_chunks(
-        x, emb, lab, lse, g, dv, bv)], 10)
+    t12 = k12a_times(torch, k10, args, kw, 10)
+    ms, kern_ms = t12["sm90"]
+    ms_mma, kern_mma = t12["mma"]
     plain_ms = cuda_ms(torch, lambda: k10.blocked_xent_bwd_plain(*args, **kw),
                        3)
     a32 = fp32(args)
-    ms32 = cuda_ms(torch, lambda: k10.blocked_xent_bwd(*a32, **kw), 3)
-    kern32 = cuda_ms(torch, lambda: [None for _ in k10._bwd_chunks(
-        *a32, dv, bv)], 3)
+    ms32, kern32 = k12a_times(torch, k10, a32, kw, 3, ("fma",))["fma"]
     del a32
     xl = x.detach().clone().requires_grad_()
     wl = emb.detach().clone().requires_grad_()
@@ -4049,24 +4115,35 @@ def phase_train_loop(torch, k5, k8, k10, build, dev):
     b_ms, b_by = xent_bwd_bound(torch, x, emb)
     kb_ms, kb_by = xent_bwd_bound(torch, x, emb, kernel_only=True)
     n12 = runs["blocked"]["n"][1]
+    first_ms = K12A_FIRST_DESIGN_MS
     row = {"name": "blocked_xent_bwd", "route": "cuda",
            "source": "src/repro_torch/csrc/xent_bwd.cu",
            "replaces": "src/repro/models/loss.py:35", "launches": n12,
-           "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+           "max_abs_err": worst["sm90"], "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "design": K12A_DESIGN, "first_design_ms": ms_mma,
+           "first_design_kernel_ms": kern_mma}
     k12_text = (f"K12a blocked_xent_bwd at the main path's x {tuple(x.shape)}"
                 f" head {tuple(emb.shape)} bf16, {chunks} chunks of "
-                f"{bv}: max err {worst:.3e} over the first and last call "
-                f"({worst32:.3e} on the first's inputs in fp32), two "
-                f"launches bitwise equal; a call {ms:.4f} ms by CUDA events "
-                f"(bound {b_ms:.4f} {b_by}): the kernel's {chunks} launches "
-                f"{kern_ms:.4f} ms (bound {kb_ms:.4f} {kb_by}), the chunks' "
-                f"cuBLAS products and sums {ms - kern_ms:.4f} ms (bound "
-                f"{2 * kb_ms:.4f} operations, counting dl once); fp32 "
-                f"{ms32:.3f} ms (kernel {kern32:.3f}); plain {plain_ms:.3f}; "
-                f"no single PyTorch call computes it: autograd's backward of "
-                f"x @ W + F.cross_entropy (full logits, two calls) "
-                f"{lib_ms:.4f}")
+                f"{kw['block_v']}, all {n12} launches of a step on route "
+                f"sm90: max err {worst['sm90']:.3e} over the first and last "
+                f"call (route mma {worst['mma']:.3e}; {worst32:.3e} on the "
+                f"first's inputs in fp32), two launches bitwise equal on "
+                f"each route; a call {ms:.4f} ms by CUDA events (bound "
+                f"{b_ms:.4f} {b_by}): the kernel's {chunks} launches "
+                f"{kern_ms:.4f} ms (bound {kb_ms:.4f} {kb_by}; "
+                f"{2.0 * x.shape[0] * emb.numel() / kern_ms / 1e9:.0f} "
+                f"TFLOP/s), the chunks' cuBLAS products and sums "
+                f"{ms - kern_ms:.4f} ms (bound {2 * kb_ms:.4f} operations, "
+                f"counting dl once); route mma on the same inputs: a call "
+                f"{ms_mma:.4f}, its kernel {kern_mma:.4f}, products "
+                f"{ms_mma - kern_mma:.4f} (the first design's recorded "
+                f"times, a constant: a call {first_ms['call']:.4f}, its "
+                f"kernel {first_ms['kernel']:.4f}, products "
+                f"{first_ms['products']:.4f}); fp32 {ms32:.3f} ms (kernel "
+                f"{kern32:.3f}); plain {plain_ms:.3f}; no single PyTorch "
+                f"call computes it: autograd's backward of x @ W + "
+                f"F.cross_entropy (full logits, two calls) {lib_ms:.4f}")
     del calls12, first, last, args, x, emb, lab, lse, g
     free()
 
@@ -4100,9 +4177,11 @@ def phase_train_loop(torch, k5, k8, k10, build, dev):
         ref = run(LOOP["total"])
         n_loop = counts()
         check(n_loop[:2] == (LOOP["total"], chunks * LOOP["total"])
-              and n_loop[3] == layers * LOOP["total"], f"run_training's "
-              f"{LOOP['total']} steps launched K10 {n_loop[0]}, K12a "
-              f"{n_loop[1]}, K11 {n_loop[3]}")
+              and n_loop[3] == layers * LOOP["total"]
+              and k10.bwd_launches_by_route["sm90"] == n_loop[1],
+              f"run_training's {LOOP['total']} steps launched K10 "
+              f"{n_loop[0]}, K12a {n_loop[1]} (by route "
+              f"{k10.bwd_launches_by_route}), K11 {n_loop[3]}")
         check(all(math.isfinite(v) for m in ref.metrics_history
                   for v in m.values()) and all(
                       bool(torch.isfinite(t.float()).all())
@@ -4225,10 +4304,12 @@ def phase_train_loop(torch, k5, k8, k10, build, dev):
           f"by {chip.name}; phase {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     print("K12a ptxas: " + ptxas_report(build, "xent_bwd", (
-        "xent_bwd_kernel_mma", "xent_bwd_kernel")) + "; dynamic shared "
-          "memory of the bf16 kernel: 156,672 B with the (d, V) head, "
-          "165,888 B with a (V, d) table (3 stages of a 128 x 64 x tile and "
-          "a 64 x 256 or 256 x 64 head tile, rows padded by 8)", flush=True)
+        "xent_bwd_sm90", "xent_bwd_kernel_mma", "xent_bwd_kernel"))
+          + f"; {k12a_sm90_shape(k10, build, dev, n_tok, cfg.vocab_block)}"
+          "; mma: 156,672 B with the (d, V) "
+          "head, 165,888 B with a (V, d) table (3 stages of a 128 x 64 x "
+          "tile and a 64 x 256 or 256 x 64 head tile, rows padded by 8)",
+          flush=True)
     return row
 
 
@@ -4879,8 +4960,14 @@ def phase_moe_train(torch, k5, k8, k9, k10, moe, build, dev):
         torch.cuda.empty_cache()
 
     step = ST.make_train_step(model, opt)
-    state, _, warm_ms = timed_step(step, fresh())             # warm-up
-    del state
+    # the warm-up step, from the same state as the main path's first, also
+    # records K12a's call (copies of its inputs, kept on the host so that
+    # the main path's peak does not count them)
+    calls12 = {}
+    with recording_copies(torch, k10, "blocked_xent_bwd", calls12):
+        state, _, warm_ms = timed_step(step, fresh())         # warm-up
+    call12 = on_device(torch, calls12["first"], "cpu")
+    del state, calls12
     free()
 
     # the main path: counts zeroed just before the first step, read just
@@ -4899,8 +4986,10 @@ def phase_moe_train(torch, k5, k8, k9, k10, moe, build, dev):
         k5.launches = k5.bwd_launches = k8.launches = k8.bwd_launches = 0
         k9.launches = k9.bwd_launches = k10.launches = k10.bwd_launches = 0
         k9.bwd_launches_by_route.update(sm90=0, mma=0, fma=0)
+        k10.bwd_launches_by_route.update(sm90=0, mma=0, fma=0)
         state, met, ms1 = timed_step(step, state)
         by_route = dict(k9.bwd_launches_by_route)
+        by_route12 = dict(k10.bwd_launches_by_route)
         n = {"K9": k9.launches, "dX": n_calls.get("grouped_gemm_dx", 0),
              "dW": n_calls.get("grouped_gemm_dw", 0),
              "K9 backward": k9.bwd_launches, "K5": k5.launches,
@@ -4916,6 +5005,9 @@ def phase_moe_train(torch, k5, k8, k9, k10, moe, build, dev):
     check(by_route == {"sm90": 6 * n_moe, "mma": 0, "fma": 0},
           f"a Moonlight step's K9 backward launches by route {by_route}; "
           f"expected all {6 * n_moe} on route sm90")
+    check(by_route12 == {"sm90": chunks, "mma": 0, "fma": 0},
+          f"a Moonlight step's K12a launches by route {by_route12}; "
+          f"expected all {chunks} on route sm90")
     losses, walls = [met["loss"]], [ms1]
     for _ in range(MOE_TRAIN["steps"] - MOE_TRAIN["traced"] - 1):
         state, m, ms = timed_step(step, state)
@@ -5047,8 +5139,8 @@ def phase_moe_train(torch, k5, k8, k9, k10, moe, build, dev):
                 f"{label} {tuple(a.shape)} x {tuple(b.shape)}, {named} of "
                 f"{ids.numel()} blocks of {bm} named: {ms:.4f} ms, "
                 f"{2.0 * named * bm * d * f / ms / 1e9:.0f} TFLOP/s (first "
-                f"design {first_ms:.4f}, its kernels in this run "
-                f"{ms_mma:.4f}; plain {plain:.3f}, "
+                f"design's kernels in this run {ms_mma:.4f}, its recorded "
+                f"time {first_ms:.4f}; plain {plain:.3f}, "
                 + (f"{lib_name} {lib_ms:.4f}" if lib else
                    f"library not measured: {lib_name}")
                 + f", bound {b_ms:.4f} {b_by}; {grid})")
@@ -5056,7 +5148,7 @@ def phase_moe_train(torch, k5, k8, k9, k10, moe, build, dev):
                 rows[which] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
                                "bound_by": b_by, "library_ms": lib_ms,
                                "design": K9_BWD_DESIGN,
-                               "first_design_ms": first_ms}
+                               "first_design_ms": ms_mma}
             del lib
         rows[which]["max_abs_err"] = worst
         texts.append(f"{which} ({n[which]} launches a step; max err "
@@ -5064,6 +5156,28 @@ def phase_moe_train(torch, k5, k8, k9, k10, moe, build, dev):
                      f"shape's first and last call, two launches bitwise "
                      f"equal on each route): " + "; ".join(parts))
     del calls
+    free()
+
+    # K12a's call of the step (its 20 launches) against its plain version
+    # on both bf16 routes, and timed on both
+    args12, kw12 = on_device(torch, call12, dev)
+    worst12 = k12a_hold(torch, k10, [("Moonlight", (args12, kw12))])
+    t12 = k12a_times(torch, k10, args12, kw12, 5)
+    x12, e12 = args12[:2]
+    b12, b12_by = xent_bwd_bound(torch, x12, e12)
+    kb12, kb12_by = xent_bwd_bound(torch, x12, e12, kernel_only=True)
+    k12_text = (f"K12a at a step's call (the warm-up step's, from the main "
+                f"path's state; x {tuple(x12.shape)}, head "
+                f"{tuple(e12.shape)}, {chunks} launches, all on sm90): max "
+                f"err {worst12['sm90']:.3e}, route mma {worst12['mma']:.3e}, "
+                f"two launches bitwise equal on each; sm90 a call "
+                f"{t12['sm90'][0]:.4f} ms, its kernel {t12['sm90'][1]:.4f} "
+                f"({2.0 * x12.shape[0] * e12.numel() / t12['sm90'][1] / 1e9:.0f}"
+                f" TFLOP/s), products {t12['sm90'][0] - t12['sm90'][1]:.4f}; "
+                f"mma a call {t12['mma'][0]:.4f}, its kernel "
+                f"{t12['mma'][1]:.4f}; bound {b12:.4f} {b12_by} (kernel "
+                f"{kb12:.4f} {kb12_by})")
+    del call12, args12, kw12, x12, e12
     free()
 
     # the first step's gradients against plain-version runs swapped in by
@@ -5126,7 +5240,7 @@ def phase_moe_train(torch, k5, k8, k9, k10, moe, build, dev):
           f"make_train_step on SyntheticLM {bsz} x {seq} (seed 0, step 0) "
           f"{MOE_TRAIN['steps']} times ({MOE_TRAIN['traced']} traced): "
           f"losses {[round(v, 4) for v in losses]}; launches a step {n}, "
-          f"K9 backward by route {by_route}; "
+          f"K9 backward by route {by_route}, K12a by route {by_route12}; "
           f"step {step_ms:.1f} ms (median of steps 2-"
           f"{MOE_TRAIN['steps'] - MOE_TRAIN['traced']}; first {ms1:.1f}, "
           f"warm-up {warm_ms:.1f}), {n_tok / step_ms * 1e3:.0f} tokens/s; "
@@ -5140,8 +5254,8 @@ def phase_moe_train(torch, k5, k8, k9, k10, moe, build, dev):
           f"worst {max(d_k):.3e}, plain bf16 vs fp32 plain worst "
           f"{max(d_p):.3e}, the kernel run's excess {excess:.3e} (bar "
           f"{GRAD_EXCESS}); K9 backward per call (ms by CUDA events): "
-          + "; ".join(texts) + f"; phase {time.perf_counter() - t_phase:.1f}"
-          " s", flush=True)
+          + "; ".join(texts) + f"; {k12_text}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     lib9 = k9._library()
     lib9.grouped_gemm_bwd_smem.restype = ctypes.c_int
     shape = (ctypes.c_int * 6)()

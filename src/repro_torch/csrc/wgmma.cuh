@@ -1,7 +1,8 @@
 // Hopper building blocks for the bf16 kernels that multiply on `wgmma`
-// (K9's backward, csrc/moe_gemm.cu; meant for the later redesigns of K12a,
-// K11 and K10 too): TMA tile loads into shared memory that report to an
-// `mbarrier`, TMA tile stores from shared memory, the shared-memory
+// (K9's backward, csrc/moe_gemm.cu, and K12a's, csrc/xent_bwd.cu; meant
+// for the later redesigns of K11 and K10 too): TMA tile loads into shared
+// memory that report to an `mbarrier`, TMA tile stores from shared memory,
+// the shared-memory
 // matrix descriptor of a 128-byte swizzled tile, warpgroup products
 // `wgmma.mma_async` m64nNk16 (N 128 or 256; bf16 in, fp32 sums in
 // registers) with their fence, commit and wait, `setmaxnreg`, and on the

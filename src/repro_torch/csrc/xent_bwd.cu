@@ -26,26 +26,60 @@
 // at the 989 TFLOP/s of the bf16 tensor cores of an NVIDIA H100 SXM (data
 // sheet, 700 W), against 1.05 GB of dl (hi + lo), 0.31 ms at 3.35 TB/s.
 //
-// Design.  No state crosses a tile, so a block computes one tile of
-// logits and its dl: a grid of (token tiles, column tiles of the chunk),
-// no atomics, so two launches give the same bits.  bf16
-// (xent_bwd_kernel_mma): K10's tile, 128 tokens x 256 columns, 8 warps
-// each owning a 64 x 64 sub-tile as `mma.sync` m16n8k16 accumulator
-// fragments (bf16 in, fp32 sums), the d loop through a 3-stage `cp.async`
-// ring of 64-deep x and head tiles (`csrc/mma.cuh`); the (d, V) head read
-// in place is a K-major B operand (`ldmatrix.trans`), a tied (V, d) table
-// a plain one.  dl is formed from the fragments in registers and stored
-// as hi and lo bf16 pairs.  fp32 (xent_bwd_kernel): K10's fp32 FMA tile, 64 tokens
-// x 128 columns through shared memory, each thread 4 x 8 logits in
-// registers, dl stored as float4.  Both products reading dl back, fused
-// into this kernel, would need d = 2,048 fp32 accumulators a row of dx on
-// chip: that design is later work (ROADMAP.md).
+// No state crosses a tile of logits, so every design below gives each
+// 128 x 256 (bf16) or 64 x 128 (fp32) tile to one block, with no atomics:
+// two launches give the same bits.  Three routes (the wrapper's
+// `bwd_route`):
+//
+// "sm90", bf16 where TMA can describe the tensors (d, and V for the (d, V)
+// head, multiples of 8; x, emb and dl on 16 bytes): xent_bwd_sm90
+// (namespace sm90 below, on csrc/wgmma.cuh).  Three warpgroups, 384
+// threads.  A producer warp issues TMA loads (128-byte swizzle) into a
+// 3-stage `mbarrier` ring of 48 KB stages: x's rows as two K-major {64 d,
+// 64 tokens} boxes (the A operand, one a consumer warpgroup) and the
+// head's 256 columns, read in place: the (d, V) head as four MN-major {64
+// v, 64 d} boxes side by side (wgmma's transpose flag 1), a tied (V, d)
+// table as one K-major {64 d, 256 v} box.  Two consumer warpgroups
+// (setmaxnreg 232, the producer 40) each multiply their 64 token rows by
+// the shared 256 columns, four wgmma m64n256k16 a stage into 128 fp32 sums
+// a thread, and release the stage on its `empty` mbarrier.  At a tile's
+// last stage each consumer forms dl from its sums in registers (lse, g and
+// the label of its thread's two rows), stages hi in a 32 KB swizzled tile
+// and hands it to TMA stores, keeping lo packed in the sums' registers,
+// then stages lo in the same tile once the hi stores have read it (hi + lo
+// staging for both warpgroups, 128 KB, does not fit beside the ring); the
+// next tile's products start while the lo stores run.  TMA zero-fills loads
+// past d, T and V and leaves out stores past T and ld, so ragged shapes
+// need no mask; the epilogue zeroes columns from v_end on.  One persistent
+// block an SM walks the chunk's tiles on a static stride (tile i to block
+// i mod grid), the token tiles of a column tile together, so a wave of
+// blocks shares the head's 1 MB column tiles in L2 while x (32 MB at T
+// 8,192) streams.  Tiles wholly past the vocabulary store zeros and load
+// nothing.
+//
+// "mma", every other bf16 input (the first design,
+// xent_bwd_kernel_mma): K10's tile on `mma.sync` m16n8k16, 8 warps each
+// owning a 64 x 64 sub-tile (bf16 in, fp32 sums), the d loop through a
+// 3-stage `cp.async` ring of 64-deep x and head tiles (`csrc/mma.cuh`);
+// the (d, V) head read in place is a K-major B operand
+// (`ldmatrix.trans`), a tied (V, d) table a plain one.  dl is formed from
+// the fragments in registers and stored as hi and lo bf16 pairs.  A grid
+// of (token tiles, column tiles of the chunk).
+//
+// "fma", fp32 (xent_bwd_kernel): K10's fp32 FMA tile, 64 tokens x 128
+// columns through shared memory, each thread 4 x 8 logits in registers,
+// dl stored as float4.
+//
+// Both products reading dl back, fused into this kernel, would need d =
+// 2,048 fp32 accumulators a row of dx on chip: that design is later work
+// (ROADMAP.md).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -364,6 +398,341 @@ int launch_fma(const void* x, const void* emb, const void* labels,
   return static_cast<int>(cudaGetLastError());
 }
 
+// -------------------------------------------------------------------------
+// bf16 on Hopper (route "sm90"): wgmma fed by TMA, persistent blocks
+// -------------------------------------------------------------------------
+namespace sm90 {
+
+constexpr int CONSUMERS = 2;       // consumer warpgroups, 64 token rows each
+constexpr int BN = 256;            // tile columns: the wgmma's N
+constexpr int BK = 64;             // d step: one 128-byte swizzle row of bf16
+constexpr int STAGES = 3;          // depth of the TMA ring
+constexpr int BM = 64 * CONSUMERS;
+constexpr int THREADS = 128 * (CONSUMERS + 1);  // + one producer warpgroup
+constexpr int BOX_BYTES = 64 * BK * 2;          // one 64 x 64 TMA box
+constexpr int B_BYTES = BN * BK * 2;            // the head's 256 columns
+constexpr int STAGE_BYTES = CONSUMERS * BOX_BYTES + B_BYTES;
+constexpr int OUT_BYTES = 64 * BN * 2;          // a warpgroup's staged term
+// 40 + 2 x 232 = 3 x 168, the registers a thread that __launch_bounds__
+// (384, 1) leaves: the producer gives back what the accumulators take
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr int ALIGN = 1024;        // 128-byte swizzled tiles start on 1 KB
+constexpr float LOG2E = 1.4426950408889634f;
+
+// One ring stage's work, written by the producer before the stage's
+// arrival: the tile's first token row and first column in the chunk.
+struct Item {
+  int row0, n0, flags;
+};
+constexpr int FIRST = 1, LAST = 2, ZERO = 4, DONE = 8;
+
+constexpr int SMEM_BYTES = ALIGN + STAGES * STAGE_BYTES +
+                           CONSUMERS * OUT_BYTES +
+                           STAGES * (16 + (int)sizeof(Item));
+
+struct Smem {
+  unsigned char* ring;  // [STAGES][CONSUMERS x boxes | head], on 1,024 B
+  unsigned char* out;   // [CONSUMERS] staged bf16 terms for TMA stores
+  uint64_t* full;       // [STAGES] TMA bytes landed (one arrival: producer)
+  uint64_t* empty;      // [STAGES] released (an arrival a consumer warp)
+  Item* items;          // [STAGES]
+};
+
+__device__ __forceinline__ Smem carve(unsigned char* raw) {
+  Smem s;
+  s.ring = raw + (ALIGN - wg::smem_u32(raw) % ALIGN) % ALIGN;
+  s.out = s.ring + STAGES * STAGE_BYTES;
+  s.full = reinterpret_cast<uint64_t*>(s.out + CONSUMERS * OUT_BYTES);
+  s.empty = s.full + STAGES;
+  s.items = reinterpret_cast<Item*>(s.empty + STAGES);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      wg::bar_init(&s.full[i], 1);
+      wg::bar_init(&s.empty[i], CONSUMERS * 4);
+    }
+    wg::bar_fence_init();
+  }
+  return s;
+}
+
+// Producer side of the ring: stage `it` is free once the consumer
+// warpgroups released its previous use (a fresh slot passes at once).
+__device__ __forceinline__ int acquire(const Smem& sm, int it) {
+  const int s = it % STAGES;
+  wg::bar_wait(&sm.empty[s], ((it / STAGES) & 1) ^ 1);
+  return s;
+}
+// An item with no loads: a tile of zeros, or the end.
+__device__ __forceinline__ void push_plain(const Smem& sm, int it, Item m) {
+  const int s = acquire(sm, it);
+  sm.items[s] = m;
+  wg::bar_arrive(&sm.full[s]);
+}
+
+// What a consumer's epilogue reads beside its sums.
+struct Rows {
+  const int* labels;
+  const float* lse;
+  const float* g;
+  int n_tok, v_begin, v_end, ld;
+};
+
+// The epilogue's first half: dl of the tile from its sums, thread t's
+// accumulators holding rows r = 16 (t / 32) + t % 32 / 4 (and r + 8) at
+// columns 8 j + 2 (t % 4) (+ 1); zeros past the vocabulary and for a
+// tile of zeros.  hi = bf16(dl) goes into the staging tile, as BN / 64
+// swizzled boxes of 64 x 64 (conflict-free: the 8 rows a store
+// instruction writes land in 8 different 16-byte columns), and lo =
+// bf16(dl - hi) stays in registers, a pair packed in place of the first
+// of its two sums, until the hi stores have read the tile.
+__device__ __forceinline__ void stage_hi(unsigned char* buf,
+                                         float (&acc)[BN / 2], const Item& m,
+                                         int wgi, const Rows& p) {
+  const int t = threadIdx.x % 128, row = t / 32 * 16 + t % 32 / 4;
+  const int col = t % 4 * 2;
+  const int c0 = p.v_begin + m.n0 + col;
+  const bool zero = m.flags & ZERO;
+  float lse2[2], gt[2];
+  int lab[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = m.row0 + wgi * 64 + row + 8 * h;
+    const bool in = r < p.n_tok && !zero;
+    lse2[h] = in ? __ldg(p.lse + r) * LOG2E : 0.f;
+    gt[h] = in ? __ldg(p.g + r) : 0.f;
+    lab[h] = in ? __ldg(p.labels + r) : -1;
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float dl[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = c0 + 8 * j + e;
+        dl[e] = c < p.v_end && !zero
+                    ? gt[h] * (exp2f(fmaf(acc[4 * j + 2 * h + e], LOG2E,
+                                          -lse2[h])) -
+                               (c == lab[h] ? 1.f : 0.f))
+                    : 0.f;
+      }
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(dl[0], dl[1]);
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(
+          dl[0] - __low2float(hi), dl[1] - __high2float(hi));
+      *reinterpret_cast<__nv_bfloat162*>(
+          buf + wg::sw128_offset(row + 8 * h, 8 * j + col, 64)) = hi;
+      acc[4 * j + 2 * h] =
+          __uint_as_float(*reinterpret_cast<const uint32_t*>(&lo));
+    }
+}
+
+// The second half: the lo pairs `stage_hi` kept into the staging tile.
+__device__ __forceinline__ void stage_lo(unsigned char* buf,
+                                         const float (&acc)[BN / 2]) {
+  const int t = threadIdx.x % 128, row = t / 32 * 16 + t % 32 / 4;
+  const int col = t % 4 * 2;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(
+          buf + wg::sw128_offset(row + 8 * h, 8 * j + col, 64)) =
+          __float_as_uint(acc[4 * j + 2 * h]);
+}
+
+// The TMA stores of a staged term: 64 rows from row0, one {64, 64} box a
+// 64 columns from col0; TMA leaves out rows past T and columns past ld,
+// and boxes wholly past ld are not issued.
+__device__ __forceinline__ void store_term(const CUtensorMap* map,
+                                           const unsigned char* buf,
+                                           int col0, int row0, int ld) {
+  for (int b = 0; b < BN / 64 && col0 + 64 * b < ld; ++b)
+    wg::tma_store_2d(map, buf + b * BOX_BYTES, col0 + 64 * b, row0);
+}
+
+// Consumer warpgroup `wgi`: takes the ring's items in order, multiplies
+// its 64-row box of x by the shared head columns (B MN-major for the
+// (d, V) head, else K-major) into 64 x BN fp32 sums and releases the
+// stage.  At a tile's last stage (or a tile of zeros) it forms dl, stages
+// hi and its first thread hands it to TMA stores, then lo in the same
+// staging tile once those have read it; the next tile's products start
+// while the lo stores run.
+template <bool EMB_DV>
+__device__ __forceinline__ void consume(const Smem& sm, int wgi,
+                                        const CUtensorMap* hi_map,
+                                        const CUtensorMap* lo_map,
+                                        const Rows& p) {
+  float acc[BN / 2];
+#pragma unroll
+  for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
+  const bool signal = threadIdx.x % 32 == 0;
+  const bool leader = threadIdx.x % 128 == 0;
+  unsigned char* buf = sm.out + wgi * OUT_BYTES;
+  // a k16 step moves a descriptor 32 bytes along a K-major row, or 16
+  // rows (2,048 bytes) down an MN-major box; in 16-byte units
+  constexpr int B_STEP = EMB_DV ? 128 : 2;
+  for (int it = 0;; ++it) {
+    const int s = it % STAGES;
+    wg::bar_wait(&sm.full[s], (it / STAGES) & 1);
+    const Item m = sm.items[s];
+    if (m.flags & DONE) break;
+    if (!(m.flags & ZERO)) {
+      const unsigned char* st = sm.ring + s * STAGE_BYTES;
+      const unsigned char* b = st + CONSUMERS * BOX_BYTES;
+      const uint64_t da = wg::desc_k_major(st + wgi * BOX_BYTES);
+      const uint64_t db = EMB_DV ? wg::desc_mn_major(b, BOX_BYTES)
+                                 : wg::desc_k_major(b);
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wg::mma<BN, 0, EMB_DV>(acc, da + kk * 2, db + kk * B_STEP,
+                               kk > 0 || !(m.flags & FIRST));
+      wg::commit();
+      wg::wait<0>();
+    }
+    if (signal) wg::bar_arrive(&sm.empty[s]);
+    if (m.flags & (LAST | ZERO)) {
+      const int row0 = m.row0 + wgi * 64;
+      const bool live = leader && row0 < p.n_tok;   // else wholly past T
+      if (leader) wg::store_wait_read<0>();    // the last lo stores read buf
+      wg::warpgroup_sync(1 + wgi);
+      stage_hi(buf, acc, m, wgi, p);
+      wg::fence_async();
+      wg::warpgroup_sync(1 + wgi);
+      if (live) {
+        store_term(hi_map, buf, m.n0, row0, p.ld);
+        wg::store_commit();
+        wg::store_wait_read<0>();
+      }
+      wg::warpgroup_sync(1 + wgi);             // the hi stores read buf
+      stage_lo(buf, acc);
+      wg::fence_async();
+      wg::warpgroup_sync(1 + wgi);
+      if (live) {
+        store_term(lo_map, buf, m.n0, row0, p.ld);
+        wg::store_commit();
+      }
+    }
+  }
+  if (leader) wg::store_wait_all();
+}
+
+// One launch a chunk: the ceil(T / BM) x ceil(ld / BN) tiles of dl over
+// `gridDim.x` persistent blocks, tile i (token tile i % rows of column
+// tile i / rows) to block i mod gridDim.x.  x_map: x (T, d) as {64 d, 64
+// tokens} boxes; e_map: the (d, V) head as {64 v, 64 d} boxes (EMB_DV) or
+// the (V, d) table as {64 d, BN v} boxes; hi_map, lo_map: the (T, ld)
+// terms as {64, 64} boxes.
+template <bool EMB_DV>
+__global__ void __launch_bounds__(THREADS, 1)
+xent_bwd_sm90(const __grid_constant__ CUtensorMap x_map,
+              const __grid_constant__ CUtensorMap e_map,
+              const __grid_constant__ CUtensorMap hi_map,
+              const __grid_constant__ CUtensorMap lo_map,
+              const int* __restrict__ labels, const float* __restrict__ lse,
+              const float* __restrict__ g, int n_tok, int d, int v_begin,
+              int width, int ld) {
+  extern __shared__ unsigned char smem_raw[];
+  const Smem sm = carve(smem_raw);
+  __syncthreads();
+  const int wgi = threadIdx.x / 128;
+  const int v_end = v_begin + width;
+  if (wgi == CONSUMERS) {
+    wg::reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x % 128 == 0) {
+      wg::prefetch_map(&x_map);
+      wg::prefetch_map(&e_map);
+      const int rows = (n_tok + BM - 1) / BM, cols = (ld + BN - 1) / BN;
+      const int ksteps = (d + BK - 1) / BK;
+      int it = 0;
+      for (int i = blockIdx.x; i < rows * cols; i += gridDim.x) {
+        const int r = i % rows;
+        const int c = i / rows;
+        const int v0 = v_begin + c * BN;
+        if (v0 >= v_end) {                    // past the vocabulary: zeros
+          push_plain(sm, it++, Item{r * BM, c * BN, ZERO});
+          continue;
+        }
+        for (int k = 0; k < ksteps; ++k, ++it) {
+          const int s = acquire(sm, it);
+          sm.items[s] = Item{r * BM, c * BN, (k == 0 ? FIRST : 0) |
+                                                 (k == ksteps - 1 ? LAST : 0)};
+          unsigned char* st = sm.ring + s * STAGE_BYTES;
+          wg::bar_arrive_expect_tx(&sm.full[s], STAGE_BYTES);
+          for (int h = 0; h < CONSUMERS; ++h)
+            wg::tma_load_2d(st + h * BOX_BYTES, &x_map, &sm.full[s], k * BK,
+                            r * BM + h * 64);
+          unsigned char* b = st + CONSUMERS * BOX_BYTES;
+          if constexpr (EMB_DV) {
+            for (int q = 0; q < BN / 64; ++q)
+              wg::tma_load_2d(b + q * BOX_BYTES, &e_map, &sm.full[s],
+                              v0 + q * 64, k * BK);
+          } else {
+            wg::tma_load_2d(b, &e_map, &sm.full[s], k * BK, v0);
+          }
+        }
+      }
+      push_plain(sm, it, Item{0, 0, DONE});
+    }
+  } else {
+    wg::reg_alloc<CONSUMER_REGS>();
+    consume<EMB_DV>(sm, wgi, &hi_map, &lo_map,
+                    Rows{labels, lse, g, n_tok, v_begin, v_end, ld});
+  }
+}
+
+// The row-major (rows, cols) bf16 matrix at `p` as TMA boxes {64,
+// box_rows}.
+int rows_map(CUtensorMap* map, const void* p, int rows, int cols,
+             int box_rows) {
+  const uint64_t dims[2] = {(uint64_t)cols, (uint64_t)rows};
+  const uint64_t strides[1] = {(uint64_t)cols * 2};
+  const uint32_t box[2] = {64, (uint32_t)box_rows};
+  return wg::make_map_bf16(map, p, 2, dims, strides, box);
+}
+
+// The blocks a launch of n_tok tokens and ld columns takes: one an SM, no
+// more than there are tiles.
+int grid_for(int n_tok, int ld, int sms) {
+  const int work = (n_tok + BM - 1) / BM * ((ld + BN - 1) / BN);
+  return work < sms ? work : sms;
+}
+
+template <bool EMB_DV>
+int launch(const void* x, const void* emb, const void* labels,
+           const void* lse, const void* g, void* dl, void* dl_lo, int n_tok,
+           int V, int d, int v_begin, int width, int ld, int sms,
+           cudaStream_t st) {
+  CUtensorMap x_map, e_map, hi_map, lo_map;
+  int err = rows_map(&x_map, x, n_tok, d, 64);
+  if (!err)
+    err = EMB_DV ? rows_map(&e_map, emb, d, V, 64)
+                 : rows_map(&e_map, emb, V, d, BN);
+  if (!err) err = rows_map(&hi_map, dl, n_tok, ld, 64);
+  if (!err) err = rows_map(&lo_map, dl_lo, n_tok, ld, 64);
+  if (err) return err;
+  static bool raised[64] = {};  // the >48 KB opt-in, once a device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= 64 || !raised[dev]) {
+    e = cudaFuncSetAttribute(xent_bwd_sm90<EMB_DV>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_BYTES);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev < 64) raised[dev] = true;
+  }
+  const int grid = grid_for(n_tok, ld, sms);
+  if (grid < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  xent_bwd_sm90<EMB_DV><<<grid, THREADS, SMEM_BYTES, st>>>(
+      x_map, e_map, hi_map, lo_map, static_cast<const int*>(labels),
+      static_cast<const float*>(lse), static_cast<const float*>(g), n_tok, d,
+      v_begin, width, ld);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace sm90
+
 }  // namespace
 
 // x: (n_tok, d) row-major; emb: (V, d), or (d, V) when emb_dv; labels:
@@ -406,4 +775,37 @@ extern "C" int blocked_xent_bwd_f32(const void* x, const void* emb,
   if (emb_dv) return XENT_BWD(false, true);
   return XENT_BWD(false, false);
 #undef XENT_BWD
+}
+
+// The bf16 kernel on Hopper (route "sm90"): the arguments of
+// blocked_xent_bwd_bf16 with `sms` persistent blocks in place of
+// `vector`; d, and V when emb_dv, multiples of 8, and x, emb, dl and
+// dl_lo on 16 bytes (TMA's rules); ld a multiple of 128.  Returns the
+// CUDA error code of the launch, or of the tensor maps' encoding (0 on
+// success).
+extern "C" int blocked_xent_bwd_sm90(const void* x, const void* emb,
+                                     const void* labels, const void* lse,
+                                     const void* g, void* dl, void* dl_lo,
+                                     int n_tok, int V, int d, int v_begin,
+                                     int width, int ld, int emb_dv, int sms,
+                                     void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return emb_dv ? sm90::launch<true>(x, emb, labels, lse, g, dl, dl_lo,
+                                     n_tok, V, d, v_begin, width, ld, sms, st)
+                : sm90::launch<false>(x, emb, labels, lse, g, dl, dl_lo,
+                                      n_tok, V, d, v_begin, width, ld, sms,
+                                      st);
+}
+
+// The sm90 kernel's shape: out[0..6] = tile rows, tile columns, d step,
+// ring stages, threads a block, bytes a stage, and the blocks a launch of
+// n_tok tokens and ld columns takes on `sms` SMs; returns its dynamic
+// shared memory (bytes).
+extern "C" int blocked_xent_bwd_sm90_plan(int n_tok, int ld, int sms,
+                                          int* out) {
+  const int shape[7] = {sm90::BM,      sm90::BN,          sm90::BK,
+                        sm90::STAGES,  sm90::THREADS,     sm90::STAGE_BYTES,
+                        sm90::grid_for(n_tok, ld, sms)};
+  for (int i = 0; i < 7; ++i) out[i] = shape[i];
+  return sm90::SMEM_BYTES;
 }

@@ -1,7 +1,9 @@
 """Where the kernels' time goes: K5 (csrc/flash_attention.cu), K11
 (csrc/flash_attention_bwd.cu), K10 (csrc/xent.cu), K9 (csrc/moe_gemm.cu)
 and its Hopper backward (`moe_gemm_bwd`: `gg_dx_sm90` and `gg_dw_sm90` of
-the same source, at Moonlight-16B-A3B's train step) in bf16, K6
+the same source, at Moonlight-16B-A3B's train step) and K12a
+(csrc/xent_bwd.cu: `xent_bwd_sm90` over a whole call's chunks at
+TinyLlama-1.1B's and Moonlight-16B-A3B's heads) in bf16, K6
 (csrc/decode_attention.cu), the chunk
 kernels K2 (csrc/scan_chunk.cu) and K1 (csrc/coupled_chunk.cu) in fp64
 and fp32, K7 (csrc/ssm_scan.cu) and K8 (csrc/rmsnorm.cu), built beside
@@ -11,14 +13,15 @@ one card.
     PYTHONPATH=src python -m repro_torch.kernels.ablate [--baseline DIR]
         [--ids FILE] [source ...]
 
-(sources: flash_attention, flash_attention_bwd, xent, moe_gemm,
-moe_gemm_bwd, decode_attention, scan_chunk, coupled_chunk, ssm_scan,
-rmsnorm; all by default).  With
+(sources: flash_attention, flash_attention_bwd, xent, xent_bwd,
+moe_gemm, moe_gemm_bwd, decode_attention, scan_chunk, coupled_chunk,
+ssm_scan, rmsnorm; all by default).  With
 --baseline, the same sources of another checkout rooted at DIR (a `git
 archive` of an earlier commit, say) are built and timed beside them as
 the variant "baseline", so two versions are compared within one call;
 K9 is then also timed in fp32, both versions, K9's backward of a
-checkout without the sm90 kernels by its bf16 `mma.sync` kernels, and
+checkout without the sm90 kernels by its bf16 `mma.sync` kernels (K12a's
+"mma" route is timed beside the unchanged kernel and the baseline), and
 K2's and K1's variants are applied to the baseline too
 (`BASELINE_VARIANTS`, "baseline: <variant>").  With --ids, K9's
 backward takes its block ids and block_m from FILE, the .npz that
@@ -246,6 +249,35 @@ VARIANTS: Dict[str, Dict[str, List[Edit]]] = {
              "      wg::bar_arrive(&sm.empty[s]);\n    }\n")],
         "alt: 128-wide N": [
             ("constexpr int BN = 256;", "constexpr int BN = 128;")],
+    },
+    "xent_bwd": {                       # K12a's sm90 kernel, xent_bwd_sm90
+        "no products (the TMA ring alone)": [
+            ("        wg::mma<BN, 0, EMB_DV>(acc, da + kk * 2, db + kk * B_STEP,\n"
+             "                               kk > 0 || !(m.flags & FIRST));\n",
+             "        acc[kk] += __uint_as_float((unsigned)(da ^ db));\n")],
+        "no loads after the ring's first (the wgmmas alone)": [
+            ("        wg::bar_arrive_expect_tx(&sm.full[s], STAGE_BYTES);\n",
+             "        if (it >= STAGES) {\n"
+             "          wg::bar_arrive(&sm.full[s]);\n"
+             "          continue;\n"
+             "        }\n"
+             "        wg::bar_arrive_expect_tx(&sm.full[s], STAGE_BYTES);\n")],
+        "no dl stores (dl formed and staged)": [
+            ("    wg::tma_store_2d(map, buf + b * BOX_BYTES, col0 + 64 * b, "
+             "row0);\n", "    ;\n")],
+        "alt: 2-stage ring": [
+            ("constexpr int STAGES = 3;          // depth of the TMA ring",
+             "constexpr int STAGES = 2;          // depth of the TMA ring")],
+        "alt: one consumer warpgroup (64-row tiles)": [
+            ("constexpr int CONSUMERS = 2;       // consumer warpgroups, 64 "
+             "token rows each",
+             "constexpr int CONSUMERS = 1;       // consumer warpgroups, 64 "
+             "token rows each")],
+        "alt: column tiles under each token tile (the other raster)": [
+            ("        const int r = i % rows;\n"
+             "        const int c = i / rows;\n",
+             "        const int r = i / cols;\n"
+             "        const int c = i % cols;\n")],
     },
     "decode_attention": {
         "no score FMAs": [
@@ -747,6 +779,63 @@ def _time_k9_bwd(torch, libs, rnd, dev, stream, ids_file=None):
     return rows
 
 
+def _time_k12a(torch, libs, rnd, gen, dev, stream):
+    """K12a's kernel in bf16 over a whole call's vocab chunks (one launch
+    a chunk of 8,192 columns, last first), the (d, V) head read in place:
+    TinyLlama-1.1B's train step (x (8192, 2048), head (2048, 32000), 4
+    launches) and Moonlight-16B-A3B's ((2048, 163840), 20 launches):
+    `xent_bwd_sm90` and its variants; a baseline checkout without it by
+    its `mma.sync` kernel, and this checkout's "mma" route beside them."""
+    from repro_torch.kernels import xent as k10
+    rows = []
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    args = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    t, d, chunk = 8192, 2048, 8192
+    x = rnd(t, d)
+    lab = torch.randint(0, 32000, (t,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    g = torch.full((t,), 1.0 / t, device=dev)
+    dl = torch.empty((t, chunk), dtype=torch.bfloat16, device=dev)
+    lo = torch.empty_like(dl)
+    for name, vocab in (("TinyLlama", 32000), ("Moonlight", 163840)):
+        w = rnd(d, vocab, std=d ** -0.5)
+        lse = k10.blocked_xent(x, w, lab, transpose_emb=True)[2]
+        ld = min(chunk, -(-vocab // 128) * 128)
+        calls = []
+        for (src, label), lib in libs.items():
+            if src != "xent_bwd":
+                continue
+            fn = getattr(lib, "blocked_xent_bwd_sm90", None)
+            kinds = [("", fn, sms)] if fn is not None else []
+            if label in ("unchanged", "baseline") or fn is None:
+                kinds.append((" (mma route)" if fn is not None else "",
+                              getattr(lib, "blocked_xent_bwd_bf16"), 1))
+            for suffix, f, last in kinds:
+                f.argtypes = args
+                f.restype = ctypes.c_int
+                calls.append((label + suffix, f, last))
+        for label, fn, last in calls:
+            def call(fn=fn, last=last):
+                err = 0
+                for base in reversed(range(0, vocab, chunk)):
+                    err = err or fn(x.data_ptr(), w.data_ptr(),
+                                    lab.data_ptr(), lse.data_ptr(),
+                                    g.data_ptr(), dl.data_ptr(),
+                                    lo.data_ptr(), t, vocab, d, base,
+                                    min(chunk, vocab - base), ld, 1, last,
+                                    stream)
+                return err
+            if call():
+                raise RuntimeError(f"K12a {name} {label}: launch failed")
+            ms = _event_ms(torch, call, 5)
+            rows.append(("K12a", f"{name} x ({t},{d}) head ({d},{vocab}), "
+                         f"{-(-vocab // chunk)} launches; "
+                         f"{2.0 * t * vocab * d / ms / 1e9:.0f} TFLOP/s",
+                         label, ms))
+        del w, lse
+    return rows
+
+
 def _time_k6(torch, libs, rnd, dev, stream):
     """bf16 decode over a 32k cache of Qwen2.5-14B's heads (40 / 8 KV,
     D 128) and TinyLlama-1.1B's (4, 2048, 4, 64) cache, every key valid."""
@@ -1024,7 +1113,8 @@ def _registers_line(logs, src, only=None):
                 if only and only not in k:
                     continue
                 m = (re.search(r"_cu_[0-9a-f]{8}\d+([A-Za-z_]+)I(.*?)EEv", k)
-                     or re.search(r"(gg_\w+?_sm90)()E", k))
+                     or re.search(r"(gg_\w+?_sm90)()E", k)
+                     or re.search(r"(xent_bwd_sm90)I(.*?)EEv", k))
                 extra = f" ({spilled[k]})" if k in spilled else ""
                 tmpl = f"<{m.group(2)}>" if m and m.group(2) else ""
                 parts.append(f"{m.group(1)}{tmpl} {n}{extra}" if m
@@ -1112,6 +1202,8 @@ def main(argv=None) -> int:
               "moe_gemm": lambda: _time_k9(torch, libs, rnd, dev, stream),
               "moe_gemm_bwd": lambda: _time_k9_bwd(torch, libs, rnd, dev,
                                                    stream, ids_file),
+              "xent_bwd": lambda: _time_k12a(torch, libs, rnd, gen, dev,
+                                             stream),
               "decode_attention": lambda: _time_k6(torch, libs, rnd, dev,
                                                    stream),
               "scan_chunk": lambda: _time_k2(torch, libs, gen, dev, stream),
@@ -1127,6 +1219,9 @@ def main(argv=None) -> int:
                 print(line, flush=True)
     if "moe_gemm_bwd" in names:
         for line in _registers_line(logs, "moe_gemm_bwd", only="gg_d"):
+            print(line, flush=True)
+    if "xent_bwd" in names:
+        for line in _registers_line(logs, "xent_bwd", only="xent_bwd_"):
             print(line, flush=True)
     rows = [row for name in names for row in timers[name]()]
     for kernel, shape, label, ms in rows:

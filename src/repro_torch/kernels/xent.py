@@ -19,9 +19,14 @@ and on the bf16 path as hi and lo bf16 terms (dl rounded to bf16 alone
 misses one rounding step on dx where a row's softmax and one-hot terms
 cancel).  The chunk's two products dx += dl E_chunk and d E_chunk =
 dl^T x go to cuBLAS, as the reference leaves its einsums to XLA; in bf16
-each is taken over hi and lo with fp32 outputs and summed in fp32.  The
+each is taken over hi and lo, accumulated in place into fp32 (dx over
+the whole call, d E_chunk in a buffer cast once into d emb).  The
 chunks run from the last to the first, as the reference's reverse scan
-does, dx summed in fp32 and rounded once.
+does, dx summed in fp32 and rounded once.  `bwd_route` picks K12a's
+kernel from the shapes and alignment alone: "sm90" (bf16 where TMA can
+describe the tensors) takes the Hopper kernel `xent_bwd_sm90` (`wgmma`
+fed by TMA through an `mbarrier` ring, persistent blocks, dl stored by
+TMA), "mma" every other bf16 input (the `mma.sync` kernel), "fma" fp32.
 
 `block_v` is the vocab block: the plain versions scan blocks of that many
 columns, as the reference's scan does; the kernels take chunks of that
@@ -30,10 +35,11 @@ partials as the scan merges blocks).
 
 On a CUDA tensor each wrapper launches its hand-written kernel (bf16 on
 the tensor cores, fp32 on FMAs) and counts each launch (`launches`,
-`bwd_launches`; a K12a call launches its kernel once a chunk); on a CPU
-tensor it runs its plain version.  Any other device raises.  The forward
-refuses inputs that require grad: `kernels/ops.py::BlockedXent` is the
-differentiable entry.
+`bwd_launches`, by route in `bwd_launches_by_route`; a K12a call
+launches its kernel once a chunk); on a CPU tensor it runs its plain
+version.  Any other device raises.  The forward refuses inputs that
+require grad: `kernels/ops.py::BlockedXent` is the differentiable
+entry.
 """
 from __future__ import annotations
 
@@ -50,13 +56,40 @@ from repro_torch.kernels import _build
 #: (one a call) and K12a's (one a vocab chunk)
 launches = 0
 bwd_launches = 0
+#: K12a's launches by route (`bwd_route`)
+bwd_launches_by_route = {"sm90": 0, "mma": 0, "fma": 0}
 
 #: the kernels' token tile by dtype and their vocab tile (csrc/xent.cu)
 TILE_T = {torch.bfloat16: 128, torch.float32: 64}
 TILE_V = 128
 _FNS = {torch.bfloat16: "blocked_xent_bf16", torch.float32: "blocked_xent_f32"}
-_BWD_FNS = {torch.bfloat16: "blocked_xent_bwd_bf16",
-            torch.float32: "blocked_xent_bwd_f32"}
+_BWD_FNS = {"sm90": "blocked_xent_bwd_sm90", "mma": "blocked_xent_bwd_bf16",
+            "fma": "blocked_xent_bwd_f32"}
+
+
+def _rows_on_16_bytes(size: int, d: int, v: int, transpose_emb: bool,
+                      aligned: bool) -> bool:
+    """Whether rows of `size`-byte elements lie on 16 bytes: d, and V for
+    the (d, V) head, multiples of 16 // size, x and emb on 16 bytes
+    (`aligned`).  The kernels' 16-byte loads need it, and so does TMA."""
+    width = 16 // size
+    return (aligned and d % width == 0
+            and (not transpose_emb or v % width == 0))
+
+
+def bwd_route(dtype, d: int, v: int, transpose_emb: bool,
+              aligned: bool) -> str:
+    """K12a's kernel for a launch, from shapes and alignment only: "sm90"
+    for bf16 where TMA can describe the tensors (`_rows_on_16_bytes`: d,
+    and V for the (d, V) head, multiples of 8; x and emb on 16 bytes);
+    "fma" for fp32; "mma" otherwise.  Every route is a hand-written
+    kernel."""
+    if dtype == torch.float32:
+        return "fma"
+    if dtype == torch.bfloat16 and _rows_on_16_bytes(2, d, v, transpose_emb,
+                                                     aligned):
+        return "sm90"
+    return "mma"
 
 
 def blocked_xent_plain(x: torch.Tensor, emb: torch.Tensor,
@@ -172,13 +205,15 @@ def blocked_xent(x: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor,
     return nll, amax, lse
 
 
+def _aligned(x, emb) -> bool:
+    return x.data_ptr() % 16 == 0 and emb.data_ptr() % 16 == 0
+
+
 def _vector(x, emb, transpose_emb) -> int:
     """Whether the kernels may load x and emb in 16-byte pieces."""
-    width = 16 // x.element_size()
     v = emb.shape[1] if transpose_emb else emb.shape[0]
-    return int(x.shape[1] % width == 0 and (not transpose_emb
-                                            or v % width == 0)
-               and x.data_ptr() % 16 == 0 and emb.data_ptr() % 16 == 0)
+    return int(_rows_on_16_bytes(x.element_size(), x.shape[1], v,
+                                 transpose_emb, _aligned(x, emb)))
 
 
 def blocked_xent_bwd_plain(x: torch.Tensor, emb: torch.Tensor,
@@ -227,12 +262,30 @@ def _check_bwd(x, emb, labels, lse, g, transpose_emb, block_v):
                              "x's device")
 
 
-def _bwd_chunks(x, emb, labels, lse, g, transpose_emb, block_v):
-    """K12a's launches of one call, the vocab chunks from the last to the
-    first: after each launch yields (first column, columns, dl) with dl
-    the chunk's (T, columns) fp32 buffer, or its (hi, lo) bf16 terms.
-    Counts each launch in `bwd_launches`."""
+def _bwd_route(x, emb, transpose_emb, route):
+    """The route of K12a's launches on these inputs: `bwd_route`'s, or
+    "mma" where that is "sm90" and `route` asks for it (the card tests
+    and chip_smoke.py hold both routes to the plain version on the same
+    inputs); any other `route` that differs raises."""
+    d = x.shape[1]
+    v = emb.shape[1] if transpose_emb else emb.shape[0]
+    auto = bwd_route(x.dtype, d, v, transpose_emb, _aligned(x, emb))
+    if route is None or route == auto:
+        return auto
+    if route == "mma" and auto == "sm90":
+        return route
+    raise ValueError(f"blocked_xent_bwd: route {route!r} does not take these "
+                     f"inputs (bwd_route gives {auto!r})")
+
+
+def _bwd_chunks(x, emb, labels, lse, g, transpose_emb, block_v, route=None):
+    """K12a's launches of one call by `route` (`_bwd_route`), the vocab
+    chunks from the last to the first: after each launch yields (first
+    column, columns, dl) with dl the chunk's (T, columns) fp32 buffer, or
+    its (hi, lo) bf16 terms.  Counts each launch in `bwd_launches` and
+    `bwd_launches_by_route`."""
     global bwd_launches
+    route = _bwd_route(x, emb, transpose_emb, route)
     t, d = x.shape
     v = emb.shape[1] if transpose_emb else emb.shape[0]
     chunk = -(-block_v // TILE_V) * TILE_V
@@ -240,8 +293,10 @@ def _bwd_chunks(x, emb, labels, lse, g, transpose_emb, block_v):
     dl = torch.empty((t, ld), dtype=x.dtype, device=x.device)
     lo = torch.empty_like(dl) if x.dtype == torch.bfloat16 else dl
     labels = labels.to(torch.int32).contiguous()
-    vector = _vector(x, emb, transpose_emb)
-    fn = getattr(_bwd_library(), _BWD_FNS[x.dtype])
+    # the sm90 kernel's persistent blocks, or the others' 16-byte loads
+    last = (_build.sm_count(x.device) if route == "sm90"
+            else _vector(x, emb, transpose_emb))
+    fn = getattr(_bwd_library(), _BWD_FNS[route])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         for base in reversed(range(0, v, chunk)):
@@ -249,11 +304,12 @@ def _bwd_chunks(x, emb, labels, lse, g, transpose_emb, block_v):
             err = fn(x.data_ptr(), emb.data_ptr(), labels.data_ptr(),
                      lse.data_ptr(), g.data_ptr(), dl.data_ptr(),
                      lo.data_ptr(), t, v, d, base, w, ld,
-                     int(transpose_emb), vector, stream)
+                     int(transpose_emb), last, stream)
             if err:
-                raise RuntimeError(f"blocked_xent_bwd kernel launch failed: "
-                                   f"CUDA error {err}")
+                raise RuntimeError(f"blocked_xent_bwd kernel launch failed "
+                                   f"(route {route}): CUDA error {err}")
             bwd_launches += 1
+            bwd_launches_by_route[route] += 1
             yield base, w, (dl[:, :w] if lo is dl
                             else (dl[:, :w], lo[:, :w]))
 
@@ -266,7 +322,15 @@ def blocked_xent_bwd(x: torch.Tensor, emb: torch.Tensor,
     """K12a: the gradients (dx (T, d), d emb of emb's shape, both in x's
     dtype) of sum_t g[t] nll[t] for `blocked_xent`'s inputs, given its lse
     (T,) fp32 and g (T,) fp32."""
+    return _blocked_xent_bwd(x, emb, labels, lse, g, transpose_emb, block_v)
+
+
+def _blocked_xent_bwd(x, emb, labels, lse, g, transpose_emb=False,
+                      block_v=8192, route=None):
+    """`blocked_xent_bwd` with its kernel's `route` checked (`_bwd_route`,
+    on any device) and taken on the card."""
     _check_bwd(x, emb, labels, lse, g, transpose_emb, block_v)
+    _bwd_route(x, emb, transpose_emb, route)
     if x.device.type == "cpu":
         return blocked_xent_bwd_plain(x, emb, labels, lse, g,
                                       transpose_emb=transpose_emb,
@@ -276,27 +340,35 @@ def blocked_xent_bwd(x: torch.Tensor, emb: torch.Tensor,
                            f"not {x.device}")
     exact_fp32()
     f32 = torch.float32
+    t, d = x.shape
+    v = emb.shape[1] if transpose_emb else emb.shape[0]
     dx = torch.zeros(x.shape, dtype=f32, device=x.device)
     demb = torch.zeros_like(emb)
+    # a chunk's d E, (d, w) for the (d, V) head or (w, d), summed in fp32
+    # in place and cast once into demb
+    de_buf = torch.empty((min(-(-block_v // TILE_V) * TILE_V, v) * d,),
+                         dtype=f32, device=x.device)
+
+    def de_operands(part):           # d E = dl^T x, or x^T dl (d, V)
+        return (x.t(), part) if transpose_emb else (part.t(), x)
     for base, w, dl in (_bwd_chunks(x, emb, labels, lse, g, transpose_emb,
-                                    block_v) if x.shape[0] else ()):
+                                    block_v, route) if t else ()):
         cols = slice(base, base + w)
         rhs = emb[:, cols].t() if transpose_emb else emb[cols]   # (w, d)
+        de = de_buf[:w * d].view((d, w) if transpose_emb else (w, d))
         if x.dtype == f32:
             dx.addmm_(dl, rhs)
-            de = x.t() @ dl if transpose_emb else dl.t() @ x
-        else:            # hi and lo terms, each product summed in fp32
-            de = None
-            for part in dl:
-                dx += torch.mm(part, rhs, out_dtype=f32)
-                p = (torch.mm(x.t(), part, out_dtype=f32) if transpose_emb
-                     else torch.mm(part.t(), x, out_dtype=f32))
-                de = p if de is None else de.add_(p)
+            torch.mm(*de_operands(dl), out=de)
+        else:                # hi, then lo: each product summed in fp32
+            hi, lo = dl
+            torch.addmm(dx, hi, rhs, out_dtype=f32, out=dx)
+            torch.addmm(dx, lo, rhs, out_dtype=f32, out=dx)
+            torch.mm(*de_operands(hi), out_dtype=f32, out=de)
+            torch.addmm(de, *de_operands(lo), out_dtype=f32, out=de)
         if transpose_emb:
             demb[:, cols] = de
         else:
             demb[cols] = de
-        del de
     return dx.to(x.dtype), demb
 
 
@@ -319,4 +391,7 @@ def _bwd_library() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.blocked_xent_bwd_sm90_plan.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.blocked_xent_bwd_sm90_plan.restype = ctypes.c_int
     return lib

@@ -1702,37 +1702,130 @@ def test_blocked_xent_bwd_wrapper_dispatch_and_checks():
     (3, 64, 40, 8192, False, 0),           # fewer rows and columns than a tile
     (129, 256, 3000, 1024, True, 0),       # one row past a 128-row tile
     (200, 512, 5001, 2048, False, 0),      # tied table, V % 8 != 0
-    (255, 256, 8200, 8192, True, 0)])      # a last chunk of 8 columns
+    (255, 256, 8200, 8192, True, 0),       # a last chunk of 8 columns
+    (200, 200, 3000, 1024, True, 0),       # d 200: the last d box cut short
+    (130, 200, 2000, 512, False, 0),       # the same, a tied table
+    (70, 96, 1000, 256, False, 0),         # d 96 tied: a box of 32 past d
+    (300, 256, 5000, 2048, True, 0),       # V % 256 != 0: a ragged last tile
+    (1, 128, 264, 8192, True, 0),          # one token, fewer than a tile
+    (129, 2048, 8200, 4096, True, 0),      # TinyLlama's d, a narrow last chunk
+    (64, 2048, 163840, 8192, True, 0)])    # Moonlight's head, 20 chunks
 def test_blocked_xent_bwd_kernel_matches_plain_on_card(t, d, v, block_v, dv,
                                                        shift, dtype):
-    """K12a against its plain version on the same inputs: bf16 within one
-    rounding step, 2^-7 |x| + 1e-3 max |x| (the products sum bf16 dl in
-    fp32, dx over the chunks too, and round once); fp32 within 1e-4
-    max |x|; two launches bitwise equal."""
+    """K12a against its plain version on the same inputs, on every route
+    the inputs take (`bwd_route`'s, and "mma" where that is "sm90"):
+    bf16 within one rounding step, 2^-7 |x| + 1e-3 max |x| (the products
+    sum bf16 dl in fp32, dx over the chunks too, and round once); fp32
+    within 1e-4 max |x|; two launches bitwise equal; every launch counted
+    on its route."""
     dev = _card()
     x, emb, lab, lse, g = xent_bwd_inputs(t, d, v, dtype, dv, dev,
                                           seed=t + v, shift=shift)
     assert (x.data_ptr() % 16 != 0) == bool(shift)
-    before = k10.bwd_launches
-    got = k10.blocked_xent_bwd(x, emb, lab, lse, g, transpose_emb=dv,
-                               block_v=block_v)
+    auto = k10.bwd_route(dtype, d, v, dv, not shift)
+    assert auto == ("fma" if dtype == torch.float32 else
+                    "sm90" if d % 8 == 0 and (not dv or v % 8 == 0)
+                    and not shift else "mma")
     want = k10.blocked_xent_bwd_plain(x, emb, lab, lse, g,
                                       transpose_emb=dv, block_v=block_v)
-    again = k10.blocked_xent_bwd(x, emb, lab, lse, g, transpose_emb=dv,
-                                 block_v=block_v)
-    torch.cuda.synchronize()
     chunk = -(-block_v // k10.TILE_V) * k10.TILE_V
-    assert k10.bwd_launches == before + 2 * -(-v // chunk)  # one a chunk
-    for a, w, b in zip(got, want, again):
-        assert a.dtype == dtype and a.shape == w.shape
-        assert torch.equal(a, b)                        # no atomics
-        a, w = a.float().cpu(), w.float().cpu()
-        assert bool(torch.isfinite(a).all())
-        scale = w.abs().max()
-        bar = (2.0 ** -7 * w.abs() + 1e-3 * scale if dtype == torch.bfloat16
-               else 1e-4 * scale)
-        assert bool(((a - w).abs() <= bar).all()), \
-            float(((a - w).abs() - bar).max())
+    for route in [auto] + (["mma"] if auto == "sm90" else []):
+        before = (k10.bwd_launches, k10.bwd_launches_by_route[route])
+        got = k10._blocked_xent_bwd(x, emb, lab, lse, g, dv, block_v, route)
+        again = k10._blocked_xent_bwd(x, emb, lab, lse, g, dv, block_v,
+                                      route)
+        torch.cuda.synchronize()
+        n = 2 * -(-v // chunk)                              # one a chunk
+        assert (k10.bwd_launches, k10.bwd_launches_by_route[route]) == \
+            (before[0] + n, before[1] + n), route
+        for a, w, b in zip(got, want, again):
+            assert a.dtype == dtype and a.shape == w.shape
+            assert torch.equal(a, b), route                 # no atomics
+            a, w = a.float().cpu(), w.float().cpu()
+            assert bool(torch.isfinite(a).all()), route
+            scale = w.abs().max()
+            bar = (2.0 ** -7 * w.abs() + 1e-3 * scale
+                   if dtype == torch.bfloat16 else 1e-4 * scale)
+            assert bool(((a - w).abs() <= bar).all()), \
+                (route, float(((a - w).abs() - bar).max()))
+        del got, again
+    assert torch.equal(k10.blocked_xent_bwd(x, emb, lab, lse, g,
+                                            transpose_emb=dv,
+                                            block_v=block_v)[0],
+                       k10._blocked_xent_bwd(x, emb, lab, lse, g, dv,
+                                             block_v, auto)[0])
+
+
+@pytest.mark.cuda
+def test_blocked_xent_bwd_sm90_plan_on_card():
+    """The sm90 kernel's tile, as the C library builds it, is 128 x 256
+    with d steps of 64; a block's shared memory (ring, staging tiles,
+    barriers) fits the card's 232,448 bytes; a launch takes one block an
+    SM, no more than there are tiles."""
+    dev = _card()
+    import ctypes
+    from repro_torch.kernels import _build
+    sms = _build.sm_count(dev)
+    out = (ctypes.c_int * 7)()
+    smem = k10._bwd_library().blocked_xent_bwd_sm90_plan(8192, 8192, sms,
+                                                         out)
+    assert (out[0], out[1], out[2]) == (128, 256, 64)
+    assert out[5] * out[3] < smem <= 232_448
+    assert out[6] == sms                     # 64 x 32 tiles: every SM
+    k10._bwd_library().blocked_xent_bwd_sm90_plan(3, 128, sms, out)
+    assert out[6] == 1                       # one tile: one block
+
+
+@pytest.mark.parametrize("dtype,d,v,dv,aligned,route", [
+    (torch.bfloat16, 2048, 32000, True, True, "sm90"),     # TinyLlama's head
+    (torch.bfloat16, 2048, 163840, True, True, "sm90"),    # Moonlight's
+    (torch.bfloat16, 2048, 32000, False, True, "sm90"),    # a tied table
+    (torch.bfloat16, 200, 3000, True, True, "sm90"),       # d off 64
+    (torch.bfloat16, 96, 1000, False, True, "sm90"),
+    (torch.bfloat16, 256, 5000, True, True, "sm90"),       # V off 256
+    (torch.bfloat16, 256, 8200, True, True, "sm90"),
+    (torch.bfloat16, 512, 5001, False, True, "sm90"),      # tied: V is rows
+    (torch.bfloat16, 512, 5001, True, True, "mma"),        # (d, V): V off 8
+    (torch.bfloat16, 100, 777, True, True, "mma"),         # d off 8
+    (torch.bfloat16, 100, 776, False, True, "mma"),
+    (torch.bfloat16, 256, 2000, True, False, "mma"),       # misaligned
+    (torch.float32, 2048, 32000, True, True, "fma"),
+    (torch.float32, 100, 777, False, False, "fma")])
+def test_xent_bwd_route_table(dtype, d, v, dv, aligned, route):
+    assert k10.bwd_route(dtype, d, v, dv, aligned) == route
+
+
+@pytest.mark.parametrize("t,d,v,dtype,dv,shift,route,takes", [
+    (70, 24, 304, torch.bfloat16, True, 0, "sm90", True),
+    (70, 24, 304, torch.bfloat16, True, 0, "mma", True),   # forced, allowed
+    (70, 24, 304, torch.bfloat16, True, 1, "sm90", False),  # misaligned x
+    (70, 24, 304, torch.bfloat16, True, 1, "mma", True),
+    (70, 20, 300, torch.bfloat16, False, 0, "sm90", False),  # d off 8
+    (70, 24, 301, torch.bfloat16, True, 0, "sm90", False),  # (d, V), V off 8
+    (70, 24, 301, torch.bfloat16, False, 0, "sm90", True),  # tied: rows
+    (70, 24, 304, torch.float32, True, 0, "sm90", False),
+    (70, 24, 304, torch.float32, True, 0, "mma", False),
+    (70, 24, 304, torch.float32, True, 0, "fma", True),
+    (70, 24, 304, torch.bfloat16, True, 0, "fma", False),
+    (70, 24, 304, torch.bfloat16, True, 0, "tma", False)])
+def test_blocked_xent_bwd_private_route_on_cpu(t, d, v, dtype, dv, shift,
+                                               route, takes):
+    """The private `route=` takes a route the inputs allow (and "mma"
+    where `bwd_route` gives "sm90") and runs the plain version on the
+    CPU, no launch counted; it refuses any other route before anything
+    runs."""
+    x, emb, lab, lse, g = xent_bwd_inputs(t, d, v, dtype, dv, shift=shift)
+    assert (x.data_ptr() % 16 != 0) == bool(shift)
+    before = (k10.bwd_launches, dict(k10.bwd_launches_by_route))
+    if not takes:
+        with pytest.raises(ValueError, match="route"):
+            k10._blocked_xent_bwd(x, emb, lab, lse, g, dv, 128, route)
+        return
+    got = k10._blocked_xent_bwd(x, emb, lab, lse, g, dv, 128, route)
+    want = k10.blocked_xent_bwd_plain(x, emb, lab, lse, g, transpose_emb=dv,
+                                      block_v=128)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (k10.bwd_launches, k10.bwd_launches_by_route) == before
 
 
 @pytest.mark.cuda
@@ -1780,7 +1873,8 @@ def test_blocked_xent_kernel_matches_plain_on_card(t, d, v, block_v, dv,
 def test_ablation_variants_apply_to_the_sources():
     """Every part-removed variant of `kernels.ablate` still matches the
     current K1, K2, K5, K6, K7, K8, K9 (forward, and the sm90 backward
-    kernels of the same source), K10 and K11 sources, with their headers
+    kernels of the same source), K10, K11 and K12a (its sm90 kernel)
+    sources, with their headers
     inlined (the tool is run on the card; here only its substitutions are
     checked)."""
     from repro_torch.kernels import ablate
@@ -1788,7 +1882,7 @@ def test_ablation_variants_apply_to_the_sources():
     assert set(ablate.VARIANTS) == {"scan_chunk", "coupled_chunk",
                                     "flash_attention", "decode_attention",
                                     "moe_gemm", "moe_gemm_bwd", "xent",
-                                    "ssm_scan", "rmsnorm",
+                                    "xent_bwd", "ssm_scan", "rmsnorm",
                                     "flash_attention_bwd"}
     for name, variants in ablate.VARIANTS.items():
         base = srcs[(name, "unchanged")]
