@@ -262,9 +262,26 @@ the answers against the repo's own oracles:
      to 1e-5 of max |out|; K9 is also timed in fp32 at the same shapes,
      and the `ptxas -v` registers and shared memory of its kernels are
      printed;
+  8b. serving RecurrentGemma-9B at its published widths and depth (38
+     layers: 26 RG-LRU, 12 local attention of window 2,048 with MQA and
+     head dim 256; bf16 weights drawn on the card from seed 0) through
+     the same engine with s_max 4,096 (`phase_rglru_serving`): 8 requests
+     of 16 new tokens, six of SERVE's prompts (365-916 tokens) and two
+     past the window (2,300 and 3,100: the window's mask across query
+     chunks, the ring fill wrapped).  K7 (the RG-LRU's scan through
+     `models/ssm.py::chunked_diag_scan`) must launch 26 times a prefill
+     and K8 77 times a prefill and a tick; K7 and K8 at the first and
+     last layer of the first and the longest prefill against their plain
+     versions (K7 1e-5 of max |h|, K8 2e-2 + 2e-2 |y|); whole-model
+     parity, teacher-forced, at a cut depth of 5 layers (one pattern
+     period and the tail, every width as published): fp32 kernels vs
+     plain within 2e-2 of max |logit| with the token rule, bf16 on
+     well-conditioned weights by `hold_bf16`'s excess rule; the untouched
+     run's prefill and tick ms, tokens/s, peak memory, kWh and CO2, and
+     a traced run's idle share and device ms by kernel group;
   9. one JSON line of per-kernel numbers (K2, K1, K3 and K4 forward and
      backward, K6, K7, K5, K8, K10, K11, K8's backward, K12a, K9's dX and
-     dW, K9), then the result line.
+     dW, K9, K12b's forward), then the result line.
 
 Every kernel time is by CUDA events (`cuda_ms`).  The profiler serves
 only the traced windows, and a window is used only when its trace shows
@@ -2358,7 +2375,7 @@ def smi(query):
 
 def serve(torch, model, params, prompts, dev, chip, force=None,
           record=True, routes=None, k9=None, route_force=None,
-          log_path=None):
+          log_path=None, s_max=None):
     """Serve `prompts` through a fresh engine and session.  Returns the
     engine, the session, the wall seconds of `run_until_drained` and the
     steps: each prefill and decode tick with the request ids it served,
@@ -2376,7 +2393,7 @@ def serve(torch, model, params, prompts, dev, chip, force=None,
     MoE layer and of the last layer are kept for the first prefill, the
     longest prefill and the first tick with every slot active.  With
     `log_path` the session's tracker streams its unit log there and is
-    closed after the run."""
+    closed after the run.  `s_max` replaces SERVE's."""
     from repro_torch.carina import (RunTracker, ServingSession, SimClock,
                                     StepCost)
     from repro_torch.serving.engine import ServingEngine
@@ -2386,7 +2403,8 @@ def serve(torch, model, params, prompts, dev, chip, force=None,
         clock=SimClock(start_hour=10.0), chip=chip,
         step_cost=StepCost(flops=2.0 * n, hbm_bytes=2.0 * n, ici_bytes=0.0))
     engine = ServingEngine(model, params, slots=SERVE["slots"],
-                           s_max=SERVE["s_max"], session=session, device=dev)
+                           s_max=s_max or SERVE["s_max"], session=session,
+                           device=dev)
     steps = []
     prefill, decode = engine._prefill, engine._decode
     next_rid = [0]
@@ -2566,8 +2584,10 @@ EXPERT_LEAVES = ("w_gate", "w_up", "w_down")    # (E, d, f) / (E, f, d)
 def conditioned_params(torch, model, dev, dtype=None):
     """A model's tree drawn well-conditioned, for the parity serves:
     every matrix with std 1/sqrt(its own fan-in) (an expert leaf's is d
-    or f, not the expert count), the norm scales N(0, 0.1), the embedding
-    as `Model.init` draws it; each leaf in `dtype` if given, else its
+    or f, not the expert count; a depthwise conv's its taps), the norm
+    scales, the RG-LRU's gate vectors and conv bias N(0, 0.1), its a
+    in [0.9, 0.999] as `Model.init` draws it, the embedding as
+    `Model.init` draws it; each leaf in `dtype` if given, else its
     spec's.  (`Model.init` follows the reference's init, whose fan-in of
     a layer-stacked matrix is the layer count, so its bf16 activations
     grow to ~2e4.)"""
@@ -2577,13 +2597,19 @@ def conditioned_params(torch, model, dev, dtype=None):
         dt = dtype or spec.dtype
         layer = spec.shape[1:] if stacked else spec.shape
         if spec.init == "scaled":   # the output axis is last for "wo" only
-            fan = (layer[1] if key in EXPERT_LEAVES else
+            fan = (layer[1] if key in EXPERT_LEAVES + ("conv_w",) else
                    math.prod(layer[:-1]) if key == "wo" else layer[0])
             std = fan ** -0.5
         elif "norm" in key:
             std = 0.1
         elif spec.init == "normal":
             std = spec.scale
+        elif spec.init == "lru_a":  # the RG-LRU's a in [0.9, 0.999]
+            u = 0.9 + 0.099 * torch.rand(spec.shape, generator=gen,
+                                         device=dev)
+            return torch.log(torch.expm1(-torch.log(u) / 8.0)).to(dt)
+        elif key.startswith("gate_") or key == "conv_b":
+            std = 0.1
         else:
             return torch.zeros(spec.shape, dtype=dt, device=dev)
         t = torch.randn(spec.shape, generator=gen, device=dev).mul_(std)
@@ -2605,6 +2631,7 @@ KERNEL_GROUPS = (("K1", ("coupled_chunk_kernel",)),
                  ("K4", ("fleet_fwd_tiles", "fleet_bwd_tiles",
                          "fleet_fwd_stream", "fleet_bwd_stream")),
                  ("K5", ("flash_fwd",)),
+                 ("K7", ("scan_chains", "chunk_aggregates", "chunk_rescan")),
                  ("K8", ("rmsnorm_rows", "rmsnorm_general")),
                  ("K9", ("grouped_gemm_kernel", "gg_prefill", "gg_tick")),
                  ("K9 backward", ("gg_dx_rows", "gg_dx_tick", "gg_dw",
@@ -5601,6 +5628,224 @@ def phase_ssm_scan(torch, k7, ops, build, dev):
     return row
 
 
+# --------------------------------------------------------------------------
+# serving RecurrentGemma-9B: the RG-LRU's scan on K7, local attention
+# --------------------------------------------------------------------------
+RGLRU = dict(s_max=4096, long=(2300, 3100), cut_layers=5)
+K7_BAR = 1e-5             # of max |h|: K7 against its plain version
+
+
+def rglru_prompts(vocab):
+    """The first six of SERVE's draws (seed 0; 365-916 tokens) and two
+    prompts past the 2,048-token window (2,300 and 3,100), one in each
+    wave of four slots: 910, 2,300, 689, 916, then 3,100, 613, 365, 847."""
+    rng = np.random.default_rng(0)
+    short = [rng.integers(0, vocab, int(rng.integers(
+        SERVE["lo"], SERVE["hi"] + 1))).astype(np.int32)
+        for _ in range(SERVE["requests"])][:6]
+    long_ = [rng.integers(0, vocab, n).astype(np.int32)
+             for n in RGLRU["long"]]
+    return short[:1] + long_[:1] + short[1:3] + long_[1:] + short[3:]
+
+
+def phase_rglru_serving(torch, k7, k8, dev):
+    """RecurrentGemma-9B at every published width and depth (38 layers:
+    26 RG-LRU, 12 local attention of window 2,048; bf16, random weights
+    from seed 0) through `ServingEngine` (4 slots, s_max 4,096, a ring of
+    2,048 positions in each local layer) on 8 requests of 16 new tokens,
+    two of them longer than the window.  K7 (the RG-LRU's scan,
+    `models/ssm.py::chunked_diag_scan`) must launch 26 times a prefill
+    and never in a tick, K8 77 times a prefill and a tick; K7 and K8 at
+    the first and last layer of the first and the longest prefill (and
+    K8 of a tick) against their plain versions; whole-model parity,
+    teacher-forced, at a cut depth of one pattern period plus the tail (5
+    layers, every width as published): fp32 kernel vs plain (LOGIT_TOL,
+    the token rule) and bf16 on well-conditioned weights (`hold_bf16`'s
+    excess rule); then the untouched run's times and a traced run's device ms
+    by kernel group.  Returns K12b's forward row for the kernels line."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    from repro_torch.models.model import build_model
+    from repro_torch.models.param import tree_map
+    t_phase = time.perf_counter()
+    cfg = get_config("recurrentgemma-9b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    prompts = rglru_prompts(cfg.vocab_size)
+    lens = [len(p) for p in prompts]
+    chip, chip_txt = card_profile(torch)
+    s_max = RGLRU["s_max"]
+    kinds = cfg.layer_kinds()
+    n_rglru, layers = kinds.count("rglru"), cfg.num_layers
+    check((n_rglru, kinds.count("local"), cfg.rglru.local_window) == (
+        26, 12, 2048) and max(lens) < s_max - SERVE["max_new"],
+        f"RecurrentGemma-9B: {n_rglru} RG-LRU layers, window "
+        f"{cfg.rglru.local_window}, prompts {lens}")
+    serve(torch, model, params, prompts[:1], dev, chip, s_max=s_max)
+
+    # the main path: counts zeroed just before, read just after; each
+    # step's logits recorded; K7's and K8's first and last call of each
+    # shape kept for the per-call checks
+    calls7, calls8 = {}, {}
+    with recording(k7, "ssm_scan", calls7, lambda a: tuple(a[0].shape)), \
+            recording(k8, "rmsnorm", calls8, lambda a: a[0].shape[0]):
+        k7.launches = k8.launches = 0
+        engine, session, _, steps = serve(torch, model, params, prompts,
+                                          dev, chip, s_max=s_max)
+        n7, n8 = k7.launches, k8.launches
+    prefills = sum(s["kind"] == "prefill" for s in steps)
+    ticks = session.live_units
+    check(prefills == len(prompts) and len(engine.completed) == prefills
+          and all(len(r.generated) == SERVE["max_new"]
+                  for r in engine.completed),
+          f"{prefills} prefills, {len(engine.completed)} completed")
+    check(n7 == n_rglru * prefills,
+          f"K7 launched {n7} times, expected {n_rglru} x {prefills}")
+    check(n8 == (2 * layers + 1) * (prefills + ticks),
+          f"K8 launched {n8} times, expected {2 * layers + 1} x "
+          f"({prefills} + {ticks})")
+    check(all(bool(torch.isfinite(s["logits"]).all()) for s in steps),
+          "non-finite logits")
+    del engine, session, steps
+
+    # K7 and K8 per call, at the main path's own inputs
+    held, err7, err8 = [], 0.0, 0.0
+    for n in (lens[0], max(lens)):
+        for where, (args, _) in zip(("layer 0", "layer 37"),
+                                    calls7[(1, n, cfg.rglru.lru_width)]):
+            hs, hf = k7.ssm_scan(*args)
+            phs, phf = k7.ssm_scan_plain(*args)
+            scale = float(phs.abs().max())
+            err = max(float((hs - phs).abs().max()),
+                      float((hf - phf).abs().max()))
+            check(bool(torch.isfinite(hs).all()) and err <= K7_BAR * scale,
+                  f"K7 at the {n}-token prefill's {where}: max err "
+                  f"{err:.3e} against {K7_BAR} of max |h| {scale:.4g}")
+            err7 = max(err7, err)
+            held.append(f"K7 {n} tokens {where} {err:.3e} (max |h| "
+                        f"{scale:.4g})")
+    for rows in (max(lens), SERVE["slots"]):
+        for where, (args, _) in zip(("layer 0", "final norm"),
+                                    calls8[rows]):
+            y, py = k8.rmsnorm(*args[:3]), k8.rmsnorm_plain(*args[:3])
+            d = (y.float() - py.float()).abs()
+            check(bool((d <= 2e-2 + 2e-2 * py.float().abs()).all()),
+                  f"K8 at {rows} rows, {where}: max err {float(d.max()):.3e}")
+            err8 = max(err8, float(d.max()))
+            held.append(f"K8 {rows} rows {where} {float(d.max()):.3e}")
+
+    # K12b's forward row: the main path's 916-token call at layer 0
+    a, b = calls7[(1, 916, cfg.rglru.lru_width)][0][0]
+    del calls7, calls8
+    ms = cuda_ms(torch, lambda: ssm.chunked_diag_scan(a, b), 20)
+    plain_ms = cuda_ms(torch, lambda: k7.ssm_scan_plain(a, b), 2)
+    b_ms, b_by = bound_ms(3 * 4 * a.numel() + 4 * a.shape[2],
+                          2.0 * a.numel(), 0, "float32")
+    row = {"name": "chunked_diag_scan", "route": "cuda",
+           "source": "src/repro_torch/csrc/ssm_scan.cu",
+           "replaces": "src/repro/models/ssm.py:40", "launches": n7,
+           "max_abs_err": err7, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    del a, b
+
+    # the main path again, untouched (device ms a step by CUDA events),
+    # and once more under the profiler
+    torch.cuda.reset_peak_memory_stats(dev)
+    engine, session, wall, steps_t = serve(torch, model, params, prompts,
+                                           dev, chip, record=False,
+                                           s_max=s_max)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    pre_ms = [s["ms"] for s in steps_t if s["kind"] == "prefill"]
+    dec_ms = [s["ms"] for s in steps_t if s["kind"] == "decode"]
+    tokens = sum(len(r.generated) for r in engine.completed)
+    kwh, co2 = session.live_energy_kwh, session.live_co2_kg
+    del engine, session, steps_t
+    # a K7 call at this width runs two kernels (the chunk aggregates, then
+    # the rescan), so the trace holds two activities a counted launch
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    check(all(k7.scan_plan(1, n, cfg.rglru.lru_width, sms)[0] > 1
+              for n in lens), "a prompt's K7 call runs one chunk")
+    busy = profile_window(torch, lambda: serve(
+        torch, model, params, prompts, dev, chip, record=False,
+        s_max=s_max), {"K7": lambda: 2 * k7.launches,
+                       "K8": launch_count(k8)})
+    idle = f"not measured ({busy})"
+    if not isinstance(busy, str):
+        twall, dev_s, n_kern, groups, table = busy
+        idle = (f"{1.0 - dev_s / twall:.3f} (device busy {dev_s:.3f} s, "
+                f"{n_kern} device activities, over {twall:.3f} s wall; "
+                f"device ms / activities by group, K7 two a call: "
+                f"{groups_text(groups)})")
+        with open(os.path.join(OUT, "rglru_serving_profile.txt"), "w") as fh:
+            fh.write(f"serve RecurrentGemma-9B, profiled: wall {twall:.3f} "
+                     f"s, device busy {dev_s:.3f} s\n{table}\n")
+    del params
+    model.params = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # parity at a cut depth, every width as published
+    cut = dataclasses.replace(cfg, num_layers=RGLRU["cut_layers"])
+    model5 = build_model(cut)
+    params32 = tree_map(lambda t: t.float(), model5.init(
+        torch.Generator(device=dev).manual_seed(0), dev))
+    model5.params = None
+
+    def plain():
+        return plain_versions((k7, "ssm_scan"), (k8, "rmsnorm"))
+    _, _, _, k32 = serve(torch, model5, params32, prompts, dev, chip,
+                         s_max=s_max)
+    with plain():
+        _, _, pwall, p32 = serve(torch, model5, params32, prompts, dev,
+                                 chip, force=k32, s_max=s_max)
+    del params32
+    fp32 = hold_logits(k32, p32, "RecurrentGemma fp32, 5 layers")
+    del k32, p32
+    cparams = conditioned_params(torch, model5, dev)
+    cparams32 = tree_map(lambda t: t.float(), cparams)
+    _, _, _, c16 = serve(torch, model5, cparams, prompts, dev, chip,
+                         s_max=s_max)
+    with plain():
+        _, _, _, cp16 = serve(torch, model5, cparams, prompts, dev, chip,
+                              force=c16, s_max=s_max)
+        _, _, _, cp32 = serve(torch, model5, cparams32, prompts, dev, chip,
+                              force=c16, s_max=s_max)
+    del cparams, cparams32
+    cond = hold_bf16(c16, cp16, cp32, "RecurrentGemma bf16, 5 layers, "
+                     "well-conditioned weights")
+    limit = smi("power.limit")[0]
+    print(f"serving RecurrentGemma-9B ({model.param_count():,} params, "
+          f"bf16, every width and all {layers} layers: {n_rglru} RG-LRU, "
+          f"{layers - n_rglru} local attention of window "
+          f"{cfg.rglru.local_window}; init on the card {t_init:.2f} s) on "
+          f"{torch.cuda.get_device_name(0)} at {limit:.2f} W: "
+          f"{prefills} requests, prompts {lens} tokens, "
+          f"{SERVE['slots']} slots, s_max {s_max}; untouched run: wall "
+          f"{wall:.3f} s, prefill {np.median(pre_ms):.2f} ms (median; "
+          f"{min(pre_ms):.2f}-{max(pre_ms):.2f}), tick {np.median(dec_ms):.2f}"
+          f" ms (median of {len(dec_ms)}; device ms between CUDA events), "
+          f"{tokens / wall:.1f} generated tokens/s, peak memory {peak:.2f} "
+          f"GB; session {kwh:.4e} kWh, {co2:.4e} kg CO2 (roofline "
+          f"estimate, {chip_txt}); device idle share {idle}; launches K7 "
+          f"{n7} = {n_rglru} x {prefills}, K8 {n8} = {2 * layers + 1} x "
+          f"({prefills} + {ticks}); per call vs plain (K7 {K7_BAR} of max "
+          f"|h|, K8 2e-2 + 2e-2 |y|): " + "; ".join(held)
+          + f"; K12b forward (chunked_diag_scan) at the 916-token call "
+          f"{ms:.4f} ms (plain {plain_ms:.3f}, bound {b_ms:.4f} {b_by}); "
+          f"parity cut to {RGLRU['cut_layers']} layers (one period + the "
+          f"tail; cut), teacher-forced, as a share of max |logit| (bar "
+          f"{LOGIT_TOL}): fp32 kernel vs plain worst {fp32[0]:.3e}, "
+          f"{fp32[1]} near-ties, {fp32[2]} flipped (plain run {pwall:.3f} "
+          f"s); well-conditioned bf16 kernel vs plain worst {cond[0]:.4f} "
+          f"({cond[3]} of {len(c16)} steps over the bar), plain bf16 vs "
+          f"its fp32 truth {cond[1]:.4f}, the kernel run's excess "
+          f"{cond[2]:.4f}, tokens equal outside near-ties; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return row
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: run from the root of a checkout (src/repro_torch "
@@ -5690,6 +5935,9 @@ def main() -> int:
     gc.collect()                    # before DeepSeek's tensors
     torch.cuda.empty_cache()
     kernels.append(phase_moe_serving(torch, k5, k8, k9, moe, _build, dev))
+    gc.collect()                    # DeepSeek's tensors, before RecurrentGemma's
+    torch.cuda.empty_cache()
+    kernels.append(phase_rglru_serving(torch, k7, k8, dev))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,9 @@
 its sub-configs and `smoke_variant`, field for field, so that a config
 written for one package reads the same in the other.
 
-The package serves the dense family and the MoE family with full
-attention or MLA (see `configs/__init__.py::get_config` and
+The package serves the dense family, the MoE family with full
+attention or MLA, and the hybrid family of RG-LRU and local-attention
+blocks (see `configs/__init__.py::get_config` and
 `models/model.py::build_model`).
 """
 from __future__ import annotations
@@ -129,11 +130,11 @@ class ModelConfig:
         of the built model)."""
         d, hd = self.d_model, self.resolved_head_dim
         nq, nkv = self.num_heads, self.num_kv_heads
-        if self.encdec or any(k not in (ATTN, LOCAL_ATTN, MLA)
-                              for k in self.layer_kinds()):
+        if self.encdec or MAMBA in self.layer_kinds():
             raise NotImplementedError(
-                f"{self.name}: param_count covers the attention and MLA "
-                "families the port serves")
+                f"{self.name}: param_count covers the attention, MLA and "
+                "RG-LRU blocks the port serves (Mamba: ROADMAP.md Queue 1 "
+                "item 6 (b); encoder-decoder: item 7)")
 
         def attn_params() -> int:
             n = d * nq * hd + 2 * d * nkv * hd + nq * hd * d
@@ -152,6 +153,15 @@ class ModelConfig:
             n += nq * m.v_head_dim * d                      # o proj
             return n
 
+        def rglru_params() -> int:
+            g = self.rglru
+            w = g.lru_width or d
+            n = 2 * d * w                                   # x, gate in-proj
+            n += w * g.d_conv + w                           # conv1d + bias
+            n += 4 * w                                      # the gates' w, b
+            n += w                                          # a param
+            return n + w * d                                # out proj
+
         def dense_mlp(dff: int) -> int:
             if self.mlp_kind == "swiglu":
                 return 3 * d * dff
@@ -168,7 +178,8 @@ class ModelConfig:
         total += d                                          # final norm
         for i, k in enumerate(self.layer_kinds()):
             total += 2 * d                                  # the two norms
-            total += mla_params() if k == MLA else attn_params()
+            total += (mla_params() if k == MLA else rglru_params()
+                      if k == RGLRU else attn_params())
             total += moe_mlp() if self.layer_is_moe(i) else dense_mlp(self.d_ff)
         return total
 
@@ -186,7 +197,7 @@ class ModelConfig:
 def smoke_variant(cfg: ModelConfig, **overrides) -> ModelConfig:
     """Shrink a config to CPU-test scale, preserving family structure
     (the reference's rule, for the families this package serves: dense,
-    MoE and MLA)."""
+    MoE, MLA and the RG-LRU hybrid)."""
     kw = dict(
         num_layers=min(cfg.num_layers, len(cfg.block_pattern) + 1),
         d_model=64,
@@ -204,6 +215,9 @@ def smoke_variant(cfg: ModelConfig, **overrides) -> ModelConfig:
         kw["mla"] = MLAConfig(kv_lora_rank=32, q_lora_rank=0,
                               qk_nope_head_dim=16, qk_rope_head_dim=8,
                               v_head_dim=16)
+    if cfg.rglru is not None:
+        kw["rglru"] = dataclasses.replace(cfg.rglru, lru_width=64,
+                                          local_window=32)
     kw["name"] = cfg.name + "-smoke"
     kw.update(overrides)
     return dataclasses.replace(cfg, **kw)

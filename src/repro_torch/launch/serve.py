@@ -13,7 +13,9 @@ off), on the card unless `--device cpu` is given (the plain PyTorch
 versions of the kernels; with no card and no `--device` it raises).
 Each tick is priced with the card's energy profile (`core/sysinfo.py`)
 at 2 FLOP and 2 bytes per active parameter and token.  The weights are
-random, drawn from seed 0; the prompts are seeded too.
+random, drawn from seed 0; the prompts are seeded too.  On the card it
+prints the launches of the model path's kernels: K5 (flash attention),
+K8 (RMSNorm), K9 (the grouped expert GEMM) and K7 (the RG-LRU's scan).
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from repro_torch.core.sysinfo import chip_profile_from_host, detect_host
 from repro_torch.kernels import flash_attention as k5
 from repro_torch.kernels import moe_gemm as k9
 from repro_torch.kernels import rmsnorm as k8
+from repro_torch.kernels import ssm_scan as k7
 from repro_torch.models import build_model
 from repro_torch.serving.engine import ServingEngine
 
@@ -86,7 +89,8 @@ def main(argv=None):
         lens.append(len(prompt))
     print(f"{args.requests} requests of {args.max_new} new tokens, prompts "
           f"{lens} tokens", flush=True)
-    before = (k5.launches, k8.launches, k9.launches)
+    kernels = (k5, k8, k9, k7)
+    before = [k.launches for k in kernels]
     t0 = time.perf_counter()
     done = engine.run_until_drained()
     if device.type == "cuda":
@@ -102,9 +106,10 @@ def main(argv=None):
           f"{s.energy_kwh * 1e3:.4e} Wh; CO2e {s.co2_kg * 1e3:.4e} g "
           f"({chip.name} profile)", flush=True)
     if device.type == "cuda":
-        k5n, k8n, k9n = (a - b for a, b in zip(
-            (k5.launches, k8.launches, k9.launches), before))
-        print(f"kernel launches: K5 {k5n}, K8 {k8n}, K9 {k9n}", flush=True)
+        k5n, k8n, k9n, k7n = (k.launches - b
+                              for k, b in zip(kernels, before))
+        print(f"kernel launches: K5 {k5n}, K8 {k8n}, K9 {k9n}, K7 {k7n}",
+              flush=True)
     return done
 
 

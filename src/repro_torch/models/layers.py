@@ -1,8 +1,8 @@
 """Model layers of the port, as plain functions on tensors in the
 reference's layout (`src/repro/models/layers.py`): RMSNorm, rotary
-embeddings, GQA attention (prefill and per-slot decode), DeepSeek MLA
-(the expanded prefill and the absorbed per-slot decode) and the SwiGLU
-MLP.
+embeddings, GQA attention, full or windowed (prefill, and per-slot
+decode over a full cache or a ring buffer), DeepSeek MLA (the expanded
+prefill and the absorbed per-slot decode) and the SwiGLU MLP.
 
 Dispatch follows the reference: `attention` sends a call to the flash
 kernel (K5, `kernels/ops.py::flash_attention`) exactly where the
@@ -10,16 +10,17 @@ reference's gate admits it (no window, no softcap, no validity mask, no
 query offset, equal q/v head dims, more than one query); every other call
 runs `_attend_dense` in plain tensor ops, as the reference computes it
 outside any Pallas kernel, over query chunks of `chunk_q` when Sq is
-larger.  `rms_norm` runs K8, which computes the same
-function as the reference's `rms_norm`, with K8's backward behind a
-`torch.autograd.Function`; attention's flash path is differentiable
-through K11 (`kernels/ops.py::flash_attention`).  The tensors' device picks the
-kernel (CUDA) or its plain version (CPU).  MLA's prefill has q/k head
-dim 192 and v head dim 128, so the flash gate sends it to the dense
-path, as in the reference.
+larger, each chunk masked at its own query positions (causal, and
+`qpos - kpos < window` for a window).  `rms_norm` runs K8, which
+computes the same function as the reference's `rms_norm`, with K8's
+backward behind a `torch.autograd.Function`; attention's flash path is
+differentiable through K11 (`kernels/ops.py::flash_attention`).  The
+tensors' device picks the kernel (CUDA) or its plain version (CPU).
+MLA's prefill has q/k head dim 192 and v head dim 128, so the flash gate
+sends it to the dense path, as in the reference.
 
-Not ported (raise `NotImplementedError`): windowed and soft-capped
-attention, head padding, grouped-KV decode, q-LoRA MLA and M-RoPE.
+Not ported (raise `NotImplementedError`): soft-capped attention, head
+padding, grouped-KV decode, q-LoRA MLA and M-RoPE.
 """
 from __future__ import annotations
 
@@ -41,7 +42,8 @@ NEG_INF = -1e30
 def _unported(what: str):
     raise NotImplementedError(f"{what} is not ported yet (the port serves "
                               "the dense and MoE families with full "
-                              "attention or MLA; ROADMAP.md Queue 1)")
+                              "attention or MLA, and RG-LRU with local "
+                              "attention; ROADMAP.md Queue 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -110,12 +112,12 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 def _mask_bias(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
                window: int) -> torch.Tensor:
     """(Sq, Sk) additive mask bias in fp32."""
-    if window > 0:
-        _unported("windowed attention")
     ok = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
                     device=qpos.device)
     if causal:
         ok &= kpos[None, :] <= qpos[:, None]
+    if window > 0:
+        ok &= qpos[:, None] - kpos[None, :] < window
     return torch.where(ok, 0.0, NEG_INF).to(F32)
 
 
@@ -145,8 +147,6 @@ def attention(q, k, v, *, causal: bool, window: int = 0,
     dv = v.shape[-1]
     assert hq % hkv == 0, (hq, hkv)
     g = hq // hkv
-    if window > 0:
-        _unported("windowed attention")
     if softcap > 0:
         _unported("soft-capped attention")
     if pad_heads:
@@ -246,14 +246,15 @@ def attn_decode(x, p, cfg: ModelConfig, k_cache, v_cache, index, *,
                 window: int = 0, positions=None, cross: bool = False):
     """Single-token decode. x: (B,1,d). k/v_cache: (B,S,hkv,hd) (rope
     applied at write time). index: scalar or (B,) per-slot position.
+    With a `window` the cache is a ring buffer: position i sits in slot
+    i % S, and slot j holds position idx - ((idx - j) mod S), valid where
+    that is in [0, idx] and within the window.
 
     Writes the new key and value into `k_cache`/`v_cache` in place (the
     reference returns updated copies; in place keeps one cache on the
     card) and returns (out, k_cache, v_cache)."""
     if cross:
         _unported("cross attention (encoder-decoder)")
-    if window > 0:
-        _unported("ring-buffer (windowed) decode")
     if cfg.decode_cache_seq_shard or cfg.decode_2d_tp:
         _unported("sharded decode caches")
     b = x.shape[0]
@@ -267,11 +268,18 @@ def attn_decode(x, p, cfg: ModelConfig, k_cache, v_cache, index, *,
                           cfg.rope_theta)                        # (B,1,hd/2)
         q = apply_rope(q, *cs)
         k = apply_rope(k, *cs)
+    slot = idx % s_max if window > 0 else idx
     rows = torch.arange(b, device=x.device)
-    k_cache[rows, idx] = k[:, 0].to(k_cache.dtype)
-    v_cache[rows, idx] = v[:, 0].to(v_cache.dtype)
+    k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
+    v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
     kpos = torch.arange(s_max, device=x.device)[None, :]        # (1,S)
-    valid = kpos <= idx[:, None]
+    idx_c = idx[:, None]
+    if window > 0:
+        abs_pos = idx_c - ((idx_c - kpos) % s_max)
+        valid = ((abs_pos >= 0) & (abs_pos <= idx_c)
+                 & (idx_c - abs_pos < window))
+    else:
+        valid = kpos <= idx_c
     o = attention(q, k_cache, v_cache, causal=False, kv_valid=valid,
                   softcap=cfg.attn_logit_softcap)
     # o has the cache's dtype (bf16); promote as JAX does for fp32 weights

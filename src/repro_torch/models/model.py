@@ -1,5 +1,6 @@
-"""The model API of the port, over the dense family and the MoE family
-with full attention or MLA (`src/repro/models/model.py`):
+"""The model API of the port, over the dense family, the MoE family
+with full attention or MLA, and the hybrid family of RG-LRU and local
+attention blocks (`src/repro/models/model.py`):
 
     model = build_model(cfg)
     params = model.init(generator, device)      # drawn on `device`
@@ -119,15 +120,17 @@ class Model(nn.Module):
     def loss(self, params, batch):
         """The training objective on `batch` ({"tokens": (B, S)}, a tensor
         or a numpy array, as `SyntheticLM.batch_at` gives it).  Returns
-        (loss, {"nll", "acc", "aux"}), fp32 scalars.  Differentiable
-        on both families: attention runs K5 forward and K11 backward
-        (MLA's q/k head dim 192 against v's 128 keeps DeepSeek on the
-        dense path, autograd's backward, as in the reference), every norm
-        K8 and its backward, every routed-expert product K9 and its
-        backward (`ops.GroupedGemm`), and with `blocked_xent` the loss K10
-        forward and K12a backward (`training/step.py` takes the
-        gradients); with full logits the head and `cross_entropy` are
-        autograd's."""
+        (loss, {"nll", "acc", "aux"}), fp32 scalars.  The hybrid family
+        runs it forward only (K7's kernel refuses an input that requires
+        grad; its backward is ROADMAP.md Queue 1 item 6 (c)).
+        Differentiable on the dense and MoE families: attention runs K5
+        forward and K11 backward (MLA's q/k head dim 192 against v's 128
+        keeps DeepSeek on the dense path, autograd's backward, as in the
+        reference), every norm K8 and its backward, every routed-expert
+        product K9 and its backward (`ops.GroupedGemm`), and with
+        `blocked_xent` the loss K10 forward and K12a backward
+        (`training/step.py` takes the gradients); with full logits the
+        head and `cross_entropy` are autograd's."""
         cfg = self.cfg
         if cfg.encdec:
             raise NotImplementedError("the encoder-decoder loss is not "
@@ -188,7 +191,9 @@ def build_model(cfg: ModelConfig) -> Model:
     """The model of a config; raises `NotImplementedError` for what the
     port does not serve yet."""
     unported = []
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family == "ssm":
+        unported.append("family 'ssm' (ROADMAP.md Queue 1 item 6 (b))")
+    elif cfg.family not in ("dense", "moe", "hybrid"):
         unported.append(f"family {cfg.family!r}")
     if cfg.encdec:
         unported.append("encoder-decoder")
@@ -204,5 +209,6 @@ def build_model(cfg: ModelConfig) -> Model:
     if unported:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(unported)} not ported yet (the port "
-            "serves the dense and MoE families; ROADMAP.md Queue 1)")
+            "serves the dense, MoE and hybrid families; ROADMAP.md Queue "
+            "1)")
     return Model(cfg)

@@ -19,7 +19,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
-    init: str = "normal"                     # normal|zeros|ones|scaled
+    init: str = "normal"                     # normal|zeros|ones|scaled|lru_a
     scale: float = 0.02
     dtype: torch.dtype = torch.bfloat16
 
@@ -43,8 +43,17 @@ def _init_one(spec: ParamSpec, generator: torch.Generator,
         x = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=device)
         return (x * s).to(dtype)
-    raise NotImplementedError(f"init {spec.init!r} is not ported (the port "
-                              "serves the dense family)")
+    if spec.init == "lru_a":    # RG-LRU Lambda so that a is in [0.9, 0.999]
+        u = 0.9 + (0.999 - 0.9) * torch.rand(
+            shape, generator=generator, dtype=torch.float32, device=device)
+        # a = exp(-c softplus(L) r): store L with softplus(L) = -log(u) / c
+        # (c = 8, r ~ 1)
+        target = -torch.log(u) / 8.0
+        return torch.log(torch.expm1(torch.clamp_min(target, 1e-8))
+                         ).to(dtype)
+    raise NotImplementedError(
+        f"init {spec.init!r} is not ported yet (the Mamba family's "
+        "`a_log` and `dt_bias`: ROADMAP.md Queue 1 item 6 (b))")
 
 
 def tree_map(fn: Callable, tree):

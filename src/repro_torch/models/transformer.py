@@ -7,8 +7,12 @@ Under `cfg.remat` each layer is rematerialized in the backward
 (`_remat`), as the reference wraps its segment body.
 
 Ported block kinds: full attention (`ATTN`) and MLA, each with a dense
-SwiGLU MLP or an MoE FFN.  Mamba, RG-LRU and local attention raise
-`NotImplementedError`.
+SwiGLU MLP or an MoE FFN, and the hybrid family's Griffin RG-LRU
+(`RGLRU`, `models/ssm.py`) and local attention (`LOCAL_ATTN`, a window of
+`cfg.rglru.local_window`), each with a dense SwiGLU MLP.  A local layer's
+decode cache is a ring buffer of min(window, s_max) positions; an RG-LRU
+layer's is its conv tail (bf16) and its state `h` (fp32).  Mamba raises
+`NotImplementedError` (ROADMAP.md Queue 1 item 6 (b)).
 """
 from __future__ import annotations
 
@@ -19,9 +23,11 @@ from typing import Any, Callable, List, Tuple
 import torch
 from torch.utils import checkpoint as CK
 
-from repro_torch.configs.base import ATTN, MLA, ModelConfig
+from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MLA, RGLRU,
+                                      ModelConfig)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.models.param import ParamSpec, SpecTree, tree_map
 
 
@@ -55,10 +61,26 @@ def layer_plan(cfg: ModelConfig) -> List[Segment]:
 
 
 def _check_kind(kind: str) -> None:
-    if kind not in (ATTN, MLA):
+    if kind not in (ATTN, MLA, RGLRU, LOCAL_ATTN):
         raise NotImplementedError(
             f"block kind {kind!r} is not ported yet (the port serves "
-            "full-attention and MLA blocks; ROADMAP.md Queue 1)")
+            "full-attention, MLA, RG-LRU and local-attention blocks; "
+            "ROADMAP.md Queue 1 item 6 (b))")
+
+
+def _window(cfg: ModelConfig, kind: str) -> int:
+    """A local-attention layer's window (the reference's rule: 0 where the
+    config has no RG-LRU section)."""
+    return cfg.rglru.local_window if (kind == LOCAL_ATTN and cfg.rglru) \
+        else 0
+
+
+def _mixer_spec(cfg: ModelConfig, kind: str) -> SpecTree:
+    if kind == MLA:
+        return L.mla_spec(cfg)
+    if kind == RGLRU:
+        return SSM.rglru_spec(cfg)
+    return L.attn_spec(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -73,7 +95,7 @@ def block_spec(cfg: ModelConfig, kind: str, is_moe: bool) -> SpecTree:
     _check_kind(kind)
     d = cfg.d_model
     return {"norm1": L.norm_spec(d),
-            "mixer": L.mla_spec(cfg) if kind == MLA else L.attn_spec(cfg),
+            "mixer": _mixer_spec(cfg, kind),
             "norm2": L.norm_spec(d),
             "ffn": MOE.moe_spec(cfg) if is_moe else L.mlp_spec(cfg)}
 
@@ -135,9 +157,13 @@ def apply_block(x, p, cfg: ModelConfig, kind: str, is_moe: bool, *,
         o, ckv = L.mla_block(h, p["mixer"], cfg, causal=causal,
                              positions=positions)
         cache = {"c_kv": ckv[0], "k_rope": ckv[1]}
+    elif kind == RGLRU:
+        o, (conv, hh) = SSM.rglru_block(h, p["mixer"], cfg,
+                                        return_state=True)
+        cache = {"conv": conv, "h": hh}
     else:
         o, kv = L.attn_block(h, p["mixer"], cfg, causal=causal,
-                             positions=positions)
+                             window=_window(cfg, kind), positions=positions)
         cache = {"k": kv[0], "v": kv[1]}
     x = x + o
     h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
@@ -219,9 +245,14 @@ def apply_block_decode(x, p, cfg: ModelConfig, kind: str, is_moe: bool,
         o, cc, krc = L.mla_decode(h, p["mixer"], cfg, cache["c_kv"],
                                   cache["k_rope"], index)
         cache = {"c_kv": cc, "k_rope": krc}
+    elif kind == RGLRU:
+        o, conv, hh = SSM.rglru_decode(h, p["mixer"], cfg, cache["conv"],
+                                       cache["h"])
+        cache["conv"].copy_(conv)            # into the cache, in place
+        cache["h"].copy_(hh)
     else:
         o, kc, vc = L.attn_decode(h, p["mixer"], cfg, cache["k"], cache["v"],
-                                  index)
+                                  index, window=_window(cfg, kind))
         cache = {"k": kc, "v": vc}
     x = x + o
     h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
@@ -232,9 +263,10 @@ def apply_block_decode(x, p, cfg: ModelConfig, kind: str, is_moe: bool,
 def apply_segments_decode(x, params_segments, caches, cfg: ModelConfig,
                           index):
     """One token through every layer.  Each layer writes its new cache
-    entries (key and value, or MLA's latent and roped key) into its slice
-    of the stacked caches in place, so `caches` is returned updated (the
-    reference returns new stacked arrays)."""
+    entries (key and value, MLA's latent and roped key, or the RG-LRU's
+    conv tail and state) into its slice of the stacked caches in place,
+    so `caches` is returned updated (the reference returns new stacked
+    arrays)."""
     for seg, seg_p, seg_c in zip(layer_plan(cfg), params_segments, caches):
         for r in range(seg.repeats):
             for pos_i, (kind, m) in enumerate(seg.pattern):
@@ -256,6 +288,14 @@ def block_cache_spec(cfg: ModelConfig, kind: str, batch: int,
                                   init="zeros"),
                 "k_rope": ParamSpec((batch, s_max, m.qk_rope_head_dim),
                                     init="zeros")}
+    if kind == RGLRU:
+        w = cfg.rglru.lru_width or cfg.d_model
+        return {"conv": ParamSpec((batch, cfg.rglru.d_conv - 1, w),
+                                  init="zeros"),
+                "h": ParamSpec((batch, w), init="zeros",
+                               dtype=torch.float32)}
+    if kind == LOCAL_ATTN:                   # the ring buffer
+        s_max = min(cfg.rglru.local_window, s_max)
     shp = (batch, s_max, cfg.num_kv_heads, cfg.resolved_head_dim)
     return {"k": ParamSpec(shp, init="zeros"),
             "v": ParamSpec(shp, init="zeros")}

@@ -2247,6 +2247,29 @@ def test_ssm_scan_kernel_matches_plain_on_card(b, t, c, edge, dtype):
     assert float((hf - phf).abs().max()) <= bar
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [916, 1001])
+def test_rglru_scan_launches_k7_on_card(t):
+    """The RG-LRU's recurrence (`models/ssm.py::chunked_diag_scan`) on the
+    card: one K7 launch, within 1e-5 of max |h| of the plain version, at
+    RecurrentGemma-9B's width (C 4,096) over the serving path's 916-token
+    prompt and over 1,001 steps, both off K7's step group of 8."""
+    from repro_torch.models import ssm
+    dev = _card()
+    a, x = scan_inputs(1, t, 4096, torch.float32, dev, seed=t)
+    a = 0.9 + (a - 0.5) * 0.198                   # the lru_a range
+    assert t % k7.STEP_GROUP
+    before = k7.launches
+    hs, hf = ssm.chunked_diag_scan(a, x)
+    phs, phf = k7.ssm_scan_plain(a, x)
+    torch.cuda.synchronize()
+    assert k7.launches == before + 1
+    assert hs.is_cuda and hs.dtype == hf.dtype == torch.float32
+    bar = 1e-5 * float(phs.abs().max())
+    assert float((hs - phs).abs().max()) <= bar
+    assert float((hf - phf).abs().max()) <= bar
+
+
 # ---------------------------------------------------------------------------
 # K3 and K4 on the card: kernels against their plain versions
 # ---------------------------------------------------------------------------

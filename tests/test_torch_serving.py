@@ -48,7 +48,7 @@ from repro.serving.engine import _write_slot as ref_write_slot  # noqa: E402
 
 import repro_torch.carina as P  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.base import LOCAL_ATTN, MAMBA  # noqa: E402
+from repro_torch.configs.base import MAMBA  # noqa: E402
 from repro_torch.core.serve import ServingSession  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import param as PA  # noqa: E402
@@ -444,8 +444,6 @@ UNPORTED = {
                                              q_lora_rank=16))),
     "mla-knob": lambda: build_model(dataclasses.replace(_smoke(),
                                                         attention_kind="mla")),
-    "local-kind": lambda: T.lm_spec(dataclasses.replace(
-        _smoke(), block_pattern=(LOCAL_ATTN,))),
     "kernels-knob": lambda: build_model(dataclasses.replace(_smoke(),
                                                             kernels="xla")),
     "pad-heads-knob": lambda: build_model(
@@ -459,8 +457,6 @@ UNPORTED = {
     "mrope": lambda: L._rope_for(dataclasses.replace(_smoke(),
                                                      rope_kind="mrope"),
                                  None, 16, 3, "cpu"),
-    "window": lambda: L.attention(*[torch.zeros(1, 4, 2, 16)] * 3,
-                                  causal=True, window=2),
     "softcap": lambda: L.attention(*[torch.zeros(1, 4, 2, 16)] * 3,
                                    causal=True, softcap=30.0),
     "pad-heads": lambda: L.attention(*[torch.zeros(1, 4, 2, 16)] * 3,
