@@ -279,9 +279,26 @@ the answers against the repo's own oracles:
      well-conditioned weights by `hold_bf16`'s excess rule; the untouched
      run's prefill and tick ms, tokens/s, peak memory, kWh and CO2, and
      a traced run's idle share and device ms by kernel group;
+  8c. serving Falcon-Mamba-7B at its published widths and depth (64
+     Mamba-1 layers, d 4,096, d_inner 8,192, N 16, dt_rank 256, vocab
+     65,024 untied; bf16 weights drawn on the card from seed 0) through
+     the same engine, prompts and s_max as 8b (`phase_mamba_serving`):
+     K12c (Mamba's selective scan, `kernels/selective_scan.py`) must
+     launch 64 times a prefill and never in a tick, K8 65 times a prefill
+     and a tick; K12c at the first and last layer of the first and the
+     longest prefill against its plain version, on the recorded bf16
+     inputs and on them cast to fp32 (y within 1e-5 of max |y|, h_final
+     within 1e-5 of max |h|, two launches bitwise), and K8 as in 8b;
+     whole-model parity, teacher-forced, at a cut depth of 4 layers
+     (every width as published) on well-conditioned weights: fp32 kernels
+     vs plain within 2e-2 of max |logit| with the token rule, bf16 by
+     `hold_bf16`'s excess rule; at `Model.init`'s weights (chaotic in
+     fp32) the fp32 reading within 3 x the plain run's spread under a
+     one-ulp change of its embedding; the untouched run's numbers and a
+     traced run's idle share and device ms by kernel group;
   9. one JSON line of per-kernel numbers (K2, K1, K3 and K4 forward and
      backward, K6, K7, K5, K8, K10, K11, K8's backward, K12a, K9's dX and
-     dW, K9, K12b's forward), then the result line.
+     dW, K9, K12b's forward, K12c's forward), then the result line.
 
 Every kernel time is by CUDA events (`cuda_ms`).  The profiler serves
 only the traced windows, and a window is used only when its trace shows
@@ -2584,11 +2601,13 @@ EXPERT_LEAVES = ("w_gate", "w_up", "w_down")    # (E, d, f) / (E, f, d)
 def conditioned_params(torch, model, dev, dtype=None):
     """A model's tree drawn well-conditioned, for the parity serves:
     every matrix with std 1/sqrt(its own fan-in) (an expert leaf's is d
-    or f, not the expert count; a depthwise conv's its taps), the norm
-    scales, the RG-LRU's gate vectors and conv bias N(0, 0.1), its a
-    in [0.9, 0.999] as `Model.init` draws it, the embedding as
-    `Model.init` draws it; each leaf in `dtype` if given, else its
-    spec's.  (`Model.init` follows the reference's init, whose fan-in of
+    or f, not the expert count; a depthwise conv's its taps; Mamba's
+    dt_proj a fifth of that, so dt stays near its init's range), the
+    norm scales, the RG-LRU's gate vectors and conv bias N(0, 0.1), its
+    a in [0.9, 0.999] as `Model.init` draws it, Mamba's dt in [1e-3,
+    0.1] as `Model.init` draws it, its A_log log(1..N) + N(0, 0.1) and D
+    N(1, 0.1), the embedding as `Model.init` draws it; each leaf in
+    `dtype` if given, else its spec's.  (`Model.init` follows the reference's init, whose fan-in of
     a layer-stacked matrix is the layer count, so its bf16 activations
     grow to ~2e4.)"""
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -2599,7 +2618,7 @@ def conditioned_params(torch, model, dev, dtype=None):
         if spec.init == "scaled":   # the output axis is last for "wo" only
             fan = (layer[1] if key in EXPERT_LEAVES + ("conv_w",) else
                    math.prod(layer[:-1]) if key == "wo" else layer[0])
-            std = fan ** -0.5
+            std = fan ** -0.5 * (0.2 if key == "dt_proj" else 1.0)
         elif "norm" in key:
             std = 0.1
         elif spec.init == "normal":
@@ -2608,6 +2627,17 @@ def conditioned_params(torch, model, dev, dtype=None):
             u = 0.9 + 0.099 * torch.rand(spec.shape, generator=gen,
                                          device=dev)
             return torch.log(torch.expm1(-torch.log(u) / 8.0)).to(dt)
+        elif spec.init == "dt_bias":  # Mamba's dt in [1e-3, 0.1]
+            u = 1e-3 + 0.099 * torch.rand(spec.shape, generator=gen,
+                                          device=dev)
+            return torch.log(torch.expm1(u)).to(dt)
+        elif spec.init == "a_log":  # Mamba's log(1..N) + N(0, 0.1)
+            n = torch.arange(1, spec.shape[-1] + 1, device=dev)
+            return (torch.log(n.float()) + 0.1 * torch.randn(
+                spec.shape, generator=gen, device=dev)).to(dt)
+        elif spec.init == "ones":   # Mamba's D: N(1, 0.1)
+            return (1.0 + 0.1 * torch.randn(spec.shape, generator=gen,
+                                            device=dev)).to(dt)
         elif key.startswith("gate_") or key == "conv_b":
             std = 0.1
         else:
@@ -2632,6 +2662,7 @@ KERNEL_GROUPS = (("K1", ("coupled_chunk_kernel",)),
                          "fleet_fwd_stream", "fleet_bwd_stream")),
                  ("K5", ("flash_fwd",)),
                  ("K7", ("scan_chains", "chunk_aggregates", "chunk_rescan")),
+                 ("K12c", ("selective_scan_fwd",)),
                  ("K8", ("rmsnorm_rows", "rmsnorm_general")),
                  ("K9", ("grouped_gemm_kernel", "gg_prefill", "gg_tick")),
                  ("K9 backward", ("gg_dx_rows", "gg_dx_tick", "gg_dw",
@@ -5846,6 +5877,305 @@ def phase_rglru_serving(torch, k7, k8, dev):
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return row
 
+
+# --------------------------------------------------------------------------
+# serving Falcon-Mamba-7B: Mamba-1's selective scan on K12c
+# --------------------------------------------------------------------------
+MAMBA = dict(cut_layers=4)
+K12C_BAR = 1e-5           # of max |y| and max |h|: K12c against its plain
+# at Model.init's weights (chaotic in fp32): fp32 kernels vs plain within
+# this many times the plain run's own spread under a one-ulp change
+INIT_SPREAD_X = 3.0
+SFU_EXP_PER_CLOCK = 16    # exponentials a clock an SM (Hopper's SFUs)
+
+
+def k12c_hold(torch, k12c, args, label):
+    """K12c on `args` (the recorded bf16 inputs) and on them cast to fp32
+    against its plain version: y within K12C_BAR of max |y|, h_final of
+    max |h|, two launches bitwise equal.  Returns the worst error and a
+    text."""
+    worst, parts = 0.0, []
+    f32 = tuple(a.float() for a in args)
+    for name, ins in (("bf16", args), ("fp32", f32)):
+        y, hf = k12c.selective_scan(*ins)
+        y2, hf2 = k12c.selective_scan(*ins)
+        py, phf = k12c.selective_scan_plain(*ins)
+        sy, sh = float(py.abs().max()), float(phf.abs().max())
+        ey = float((y - py).abs().max())
+        eh = float((hf - phf).abs().max())
+        check(bool(torch.isfinite(y).all()) and ey <= K12C_BAR * sy
+              and eh <= K12C_BAR * sh,
+              f"K12c at {label}, {name} inputs: y err {ey:.3e} (max |y| "
+              f"{sy:.4g}), h err {eh:.3e} (max |h| {sh:.4g}) against "
+              f"{K12C_BAR} of each")
+        check(torch.equal(y, y2) and torch.equal(hf, hf2),
+              f"K12c at {label}, {name} inputs: two launches differ")
+        worst = max(worst, ey, eh)
+        parts.append(f"{name} y {ey:.3e} (max |y| {sy:.4g}), h {eh:.3e} "
+                     f"(max |h| {sh:.4g})")
+    return worst, f"K12c {label}: " + ", ".join(parts) + ", bitwise twice"
+
+
+def logit_spread(a, b):
+    """(the worst distance of run `a`'s logits from run `b`'s over the
+    steps, as a share of b's max |logit| at that step; the tokens that
+    differ) of two runs teacher-forced to the same steps, unchecked.
+    Mamba at `Model.init`'s weights (the reference's init: a stacked
+    matrix's fan-in is its layer count, so at 4 layers every matrix has
+    std 0.5) makes dt_proj's outputs sums of large terms that cancel
+    near softplus's knee; there a last-bit change of the input can move
+    the fp32 logits by more than LOGIT_TOL (`phase_mamba_serving` reads the
+    plain run against itself with the embedding one ulp up), so no
+    kernel can be held to that bar there: it is held to INIT_SPREAD_X
+    times that spread."""
+    worst, flips = 0.0, 0
+    for x, y in zip(a, b):
+        scale = float(y["logits"].abs().max())
+        worst = max(worst, float((x["logits"] - y["logits"]).abs().max())
+                    / scale)
+        flips += int((x["logits"].argmax(-1) != y["logits"].argmax(-1))
+                     .sum())
+    return worst, flips
+
+
+def k12c_bound(torch, args, clock_mhz):
+    """(bound ms, bound_by, the SFU's exponential floor in ms) of one
+    K12c call: its bytes (every input read once, y and h_final written
+    once) over 3.35 TB/s against its fp32 operations (a = exp(dt A), b =
+    (dt x) B, h = a h + b, y += h C: 8 a state and step, the exponential
+    counted as one) over 67 TFLOP/s; beside it the exponentials at
+    SFU_EXP_PER_CLOCK a clock an SM at the card's top clock."""
+    dt, bm, cm, x, A = args
+    bsz, steps, di = dt.shape
+    n = A.shape[1]
+    bytes_ = sum(a.numel() * a.element_size() for a in args) + \
+        4 * (dt.numel() + bsz * di * n)
+    work = bsz * steps * di * n
+    b_ms, b_by = bound_ms(bytes_, 8.0 * work, 0, "float32")
+    sms = torch.cuda.get_device_properties(dt.device).multi_processor_count
+    exp_ms = work / (SFU_EXP_PER_CLOCK * sms * clock_mhz * 1e6) * 1e3
+    return b_ms, b_by, exp_ms
+
+
+def phase_mamba_serving(torch, k12c, k8, dev):
+    """Falcon-Mamba-7B at every published width and depth (64 Mamba-1
+    layers, d 4,096, d_inner 8,192, N 16, dt_rank 256, vocab 65,024
+    untied; bf16, random weights from seed 0) through `ServingEngine` (4
+    slots, s_max 4,096) on `rglru_prompts`' 8 requests of 16 new tokens
+    (two long ones, 2,300 and 3,100, drive K12c at those lengths).  K12c
+    (`models/ssm.py::_mamba_chunk_scan`) must launch 64 times a prefill
+    and never in a tick, K8 65 times a prefill and a tick; K12c at the
+    first and last layer of the first and the longest prefill against its
+    plain version (`k12c_hold`), K8 as `phase_rglru_serving` holds it;
+    whole-model parity, teacher-forced, at a cut depth of 4 layers (every
+    width as published) on well-conditioned weights: fp32 kernel vs plain
+    (LOGIT_TOL, the token rule) and bf16 (`hold_bf16`'s excess rule); at
+    `Model.init`'s weights, where the fp32 model is chaotic, fp32 kernel
+    vs plain within INIT_SPREAD_X times the plain run against itself with
+    the embedding one ulp up (`logit_spread`); the untouched run's times and
+    a traced run's device ms by kernel group.  Returns K12c's row for the kernels line."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    from repro_torch.models.model import build_model
+    from repro_torch.models.param import tree_map
+    t_phase = time.perf_counter()
+    cfg = get_config("falcon-mamba-7b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    prompts = rglru_prompts(cfg.vocab_size)
+    lens = [len(p) for p in prompts]
+    chip, chip_txt = card_profile(torch)
+    s_max = RGLRU["s_max"]
+    layers, di = cfg.num_layers, cfg.ssm.expand * cfg.d_model
+    check((layers, cfg.d_model, di, cfg.ssm.d_state, cfg.dt_rank,
+           cfg.vocab_size, model.param_count()) == (
+        64, 4096, 8192, 16, 256, 65024, 7_272_665_088)
+        and set(cfg.layer_kinds()) == {"mamba"}
+        and max(lens) < s_max - SERVE["max_new"],
+        f"Falcon-Mamba-7B: {layers} layers, d_inner {di}, N "
+        f"{cfg.ssm.d_state}, {model.param_count():,} params, prompts {lens}")
+    serve(torch, model, params, prompts[:1], dev, chip, s_max=s_max)
+
+    # the main path: counts zeroed just before, read just after; K12c's
+    # and K8's first and last call of each shape kept for the checks
+    calls12, calls8 = {}, {}
+    with recording(k12c, "selective_scan", calls12,
+                   lambda a: tuple(a[0].shape)), \
+            recording(k8, "rmsnorm", calls8, lambda a: a[0].shape[0]):
+        k12c.launches = k8.launches = 0
+        engine, session, _, steps = serve(torch, model, params, prompts,
+                                          dev, chip, s_max=s_max)
+        n12, n8 = k12c.launches, k8.launches
+    prefills = sum(s["kind"] == "prefill" for s in steps)
+    ticks = session.live_units
+    check(prefills == len(prompts) and len(engine.completed) == prefills
+          and all(len(r.generated) == SERVE["max_new"]
+                  for r in engine.completed),
+          f"{prefills} prefills, {len(engine.completed)} completed")
+    check(n12 == layers * prefills and sorted(calls12) == sorted(
+        (1, n, di) for n in set(lens)),
+        f"K12c launched {n12} times, expected {layers} x {prefills} and "
+        f"none in a tick (shapes {sorted(calls12)})")
+    check(n8 == (layers + 1) * (prefills + ticks),
+          f"K8 launched {n8} times, expected {layers + 1} x "
+          f"({prefills} + {ticks})")
+    check(all(bool(torch.isfinite(s["logits"]).all()) for s in steps),
+          "non-finite logits")
+    del engine, session, steps
+
+    # K12c and K8 per call, at the main path's own inputs
+    held, err12, err8 = [], 0.0, 0.0
+    for n in (lens[0], max(lens)):
+        for where, (args, _) in zip(("layer 0", f"layer {layers - 1}"),
+                                    calls12[(1, n, di)]):
+            err, text = k12c_hold(torch, k12c, args,
+                                  f"the {n}-token prefill's {where}")
+            err12 = max(err12, err)
+            held.append(text)
+    for rows in (max(lens), SERVE["slots"]):
+        for where, (args, _) in zip(("layer 0", "final norm"),
+                                    calls8[rows]):
+            y, py = k8.rmsnorm(*args[:3]), k8.rmsnorm_plain(*args[:3])
+            d = (y.float() - py.float()).abs()
+            check(bool((d <= 2e-2 + 2e-2 * py.float().abs()).all()),
+                  f"K8 at {rows} rows, {where}: max err {float(d.max()):.3e}")
+            err8 = max(err8, float(d.max()))
+            held.append(f"K8 {rows} rows {where} {float(d.max()):.3e}")
+
+    # K12c's row: the main path's 916-token call at layer 0
+    args = calls12[(1, 916, di)][0][0]
+    del calls12, calls8
+    ms = cuda_ms(torch, lambda: ssm._mamba_chunk_scan(*args), 20)
+    plain_ms = cuda_ms(torch, lambda: k12c.selective_scan_plain(*args), 2)
+    clock = smi("clocks.max.sm")[0]
+    b_ms, b_by, exp_ms = k12c_bound(torch, args, clock)
+    args32 = tuple(a.float() for a in args)
+    ms_f32 = cuda_ms(torch, lambda: k12c.selective_scan(*args32), 20)
+    row = {"name": "selective_scan", "route": "cuda",
+           "source": "src/repro_torch/csrc/selective_scan.cu",
+           "replaces": "src/repro/models/ssm.py:129", "launches": n12,
+           "max_abs_err": err12, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    del args, args32
+
+    # the main path again, untouched (device ms a step by CUDA events),
+    # and once more under the profiler
+    torch.cuda.reset_peak_memory_stats(dev)
+    engine, session, wall, steps_t = serve(torch, model, params, prompts,
+                                           dev, chip, record=False,
+                                           s_max=s_max)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    pre = {n: s["ms"] for n, s in zip(
+        lens, [s for s in steps_t if s["kind"] == "prefill"])}
+    pre_ms = list(pre.values())
+    dec_ms = [s["ms"] for s in steps_t if s["kind"] == "decode"]
+    tokens = sum(len(r.generated) for r in engine.completed)
+    kwh, co2 = session.live_energy_kwh, session.live_co2_kg
+    del engine, session, steps_t
+    busy = profile_window(torch, lambda: serve(
+        torch, model, params, prompts, dev, chip, record=False,
+        s_max=s_max), {"K12c": launch_count(k12c), "K8": launch_count(k8)})
+    idle = f"not measured ({busy})"
+    if not isinstance(busy, str):
+        twall, dev_s, n_kern, groups, table = busy
+        idle = (f"{1.0 - dev_s / twall:.3f} (device busy {dev_s:.3f} s, "
+                f"{n_kern} device activities, over {twall:.3f} s wall; "
+                f"device ms / activities by group: {groups_text(groups)})")
+        with open(os.path.join(OUT, "mamba_serving_profile.txt"), "w") as fh:
+            fh.write(f"serve Falcon-Mamba-7B, profiled: wall {twall:.3f} "
+                     f"s, device busy {dev_s:.3f} s\n{table}\n")
+    del params
+    model.params = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # parity at a cut depth, every width as published.  At `Model.init`'s
+    # weights the fp32 model is chaotic (see `logit_spread`), so the
+    # kernels are held at LOGIT_TOL on well-conditioned weights, and at
+    # the init weights to a multiple of the plain run's own spread
+    cut = dataclasses.replace(cfg, num_layers=MAMBA["cut_layers"])
+    model4 = build_model(cut)
+    params32 = tree_map(lambda t: t.float(), model4.init(
+        torch.Generator(device=dev).manual_seed(0), dev))
+    model4.params = None
+
+    def plain():
+        return plain_versions((k12c, "selective_scan"), (k8, "rmsnorm"))
+    _, _, _, k32 = serve(torch, model4, params32, prompts, dev, chip,
+                         s_max=s_max)
+    with plain():
+        _, _, pwall, p32 = serve(torch, model4, params32, prompts, dev,
+                                 chip, force=k32, s_max=s_max)
+        params32["embed"] = params32["embed"] * (1 + 2.0 ** -23)
+        _, _, _, u32 = serve(torch, model4, params32, prompts, dev, chip,
+                             force=k32, s_max=s_max)
+    del params32
+    init_kp, init_pu = logit_spread(k32, p32), logit_spread(u32, p32)
+    del k32, p32, u32
+    check(init_kp[0] <= INIT_SPREAD_X * init_pu[0],
+          f"Falcon-Mamba fp32 at Model.init's weights: kernels vs plain "
+          f"{init_kp[0]:.3e} of max |logit|, over {INIT_SPREAD_X} x the "
+          f"plain run's one-ulp spread {init_pu[0]:.3e}")
+    cparams = conditioned_params(torch, model4, dev)
+    cparams32 = tree_map(lambda t: t.float(), cparams)
+    _, _, _, c16 = serve(torch, model4, cparams, prompts, dev, chip,
+                         s_max=s_max)
+    _, _, _, c32 = serve(torch, model4, cparams32, prompts, dev, chip,
+                         force=c16, s_max=s_max)
+    with plain():
+        _, _, _, cp16 = serve(torch, model4, cparams, prompts, dev, chip,
+                              force=c16, s_max=s_max)
+        _, _, _, cp32 = serve(torch, model4, cparams32, prompts, dev, chip,
+                              force=c16, s_max=s_max)
+    del cparams, cparams32
+    fp32 = hold_logits(c32, cp32, "Falcon-Mamba fp32, 4 layers, "
+                       "well-conditioned weights")
+    cond = hold_bf16(c16, cp16, cp32, "Falcon-Mamba bf16, 4 layers, "
+                     "well-conditioned weights")
+    limit = smi("power.limit")[0]
+    print(f"serving Falcon-Mamba-7B ({model.param_count():,} params, "
+          f"bf16, every width and all {layers} Mamba-1 layers: d "
+          f"{cfg.d_model}, d_inner {di}, N {cfg.ssm.d_state}, dt_rank "
+          f"{cfg.dt_rank}, vocab {cfg.vocab_size} untied; init on the card "
+          f"{t_init:.2f} s) on {torch.cuda.get_device_name(0)} at "
+          f"{limit:.2f} W: {prefills} requests, prompts {lens} tokens, "
+          f"{SERVE['slots']} slots, s_max {s_max}; untouched run: wall "
+          f"{wall:.3f} s, prefill {np.median(pre_ms):.2f} ms (median; "
+          f"{min(pre_ms):.2f}-{max(pre_ms):.2f}; by prompt "
+          + ", ".join(f"{n} {v:.2f}" for n, v in pre.items())
+          + f"), tick {np.median(dec_ms):.2f} ms (median of {len(dec_ms)}; "
+          f"device ms between CUDA events), {tokens / wall:.1f} generated "
+          f"tokens/s, peak memory {peak:.2f} GB; session {kwh:.4e} kWh, "
+          f"{co2:.4e} kg CO2 (roofline estimate, {chip_txt}); device idle "
+          f"share {idle}; launches K12c {n12} = {layers} x {prefills} (none "
+          f"in the {ticks} ticks), K8 {n8} = {layers + 1} x ({prefills} + "
+          f"{ticks}); per call vs plain (K12c {K12C_BAR} of max |y| and "
+          f"max |h|, K8 2e-2 + 2e-2 |y|): " + "; ".join(held)
+          + f"; K12c forward (selective_scan) at the 916-token call (bf16 "
+          f"inputs) {ms:.4f} ms (fp32 inputs {ms_f32:.4f}; plain "
+          f"{plain_ms:.3f}; bound {b_ms:.4f} {b_by}; its exponentials at "
+          f"{SFU_EXP_PER_CLOCK} a clock an SM at {clock:.0f} MHz "
+          f"{exp_ms:.4f}); parity cut to {MAMBA['cut_layers']} layers "
+          f"(cut), teacher-forced, as a share of max |logit| (bar "
+          f"{LOGIT_TOL}), on well-conditioned weights: fp32 kernel vs "
+          f"plain worst {fp32[0]:.3e}, {fp32[1]} near-ties, {fp32[2]} "
+          f"flipped; at Model.init's weights (chaotic in fp32, held to "
+          f"{INIT_SPREAD_X} x the one-ulp spread) "
+          f"fp32 kernel vs plain worst {init_kp[0]:.3e} ({init_kp[1]} "
+          f"tokens differ), the plain run against itself with the "
+          f"embedding one ulp up {init_pu[0]:.3e} ({init_pu[1]} tokens "
+          f"differ; plain run {pwall:.3f} s); bf16 kernel vs plain worst "
+          f"{cond[0]:.4f} "
+          f"({cond[3]} of {len(c16)} steps over the bar), plain bf16 vs "
+          f"its fp32 truth {cond[1]:.4f}, the kernel run's excess "
+          f"{cond[2]:.4f}, tokens equal outside near-ties; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return row
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: run from the root of a checkout (src/repro_torch "
@@ -5871,6 +6201,7 @@ def main() -> int:
     from repro_torch.kernels import rmsnorm as k8
     from repro_torch.kernels import ops
     from repro_torch.kernels import scan_chunk as k2
+    from repro_torch.kernels import selective_scan as k12c
     from repro_torch.kernels import ssm_scan as k7
     from repro_torch.kernels import xent as k10
     from repro_torch.models import moe
@@ -5938,6 +6269,9 @@ def main() -> int:
     gc.collect()                    # DeepSeek's tensors, before RecurrentGemma's
     torch.cuda.empty_cache()
     kernels.append(phase_rglru_serving(torch, k7, k8, dev))
+    gc.collect()                    # RecurrentGemma's tensors, before Falcon's
+    torch.cuda.empty_cache()
+    kernels.append(phase_mamba_serving(torch, k12c, k8, dev))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

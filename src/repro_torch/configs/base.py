@@ -3,9 +3,9 @@ its sub-configs and `smoke_variant`, field for field, so that a config
 written for one package reads the same in the other.
 
 The package serves the dense family, the MoE family with full
-attention or MLA, and the hybrid family of RG-LRU and local-attention
-blocks (see `configs/__init__.py::get_config` and
-`models/model.py::build_model`).
+attention or MLA, the hybrid family of RG-LRU and local-attention
+blocks, and the attention-free Mamba-1 family (see
+`configs/__init__.py::get_config` and `models/model.py::build_model`).
 """
 from __future__ import annotations
 
@@ -111,6 +111,13 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
 
+    @property
+    def dt_rank(self) -> int:
+        """Mamba's dt projection rank: `ssm.dt_rank`, or ceil(d / 16)."""
+        if self.ssm is None:
+            raise ValueError(f"{self.name} has no SSM section")
+        return self.ssm.dt_rank or -(-self.d_model // 16)
+
     def layer_kinds(self) -> Tuple[str, ...]:
         """Temporal-mixing kind for each layer (pattern cycled)."""
         p = self.block_pattern
@@ -130,11 +137,11 @@ class ModelConfig:
         of the built model)."""
         d, hd = self.d_model, self.resolved_head_dim
         nq, nkv = self.num_heads, self.num_kv_heads
-        if self.encdec or MAMBA in self.layer_kinds():
+        if self.encdec:
             raise NotImplementedError(
-                f"{self.name}: param_count covers the attention, MLA and "
-                "RG-LRU blocks the port serves (Mamba: ROADMAP.md Queue 1 "
-                "item 6 (b); encoder-decoder: item 7)")
+                f"{self.name}: param_count covers the decoder-only blocks "
+                "the port serves (encoder-decoder: ROADMAP.md Queue 1 item "
+                "7)")
 
         def attn_params() -> int:
             n = d * nq * hd + 2 * d * nkv * hd + nq * hd * d
@@ -152,6 +159,16 @@ class ModelConfig:
             n += m.kv_lora_rank * nq * (m.qk_nope_head_dim + m.v_head_dim)
             n += nq * m.v_head_dim * d                      # o proj
             return n
+
+        def mamba_params() -> int:
+            s = self.ssm
+            di, dtr = s.expand * d, self.dt_rank
+            n = d * 2 * di                                  # in_proj
+            n += di * s.d_conv + di                         # conv1d + bias
+            n += di * (dtr + 2 * s.d_state)                 # x_proj
+            n += dtr * di + di                              # dt_proj, bias
+            n += di * s.d_state + di                        # A_log, D
+            return n + di * d                               # out_proj
 
         def rglru_params() -> int:
             g = self.rglru
@@ -177,6 +194,9 @@ class ModelConfig:
         total = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         total += d                                          # final norm
         for i, k in enumerate(self.layer_kinds()):
+            if k == MAMBA:                  # a norm and the mixer, no MLP
+                total += d + mamba_params()
+                continue
             total += 2 * d                                  # the two norms
             total += (mla_params() if k == MLA else rglru_params()
                       if k == RGLRU else attn_params())
@@ -197,7 +217,7 @@ class ModelConfig:
 def smoke_variant(cfg: ModelConfig, **overrides) -> ModelConfig:
     """Shrink a config to CPU-test scale, preserving family structure
     (the reference's rule, for the families this package serves: dense,
-    MoE, MLA and the RG-LRU hybrid)."""
+    MoE, MLA, the RG-LRU hybrid and Mamba-1)."""
     kw = dict(
         num_layers=min(cfg.num_layers, len(cfg.block_pattern) + 1),
         d_model=64,
@@ -215,6 +235,9 @@ def smoke_variant(cfg: ModelConfig, **overrides) -> ModelConfig:
         kw["mla"] = MLAConfig(kv_lora_rank=32, q_lora_rank=0,
                               qk_nope_head_dim=16, qk_rope_head_dim=8,
                               v_head_dim=16)
+    if cfg.ssm is not None:
+        kw["ssm"] = dataclasses.replace(cfg.ssm, d_state=8, d_conv=4,
+                                        expand=2)
     if cfg.rglru is not None:
         kw["rglru"] = dataclasses.replace(cfg.rglru, lru_width=64,
                                           local_window=32)

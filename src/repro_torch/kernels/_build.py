@@ -25,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("scan_chunk", "coupled_chunk", "flash_attention",
            "flash_attention_bwd", "rmsnorm",
            "moe_gemm", "xent", "xent_bwd", "decode_attention", "ssm_scan",
-           "objective_scan", "fleet_objective")
+           "selective_scan", "objective_scan", "fleet_objective")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -6,7 +6,8 @@ the same source, at Moonlight-16B-A3B's train step) and K12a
 TinyLlama-1.1B's and Moonlight-16B-A3B's heads) in bf16, K6
 (csrc/decode_attention.cu), the chunk
 kernels K2 (csrc/scan_chunk.cu) and K1 (csrc/coupled_chunk.cu) in fp64
-and fp32, K7 (csrc/ssm_scan.cu) and K8 (csrc/rmsnorm.cu), built beside
+and fp32, K7 (csrc/ssm_scan.cu), K8 (csrc/rmsnorm.cu) and K12c
+(csrc/selective_scan.cu, at Falcon-Mamba-7B's prefills), built beside
 variants with one part removed, each timed at the main path's shapes on
 one card.
 
@@ -15,7 +16,7 @@ one card.
 
 (sources: flash_attention, flash_attention_bwd, xent, xent_bwd,
 moe_gemm, moe_gemm_bwd, decode_attention, scan_chunk, coupled_chunk,
-ssm_scan, rmsnorm; all by default).  With
+ssm_scan, rmsnorm, selective_scan; all by default).  With
 --baseline, the same sources of another checkout rooted at DIR (a `git
 archive` of an earlier commit, say) are built and timed beside them as
 the variant "baseline", so two versions are compared within one call;
@@ -33,8 +34,9 @@ A variant computes a wrong result by design: it is timed, never checked.
 The gap between a variant and the unchanged kernel is what that part costs
 where it does not overlap the rest.  Variants named "alt: ..." are design
 alternatives the kernel was chosen against; they compute the right
-result (K7's are checked against its plain version, and the error is
-printed).  Every variant is a text substitution
+result (K7's and K12c's are checked against their plain versions and
+the error is printed; a K12c "alt:" over K12c's bar of 1e-5 of max |y|
+raises).  Every variant is a text substitution
 of the current source, with its local headers (`*.cuh`) inlined;
 `variant_sources` raises if one no longer applies
 (tests/test_torch_kernels.py checks that on the CPU), so the table stays
@@ -389,6 +391,25 @@ VARIANTS: Dict[str, Dict[str, List[Edit]]] = {
         # the design alternative, measured beside the kernel
         "alt: one pass": [("constexpr bool kOnePass = false;",
                            "constexpr bool kOnePass = true;")],
+    },
+    "selective_scan": {
+        "no exponentials": [("const float a = expf(__fmul_rn(dtv[u], an));",
+                             "const float a = __fmul_rn(dtv[u], an);")],
+        "no y sum": [
+            ("      for (int off = G / 2; off > 0; off >>= 1)\n"
+             "        s = __fadd_rn(s, __shfl_xor_sync(group, s, off, G));\n",
+             "")],
+        "no y stores": [("if (n == 0) yp[", "if (n == 0 && s == -1.f) yp[")],
+        # every group of steps reads the first group's inputs (from L1)
+        "no loads after the first group": [("const int t = t0 + u;",
+                                             "const int t = u;")],
+        # design alternatives, measured beside the kernel
+        "alt: __expf": [("expf(__fmul_rn(dtv[u], an))",
+                         "__expf(__fmul_rn(dtv[u], an))")],
+        "alt: 4 blocks an SM": [("constexpr int kMinBlocks = 8;",
+                                 "constexpr int kMinBlocks = 4;")],
+        "alt: 8 steps loaded ahead": [("constexpr int kUnroll = 4;",
+                                       "constexpr int kUnroll = 8;")],
     },
     "rmsnorm": {
         "no scale loads": [
@@ -1052,6 +1073,56 @@ def _time_k7(torch, libs, dev, stream):
     return rows
 
 
+K12C_TOL = 1e-5  # of max |y|: K12c's bar against its plain version
+
+
+def _time_k12c(torch, libs, dev, stream):
+    """K12c at Falcon-Mamba-7B's prefills (d_inner 8,192, N 16, bf16 x, B
+    and C, fp32 dt and A) of 916 and 3,100 tokens; each variant's first
+    call held against the plain version, the kernel and an "alt:" one at
+    K12c's bar of 1e-5 of max |y| (a removed part gives a wrong result by
+    design, and is only printed)."""
+    from repro_torch.kernels import selective_scan as k12c
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(12)
+    di, n = 8192, 16
+    A = -torch.arange(1, n + 1, device=dev, dtype=torch.float32).expand(
+        di, n).contiguous()
+    for t in (916, 3100):
+        dt = torch.nn.functional.softplus(
+            torch.randn((1, t, di), generator=gen, device=dev) - 4.0)
+        bm, cm = (torch.randn((1, t, n), generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        x = torch.randn((1, t, di), generator=gen, device=dev).to(
+            torch.bfloat16)
+        y = torch.empty((1, t, di), device=dev)
+        hf = torch.empty((1, di, n), device=dev)
+        py, _ = k12c.selective_scan_plain(dt, bm, cm, x, A)
+        scale = float(py.abs().max())
+        argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + \
+            [ctypes.c_void_p]
+        for label, fn in _variants(libs, "selective_scan",
+                                   "selective_scan_bf16", argtypes):
+            def call(fn=fn):
+                return fn(dt.data_ptr(), bm.data_ptr(), cm.data_ptr(),
+                          x.data_ptr(), A.data_ptr(), y.data_ptr(),
+                          hf.data_ptr(), 1, t, di, n, stream)
+            if call():
+                raise RuntimeError(f"K12c {label}: launch failed")
+            torch.cuda.synchronize()
+            err = float((y - py).abs().max()) / scale
+            print(f"K12c (1,{t},{di}) {label}: y vs plain {err:.3e} of max "
+                  f"|y|", flush=True)
+            if (label == "unchanged" or label.startswith("alt:")) and \
+                    not err <= K12C_TOL:
+                raise RuntimeError(f"K12c {label}: y vs plain {err:.3e} of "
+                                   f"max |y|, over {K12C_TOL}")
+            rows.append(("K12c", f"(1,{t},{di}) x N {n} bf16", label,
+                         _event_ms(torch, call, 20)))
+        del dt, bm, cm, x, y, py
+    return rows
+
+
 def _time_k8(torch, libs, rnd, dev, stream):
     """K8 in bf16 at a decode tick's 4 rows, a 916-token prefill's rows,
     the loss's 8,192 rows (d 2048) and MLA's kv_norm rows (d 512) at a
@@ -1210,10 +1281,13 @@ def main(argv=None) -> int:
               "coupled_chunk": lambda: _time_k1(torch, libs, gen, dev,
                                                 stream),
               "ssm_scan": lambda: _time_k7(torch, libs, dev, stream),
-              "rmsnorm": lambda: _time_k8(torch, libs, rnd, dev, stream)}
+              "rmsnorm": lambda: _time_k8(torch, libs, rnd, dev, stream),
+              "selective_scan": lambda: _time_k12c(torch, libs, dev,
+                                                   stream)}
     for line in _occupancy(libs, logs, names):
         print(line, flush=True)
-    for src in ("ssm_scan", "rmsnorm", "flash_attention_bwd"):
+    for src in ("ssm_scan", "rmsnorm", "flash_attention_bwd",
+                "selective_scan"):
         if src in names:
             for line in _registers_line(logs, src):
                 print(line, flush=True)

@@ -15,7 +15,8 @@ Each tick is priced with the card's energy profile (`core/sysinfo.py`)
 at 2 FLOP and 2 bytes per active parameter and token.  The weights are
 random, drawn from seed 0; the prompts are seeded too.  On the card it
 prints the launches of the model path's kernels: K5 (flash attention),
-K8 (RMSNorm), K9 (the grouped expert GEMM) and K7 (the RG-LRU's scan).
+K8 (RMSNorm), K9 (the grouped expert GEMM), K7 (the RG-LRU's scan) and
+K12c (Mamba's selective scan).
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from repro_torch.core.sysinfo import chip_profile_from_host, detect_host
 from repro_torch.kernels import flash_attention as k5
 from repro_torch.kernels import moe_gemm as k9
 from repro_torch.kernels import rmsnorm as k8
+from repro_torch.kernels import selective_scan as k12c
 from repro_torch.kernels import ssm_scan as k7
 from repro_torch.models import build_model
 from repro_torch.serving.engine import ServingEngine
@@ -89,7 +91,7 @@ def main(argv=None):
         lens.append(len(prompt))
     print(f"{args.requests} requests of {args.max_new} new tokens, prompts "
           f"{lens} tokens", flush=True)
-    kernels = (k5, k8, k9, k7)
+    kernels = (k5, k8, k9, k7, k12c)
     before = [k.launches for k in kernels]
     t0 = time.perf_counter()
     done = engine.run_until_drained()
@@ -106,10 +108,10 @@ def main(argv=None):
           f"{s.energy_kwh * 1e3:.4e} Wh; CO2e {s.co2_kg * 1e3:.4e} g "
           f"({chip.name} profile)", flush=True)
     if device.type == "cuda":
-        k5n, k8n, k9n, k7n = (k.launches - b
-                              for k, b in zip(kernels, before))
-        print(f"kernel launches: K5 {k5n}, K8 {k8n}, K9 {k9n}, K7 {k7n}",
-              flush=True)
+        k5n, k8n, k9n, k7n, k12n = (k.launches - b
+                                    for k, b in zip(kernels, before))
+        print(f"kernel launches: K5 {k5n}, K8 {k8n}, K9 {k9n}, K7 {k7n}, "
+              f"K12c {k12n}", flush=True)
     return done
 
 

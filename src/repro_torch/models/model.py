@@ -1,6 +1,7 @@
 """The model API of the port, over the dense family, the MoE family
-with full attention or MLA, and the hybrid family of RG-LRU and local
-attention blocks (`src/repro/models/model.py`):
+with full attention or MLA, the hybrid family of RG-LRU and local
+attention blocks, and the attention-free Mamba-1 family
+(`src/repro/models/model.py`):
 
     model = build_model(cfg)
     params = model.init(generator, device)      # drawn on `device`
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MAMBA, ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import param as P
@@ -120,9 +121,10 @@ class Model(nn.Module):
     def loss(self, params, batch):
         """The training objective on `batch` ({"tokens": (B, S)}, a tensor
         or a numpy array, as `SyntheticLM.batch_at` gives it).  Returns
-        (loss, {"nll", "acc", "aux"}), fp32 scalars.  The hybrid family
-        runs it forward only (K7's kernel refuses an input that requires
-        grad; its backward is ROADMAP.md Queue 1 item 6 (c)).
+        (loss, {"nll", "acc", "aux"}), fp32 scalars.  The hybrid and SSM
+        families run it forward only (K7's and K12c's kernels refuse an
+        input that requires grad; their backwards are ROADMAP.md Queue 1
+        item 6 (c)).
         Differentiable on the dense and MoE families: attention runs K5
         forward and K11 backward (MLA's q/k head dim 192 against v's 128
         keeps DeepSeek on the dense path, autograd's backward, as in the
@@ -191,13 +193,14 @@ def build_model(cfg: ModelConfig) -> Model:
     """The model of a config; raises `NotImplementedError` for what the
     port does not serve yet."""
     unported = []
-    if cfg.family == "ssm":
-        unported.append("family 'ssm' (ROADMAP.md Queue 1 item 6 (b))")
-    elif cfg.family not in ("dense", "moe", "hybrid"):
+    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
         unported.append(f"family {cfg.family!r}")
     if cfg.encdec:
         unported.append("encoder-decoder")
-    if cfg.attention_kind not in ("attn", "mla") or (
+    if cfg.attention_kind == "none":     # attention-free: Mamba blocks only
+        if set(cfg.layer_kinds()) != {MAMBA}:
+            unported.append("attention kind 'none' with attention blocks")
+    elif cfg.attention_kind not in ("attn", "mla") or (
             (cfg.attention_kind == "mla") != (cfg.mla is not None)):
         unported.append(f"attention kind {cfg.attention_kind!r}")
     if cfg.kernels != "auto":
@@ -209,6 +212,6 @@ def build_model(cfg: ModelConfig) -> Model:
     if unported:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(unported)} not ported yet (the port "
-            "serves the dense, MoE and hybrid families; ROADMAP.md Queue "
-            "1)")
+            "serves the dense, MoE, hybrid and SSM families; ROADMAP.md "
+            "Queue 1)")
     return Model(cfg)

@@ -19,7 +19,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
-    init: str = "normal"                     # normal|zeros|ones|scaled|lru_a
+    init: str = "normal"     # normal|zeros|ones|scaled|lru_a|a_log|dt_bias
     scale: float = 0.02
     dtype: torch.dtype = torch.bfloat16
 
@@ -51,9 +51,17 @@ def _init_one(spec: ParamSpec, generator: torch.Generator,
         target = -torch.log(u) / 8.0
         return torch.log(torch.expm1(torch.clamp_min(target, 1e-8))
                          ).to(dtype)
-    raise NotImplementedError(
-        f"init {spec.init!r} is not ported yet (the Mamba family's "
-        "`a_log` and `dt_bias`: ROADMAP.md Queue 1 item 6 (b))")
+    if spec.init == "a_log":    # Mamba's A_log: log(1..d_state) on each row
+        # taken in fp64 and rounded once, so every device draws the same
+        # bits (the correctly rounded logs)
+        n = torch.arange(1, shape[-1] + 1, dtype=torch.float64)
+        row = torch.log(n).to(torch.float32).to(device)
+        return row.expand(shape).to(dtype).contiguous()
+    if spec.init == "dt_bias":  # softplus-inverse of U[1e-3, 1e-1]
+        u = 1e-3 + (1e-1 - 1e-3) * torch.rand(
+            shape, generator=generator, dtype=torch.float32, device=device)
+        return torch.log(torch.expm1(u)).to(dtype)
+    raise ValueError(f"unknown init {spec.init!r}")
 
 
 def tree_map(fn: Callable, tree):

@@ -7,12 +7,14 @@ Under `cfg.remat` each layer is rematerialized in the backward
 (`_remat`), as the reference wraps its segment body.
 
 Ported block kinds: full attention (`ATTN`) and MLA, each with a dense
-SwiGLU MLP or an MoE FFN, and the hybrid family's Griffin RG-LRU
-(`RGLRU`, `models/ssm.py`) and local attention (`LOCAL_ATTN`, a window of
-`cfg.rglru.local_window`), each with a dense SwiGLU MLP.  A local layer's
-decode cache is a ring buffer of min(window, s_max) positions; an RG-LRU
-layer's is its conv tail (bf16) and its state `h` (fp32).  Mamba raises
-`NotImplementedError` (ROADMAP.md Queue 1 item 6 (b)).
+SwiGLU MLP or an MoE FFN; the hybrid family's Griffin RG-LRU (`RGLRU`,
+`models/ssm.py`) and local attention (`LOCAL_ATTN`, a window of
+`cfg.rglru.local_window`), each with a dense SwiGLU MLP; and Mamba-1
+(`MAMBA`, `models/ssm.py`), a norm and the mixer with no MLP, as the
+reference builds it.  A local layer's decode cache is a ring buffer of
+min(window, s_max) positions; an RG-LRU layer's is its conv tail (bf16)
+and its state `h` (fp32); a Mamba layer's its conv tail (bf16) and its
+state `ssm` ((B, d_inner, N) fp32).
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from typing import Any, Callable, List, Tuple
 import torch
 from torch.utils import checkpoint as CK
 
-from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MLA, RGLRU,
+from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MAMBA, MLA, RGLRU,
                                       ModelConfig)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -61,11 +63,11 @@ def layer_plan(cfg: ModelConfig) -> List[Segment]:
 
 
 def _check_kind(kind: str) -> None:
-    if kind not in (ATTN, MLA, RGLRU, LOCAL_ATTN):
+    if kind not in (ATTN, MLA, RGLRU, LOCAL_ATTN, MAMBA):
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (the port serves "
-            "full-attention, MLA, RG-LRU and local-attention blocks; "
-            "ROADMAP.md Queue 1 item 6 (b))")
+            f"block kind {kind!r} is not ported (the port serves "
+            "full-attention, MLA, RG-LRU, local-attention and Mamba "
+            "blocks)")
 
 
 def _window(cfg: ModelConfig, kind: str) -> int:
@@ -80,6 +82,8 @@ def _mixer_spec(cfg: ModelConfig, kind: str) -> SpecTree:
         return L.mla_spec(cfg)
     if kind == RGLRU:
         return SSM.rglru_spec(cfg)
+    if kind == MAMBA:
+        return SSM.mamba_spec(cfg)
     return L.attn_spec(cfg)
 
 
@@ -94,10 +98,11 @@ def _stack_spec(spec: SpecTree, n: int) -> SpecTree:
 def block_spec(cfg: ModelConfig, kind: str, is_moe: bool) -> SpecTree:
     _check_kind(kind)
     d = cfg.d_model
-    return {"norm1": L.norm_spec(d),
-            "mixer": _mixer_spec(cfg, kind),
-            "norm2": L.norm_spec(d),
-            "ffn": MOE.moe_spec(cfg) if is_moe else L.mlp_spec(cfg)}
+    s: SpecTree = {"norm1": L.norm_spec(d), "mixer": _mixer_spec(cfg, kind)}
+    if kind != MAMBA:                    # a Mamba block has no MLP
+        s["norm2"] = L.norm_spec(d)
+        s["ffn"] = MOE.moe_spec(cfg) if is_moe else L.mlp_spec(cfg)
+    return s
 
 
 def segment_spec(cfg: ModelConfig, seg: Segment) -> SpecTree:
@@ -161,14 +166,22 @@ def apply_block(x, p, cfg: ModelConfig, kind: str, is_moe: bool, *,
         o, (conv, hh) = SSM.rglru_block(h, p["mixer"], cfg,
                                         return_state=True)
         cache = {"conv": conv, "h": hh}
+    elif kind == MAMBA:
+        o, (conv, ss) = SSM.mamba_block(h, p["mixer"], cfg,
+                                        return_state=True)
+        cache = {"conv": conv, "ssm": ss}
     else:
         o, kv = L.attn_block(h, p["mixer"], cfg, causal=causal,
                              window=_window(cfg, kind), positions=positions)
         cache = {"k": kv[0], "v": kv[1]}
     x = x + o
-    h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-    f, aux = _ffn(h2, p["ffn"], cfg, is_moe)
-    return x + f, aux, (cache if collect_cache else None)
+    if kind == MAMBA:                       # no MLP
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    else:
+        h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+        f, aux = _ffn(h2, p["ffn"], cfg, is_moe)
+        x = x + f
+    return x, aux, (cache if collect_cache else None)
 
 
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -250,23 +263,29 @@ def apply_block_decode(x, p, cfg: ModelConfig, kind: str, is_moe: bool,
                                        cache["h"])
         cache["conv"].copy_(conv)            # into the cache, in place
         cache["h"].copy_(hh)
+    elif kind == MAMBA:
+        o, conv, ss = SSM.mamba_decode(h, p["mixer"], cfg, cache["conv"],
+                                       cache["ssm"])
+        cache["conv"].copy_(conv)            # into the cache, in place
+        cache["ssm"].copy_(ss)
     else:
         o, kc, vc = L.attn_decode(h, p["mixer"], cfg, cache["k"], cache["v"],
                                   index, window=_window(cfg, kind))
         cache = {"k": kc, "v": vc}
     x = x + o
-    h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-    f, _ = _ffn(h2, p["ffn"], cfg, is_moe)
-    return x + f, cache
+    if kind != MAMBA:                       # a Mamba block has no MLP
+        h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+        x = x + _ffn(h2, p["ffn"], cfg, is_moe)[0]
+    return x, cache
 
 
 def apply_segments_decode(x, params_segments, caches, cfg: ModelConfig,
                           index):
     """One token through every layer.  Each layer writes its new cache
     entries (key and value, MLA's latent and roped key, or the RG-LRU's
-    conv tail and state) into its slice of the stacked caches in place,
-    so `caches` is returned updated (the reference returns new stacked
-    arrays)."""
+    or Mamba's conv tail and state) into its slice of the stacked caches
+    in place, so `caches` is returned updated (the reference returns new
+    stacked arrays)."""
     for seg, seg_p, seg_c in zip(layer_plan(cfg), params_segments, caches):
         for r in range(seg.repeats):
             for pos_i, (kind, m) in enumerate(seg.pattern):
@@ -294,6 +313,12 @@ def block_cache_spec(cfg: ModelConfig, kind: str, batch: int,
                                   init="zeros"),
                 "h": ParamSpec((batch, w), init="zeros",
                                dtype=torch.float32)}
+    if kind == MAMBA:
+        s = cfg.ssm
+        di = s.expand * cfg.d_model
+        return {"conv": ParamSpec((batch, s.d_conv - 1, di), init="zeros"),
+                "ssm": ParamSpec((batch, di, s.d_state), init="zeros",
+                                 dtype=torch.float32)}
     if kind == LOCAL_ATTN:                   # the ring buffer
         s_max = min(cfg.rglru.local_window, s_max)
     shp = (batch, s_max, cfg.num_kv_heads, cfg.resolved_head_dim)

@@ -5,9 +5,10 @@ decode slots with per-tick CARINA accounting, as the reference's
   * `slots` concurrent sequences share one (L, B, S_max, ...) cache;
   * admission runs a single-sequence prefill and writes its cache
     entries (keys and values, MLA's latent and roped key, or the RG-LRU's
-    conv tail and state) into the slot; a local-attention layer's ring
-    buffer takes the prompt's last min(window, S_p) keys and values at
-    their positions modulo its size, the rest of the slot zeroed;
+    or Mamba's conv tail and state) into the slot; a local-attention
+    layer's ring buffer takes the prompt's last min(window, S_p) keys and
+    values at their positions modulo its size, the rest of the slot
+    zeroed;
   * every engine tick decodes all active slots in one batched
     `decode_step` with per-slot positions, and picks tokens greedily
     (`argmax`);
@@ -16,13 +17,13 @@ decode slots with per-tick CARINA accounting, as the reference's
     accounts each tick's runtime, energy and CO2.
 
 The engine runs on the card unless `device=` says otherwise.  Full-
-attention, MLA, ring-buffer (local attention) and RG-LRU caches are
-ported.  Refused: the mamba cache (`NotImplementedError`, ROADMAP.md
-Queue 1 item 6 (b)); a prompt longer than a full-attention cache
+attention, MLA, ring-buffer (local attention), RG-LRU and Mamba caches
+are ported.  Refused: a cache of any other kind (`NotImplementedError`,
+never written); a prompt longer than a full-attention cache
 (`NotImplementedError`: the reference would go on to write its decode
-steps past the cache's end); and a prompt shorter than an RG-LRU's
-d_conv - 1 tokens (`ValueError`: the reference's conv tail is then
-short, and its slot write broadcasts or fails).
+steps past the cache's end); and a prompt shorter than an RG-LRU's or a
+Mamba layer's d_conv - 1 tokens (`ValueError`: the reference's conv
+tail is then short, and its slot write broadcasts or fails).
 """
 from __future__ import annotations
 
@@ -57,19 +58,20 @@ def _write_slot(cache, prefill_cache, slot: int, cfg: ModelConfig,
     (in place; returns the batch cache)."""
     for seg, seg_c, seg_p in zip(T.layer_plan(cfg), cache, prefill_cache):
         for (kind, _), c, pc in zip(seg.pattern, seg_c, seg_p):
-            # RG-LRU: conv (L, B, K-1, w) and h (L, B, w)
-            if set(c) == {"conv", "h"}:
+            # RG-LRU: conv (L, B, K-1, w) and h (L, B, w); Mamba: conv
+            # (L, B, K-1, d_inner) and ssm (L, B, d_inner, N)
+            if set(c) in ({"conv", "h"}, {"conv", "ssm"}):
                 if pc["conv"].shape[2] != c["conv"].shape[2]:
+                    block = "RG-LRU" if "h" in c else "Mamba layer"
                     raise ValueError(
                         f"a prompt of {prompt_len} tokens is shorter than "
-                        f"the RG-LRU's conv tail of {c['conv'].shape[2]}")
+                        f"the {block}'s conv tail of {c['conv'].shape[2]}")
                 for key in c:
                     c[key][:, slot] = pc[key][:, 0]
                 continue
             if set(c) not in ({"k", "v"}, {"c_kv", "k_rope"}):
                 raise NotImplementedError(
-                    f"cache entries {sorted(c)} (mamba) are not ported yet "
-                    "(ROADMAP.md Queue 1 item 6 (b))")
+                    f"cache entries {sorted(c)} are not ported")
             for key in c:                      # (L, B, S, ...)
                 src = pc[key]                  # (L, 1, S_p, ...)
                 s_cache, s_p = c[key].shape[2], src.shape[2]

@@ -25,8 +25,9 @@ It trains both families the port serves: the dense one and the MoE one
 q/k head dim 192 and v head dim 128, so its attention stays on the dense
 path (autograd's own backward) as in the reference.
 
-Not ported yet (ROADMAP.md Queue 1): training the hybrid family
-(`make_train_step` raises: the RG-LRU scan's backward is item 6 (c))
+Not ported yet (ROADMAP.md Queue 1): training the hybrid and SSM
+families (`make_train_step` raises: the backwards of the RG-LRU's and
+Mamba's scans are item 6 (c))
 and the explicit data-parallel `make_dp_compressed_step` /
 `init_dp_compressed_state` (`distributed/`).
 """
@@ -91,11 +92,11 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
                     grad_accum: int = 1):
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
-    if model.cfg.family == "hybrid":
+    if model.cfg.family in ("hybrid", "ssm"):
         raise NotImplementedError(
-            f"{model.cfg.name}: training the hybrid family is not ported "
-            "yet (the RG-LRU scan's backward: ROADMAP.md Queue 1 item "
-            "6 (c))")
+            f"{model.cfg.name}: training the {model.cfg.family} family is "
+            "not ported yet (the backwards of the RG-LRU's and Mamba's "
+            "scans: ROADMAP.md Queue 1 item 6 (c))")
 
     def loss_and_grads(params, mb):
         with torch.enable_grad():

@@ -1,8 +1,9 @@
 """The port's kernels K1 (`coupled_chunk`), K2 (`scan_chunk`), K3
 (`objective_scan`), K4 (`fleet_objective`), K5 (`flash_attention`), K6
 (`decode_attention`), K7 (`ssm_scan`), K8 (`rmsnorm`) and its backward, K9
-(`moe_gemm`) and its backward (`grouped_gemm_dx`, `grouped_gemm_dw`), K10 (`xent`), K11 (`flash_attention_bwd`) and K12a
-(`xent_bwd`, the blocked loss's backward):
+(`moe_gemm`) and its backward (`grouped_gemm_dx`, `grouped_gemm_dw`), K10 (`xent`), K11 (`flash_attention_bwd`), K12a
+(`xent_bwd`, the blocked loss's backward) and K12c (`selective_scan`,
+Mamba-1's selective scan):
 their wrappers' dispatch and input checks, and — on a machine with an NVIDIA GPU — each CUDA kernel
 against its plain PyTorch version.
 
@@ -19,7 +20,7 @@ tests/test_torch_objective_kernels.py holds their autograd Functions to
 autograd of the plain versions on the CPU; tests/test_torch_serving.py
 does so for K5 and K8, tests/test_torch_moe.py for K9, tests/test_torch_loss.py
 for K10, tests/test_torch_train_loop.py for K12a, tests/test_torch_ops.py
-for K6 and K7).
+for K6 and K7, tests/test_torch_mamba.py for K12c).
 """
 import numpy as np
 import pytest
@@ -38,6 +39,7 @@ from repro_torch.kernels import objective_scan as k3  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import rmsnorm as k8  # noqa: E402
 from repro_torch.kernels import scan_chunk as k2  # noqa: E402
+from repro_torch.kernels import selective_scan as k12c  # noqa: E402
 from repro_torch.kernels import ssm_scan as k7  # noqa: E402
 from repro_torch.kernels import xent as k10  # noqa: E402
 
@@ -1873,8 +1875,8 @@ def test_blocked_xent_kernel_matches_plain_on_card(t, d, v, block_v, dv,
 def test_ablation_variants_apply_to_the_sources():
     """Every part-removed variant of `kernels.ablate` still matches the
     current K1, K2, K5, K6, K7, K8, K9 (forward, and the sm90 backward
-    kernels of the same source), K10, K11 and K12a (its sm90 kernel)
-    sources, with their headers
+    kernels of the same source), K10, K11, K12a (its sm90 kernel) and
+    K12c sources, with their headers
     inlined (the tool is run on the card; here only its substitutions are
     checked)."""
     from repro_torch.kernels import ablate
@@ -1883,7 +1885,7 @@ def test_ablation_variants_apply_to_the_sources():
                                     "flash_attention", "decode_attention",
                                     "moe_gemm", "moe_gemm_bwd", "xent",
                                     "xent_bwd", "ssm_scan", "rmsnorm",
-                                    "flash_attention_bwd"}
+                                    "flash_attention_bwd", "selective_scan"}
     for name, variants in ablate.VARIANTS.items():
         base = srcs[(name, "unchanged")]
         assert len(variants) >= 3
@@ -1909,6 +1911,34 @@ def scan_inputs(b, t, c, dtype, device="cpu", seed=0):
     a = torch.as_tensor(rng.uniform(0.5, 1.0, (b, t, c)), dtype=torch.float32)
     x = torch.as_tensor(rng.normal(0.0, 0.1, (b, t, c)), dtype=torch.float32)
     return a.to(dtype).to(device), x.to(dtype).to(device)
+
+
+def selective_inputs(b, s, di, n, dtype, device="cpu", seed=0):
+    """K12c inputs as the Mamba block gives them: dt = softplus(N(-3, 1))
+    fp32, Bm, Cm, x ~ N(0, 1) in `dtype`, A = -exp(A_log) fp32 with A_log
+    near the init's log(1..N)."""
+    rng = np.random.default_rng(seed)
+    dt = np.log1p(np.exp(rng.normal(-3.0, 1.0, (b, s, di))))
+    A = -np.exp(np.log(np.arange(1, n + 1)) + rng.normal(0.0, 0.1, (di, n)))
+    bm, cm = (rng.normal(size=(b, s, n)) for _ in range(2))
+    x = rng.normal(size=(b, s, di))
+
+    def t(a, dt_=torch.float32):
+        return torch.as_tensor(a, dtype=torch.float32).to(dt_).to(device)
+    return t(dt), t(bm, dtype), t(cm, dtype), t(x, dtype), t(A)
+
+
+def naive_selective(dt, bm, cm, x, A):
+    """The selective scan in fp64, one step at a time."""
+    dt, bm, cm, x, A = (v.double() for v in (dt, bm, cm, x, A))
+    bsz, s, di = dt.shape
+    h = torch.zeros((bsz, di, A.shape[1]), dtype=torch.float64)
+    y = torch.empty((bsz, s, di), dtype=torch.float64)
+    for t in range(s):
+        a = torch.exp(dt[:, t, :, None] * A)
+        h = a * h + (dt[:, t] * x[:, t])[..., None] * bm[:, t, None, :]
+        y[:, t] = (h * cm[:, t, None, :]).sum(-1)
+    return y, h
 
 
 def naive_decode(q, k, v, length):
@@ -2065,8 +2095,47 @@ def test_ssm_scan_wrapper_dispatch_and_checks():
         k7.ssm_scan(a, b, chunk=0)
 
 
+def test_selective_scan_wrapper_dispatch_and_checks():
+    """On a CPU tensor K12c's wrapper is its plain version (no launch), in
+    the reference's chunks of 64 (S = 100 leaves a short last one),
+    within 1e-6 of max |value| of an fp64 scan; N off a power of two."""
+    args = selective_inputs(2, 100, 24, 5, torch.float32)
+    before = k12c.launches
+    y, hf = k12c.selective_scan(*args)
+    py, phf = k12c.selective_scan_plain(*args)
+    assert torch.equal(y, py) and torch.equal(hf, phf)
+    assert k12c.launches == before                     # CPU: no launch
+    assert y.dtype == hf.dtype == torch.float32
+    assert y.shape == (2, 100, 24) and hf.shape == (2, 24, 5)
+    ny, nh = naive_selective(*args)
+    close(y, ny, 1e-6, scale=float(ny.abs().max()))
+    close(hf, nh, 1e-6, scale=float(nh.abs().max()))
+    by, bh = k12c.selective_scan(*selective_inputs(2, 100, 24, 5,
+                                                   torch.bfloat16))
+    assert by.dtype == bh.dtype == torch.float32
+    dt, bm, cm, x, A = args
+    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+        k12c.selective_scan(*(v.to("meta") for v in args))
+    with pytest.raises(TypeError):                     # Bm, Cm, x differ
+        k12c.selective_scan(dt, bm.bfloat16(), cm, x, A)
+    with pytest.raises(TypeError):                     # dt not fp32
+        k12c.selective_scan(dt.bfloat16(), bm, cm, x, A)
+    with pytest.raises(TypeError):
+        k12c.selective_scan(dt, bm.double(), cm.double(), x.double(), A)
+    with pytest.raises(ValueError):
+        k12c.selective_scan(dt, bm, cm, x[:, :99], A)
+    with pytest.raises(ValueError):
+        k12c.selective_scan(dt, bm[..., :4], cm[..., :4], x, A)
+    with pytest.raises(ValueError):
+        k12c.selective_scan(dt, bm, cm, x, A[:20])
+    with pytest.raises(ValueError, match="contiguous"):
+        k12c.selective_scan(dt, bm, cm, x.transpose(1, 2).contiguous()
+                            .transpose(1, 2), A)
+
+
 def _forward_only_call(kernel, grad_arg, device):
-    """One call of K6, K7 or K8 with input `grad_arg` requiring grad."""
+    """One call of K6, K7, K8, K10 or K12c with input `grad_arg` requiring
+    grad."""
     if kernel == "decode_attention":
         args = list(decode_inputs(1, 4, 2, 16, 8, torch.float32, device))
         fn = lambda a: k6.decode_attention(*a, 9)  # noqa: E731
@@ -2076,6 +2145,9 @@ def _forward_only_call(kernel, grad_arg, device):
     elif kernel == "blocked_xent":
         args = list(xent_inputs(5, 16, 40, torch.float32, True, device))
         fn = lambda a: k10.blocked_xent(*a, transpose_emb=True)  # noqa: E731
+    elif kernel == "selective_scan":
+        args = list(selective_inputs(1, 6, 4, 16, torch.float32, device))
+        fn = lambda a: k12c.selective_scan(*a)  # noqa: E731
     else:
         rng = np.random.default_rng(0)
         args = [torch.as_tensor(rng.normal(size=shape), dtype=torch.float32,
@@ -2088,13 +2160,14 @@ def _forward_only_call(kernel, grad_arg, device):
 _FORWARD_ONLY = [("decode_attention", 0), ("decode_attention", 1),
                  ("decode_attention", 2), ("ssm_scan", 0), ("ssm_scan", 1),
                  ("rmsnorm", 0), ("rmsnorm", 1), ("blocked_xent", 0),
-                 ("blocked_xent", 1)]
+                 ("blocked_xent", 1)] + [("selective_scan", i)
+                                         for i in range(5)]
 
 
 @pytest.mark.parametrize("kernel,grad_arg", _FORWARD_ONLY)
 def test_forward_only_kernels_refuse_grad(kernel, grad_arg):
-    """K6, K7, K8 and K10's raw wrappers refuse an input that requires
-    grad before they pick the device, as K5 and K9 do: the CUDA kernels
+    """K6, K7, K8, K10 and K12c's raw wrappers refuse an input that
+    requires grad before they pick the device, as K5 and K9 do: the CUDA kernels
     write into fresh tensors and would drop the gradient without a word
     (`ops.BlockedXent` is K10's differentiable entry)."""
     with pytest.raises(RuntimeError, match="forward only"):
@@ -2105,10 +2178,11 @@ def test_forward_only_kernels_refuse_grad(kernel, grad_arg):
 @pytest.mark.parametrize("kernel,grad_arg", _FORWARD_ONLY)
 def test_forward_only_kernels_refuse_grad_on_card(kernel, grad_arg):
     dev = _card()
-    before = (k6.launches, k7.launches, k8.launches, k10.launches)
+    counts = (k6, k7, k8, k10, k12c)
+    before = [k.launches for k in counts]
     with pytest.raises(RuntimeError, match="forward only"):
         _forward_only_call(kernel, grad_arg, dev)
-    assert (k6.launches, k7.launches, k8.launches, k10.launches) == before
+    assert [k.launches for k in counts] == before
 
 
 @pytest.mark.cuda
@@ -2268,6 +2342,57 @@ def test_rglru_scan_launches_k7_on_card(t):
     bar = 1e-5 * float(phs.abs().max())
     assert float((hs - phs).abs().max()) <= bar
     assert float((hf - phf).abs().max()) <= bar
+
+
+# (b, s, d_inner, N): B = 2, S off every tile (77, 1,000), d_inner off the
+# block's channels (200), N 16 (Falcon-Mamba), 8 (the smoke config), off a
+# power of two (5) and a full warp (32); Falcon-Mamba-7B's width
+SELECTIVE_CARD_CASES = [(2, 77, 200, 16), (1, 1000, 200, 16),
+                        (2, 1000, 256, 16), (2, 77, 64, 8), (1, 130, 33, 5),
+                        (1, 100, 40, 32), (3, 9, 7, 1), (1, 916, 8192, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,di,n", SELECTIVE_CARD_CASES)
+def test_selective_scan_kernel_matches_plain_on_card(b, s, di, n, dtype):
+    """K12c against its plain version on the same inputs: y within 1e-5
+    of max |y|, h_final within 1e-5 of max |h| (both fp32; `expf` and the
+    butterfly's order against `torch.exp` and the einsum's), one launch a
+    call, and two launches bitwise equal."""
+    dev = _card()
+    args = selective_inputs(b, s, di, n, dtype, dev, seed=s + di + n)
+    before = k12c.launches
+    y, hf = k12c.selective_scan(*args)
+    y2, hf2 = k12c.selective_scan(*args)
+    py, phf = k12c.selective_scan_plain(*args)
+    torch.cuda.synchronize()
+    assert k12c.launches == before + 2
+    assert y.dtype == hf.dtype == torch.float32
+    assert y.shape == (b, s, di) and hf.shape == (b, di, n)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(hf).all())
+    assert float((y - py).abs().max()) <= 1e-5 * float(py.abs().max())
+    assert float((hf - phf).abs().max()) <= 1e-5 * float(phf.abs().max())
+    assert torch.equal(y, y2) and torch.equal(hf, hf2)
+
+
+@pytest.mark.cuda
+def test_mamba_scan_launches_k12c_on_card():
+    """Mamba's selective scan on the model path (`models/ssm.py::
+    _mamba_chunk_scan`) on the card at Falcon-Mamba-7B's widths (d_inner
+    8,192, N 16) over 300 steps, bf16 inputs: one K12c launch, within
+    1e-5 of the plain version."""
+    from repro_torch.models import ssm
+    dev = _card()
+    dt, bm, cm, x, A = selective_inputs(1, 300, 8192, 16, torch.bfloat16,
+                                        dev, seed=3)
+    before = k12c.launches
+    y, hf = ssm._mamba_chunk_scan(dt, bm, cm, x, A)
+    py, phf = k12c.selective_scan_plain(dt, bm, cm, x, A)
+    torch.cuda.synchronize()
+    assert k12c.launches == before + 1 and y.is_cuda
+    assert float((y - py).abs().max()) <= 1e-5 * float(py.abs().max())
+    assert float((hf - phf).abs().max()) <= 1e-5 * float(phf.abs().max())
 
 
 # ---------------------------------------------------------------------------

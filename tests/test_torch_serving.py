@@ -48,7 +48,6 @@ from repro.serving.engine import _write_slot as ref_write_slot  # noqa: E402
 
 import repro_torch.carina as P  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.base import MAMBA  # noqa: E402
 from repro_torch.core.serve import ServingSession  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import param as PA  # noqa: E402
@@ -424,8 +423,8 @@ def _long_mla_prompt():
     _write_slot(cache, pc, 0, _deepseek(), 20)
 
 
-def _mamba_cache():
-    return [[{"conv": torch.zeros(2, 2, 3, 8), "ssm": torch.zeros(2, 2, 8, 4)}]]
+def _unknown_cache():
+    return [[{"conv": torch.zeros(2, 2, 3, 8), "s": torch.zeros(2, 2, 8, 4)}]]
 
 
 def _long_prompt():
@@ -436,8 +435,8 @@ def _long_prompt():
 
 
 UNPORTED = {
-    "arch": lambda: get_config("falcon-mamba-7b"),
-    "family": lambda: build_model(dataclasses.replace(_smoke(), family="ssm")),
+    "arch": lambda: get_config("qwen2-vl-7b"),
+    "family": lambda: build_model(dataclasses.replace(_smoke(), family="vlm")),
     "encdec": lambda: build_model(dataclasses.replace(_smoke(), encdec=True)),
     "mla": lambda: T.lm_spec(dataclasses.replace(   # q-LoRA MLA
         _deepseek(), mla=dataclasses.replace(_deepseek().mla,
@@ -450,8 +449,6 @@ UNPORTED = {
         dataclasses.replace(_smoke(), pad_heads_to_tp=True)),
     "seq-shard-knob": lambda: build_model(
         dataclasses.replace(_smoke(), decode_cache_seq_shard=True)),
-    "mamba-kind": lambda: T.lm_spec(dataclasses.replace(
-        _smoke(), block_pattern=(MAMBA,))),
     "gelu-mlp": lambda: T.lm_spec(dataclasses.replace(_smoke(),
                                                       mlp_kind="gelu")),
     "mrope": lambda: L._rope_for(dataclasses.replace(_smoke(),
@@ -463,13 +460,12 @@ UNPORTED = {
                                      causal=True, pad_heads=True),
     "group-kv": lambda: L.attention(*[torch.zeros(1, 4, 2, 16)] * 3,
                                     causal=False, group_kv=True),
-    "init-kind": lambda: PA.init_params(
-        {"a": PA.ParamSpec((4,), init="a_log")}, None, "cpu"),
     "loss": lambda: Model(dataclasses.replace(_smoke(), encdec=True)).loss(
         {}, {}),                              # the encoder-decoder loss
     "mla-cache": _long_mla_prompt,
-    "mamba-cache": lambda: _write_slot(_mamba_cache(), _mamba_cache(), 0,
-                                       _smoke(), 8),
+    # a cache that is none of the ported kinds' is refused, not written
+    "unknown-cache": lambda: _write_slot(_unknown_cache(), _unknown_cache(),
+                                         0, _smoke(), 8),
     "ring-cache": _long_prompt,
     # the windowed mode is ported; the session's constructor refuses the
     # reference's `backend=` (the NumPy/JAX engine switch)
